@@ -1,0 +1,94 @@
+"""Configuration of the port (copy of ``eeg_image_decode_tpu/core/config.py``).
+
+Only the dataclasses the serving slice needs are copied: ``DataConfig`` and
+``ATMSConfig``. Defaults reproduce the reference's hyperparameters.
+
+The three ``fused_*`` switches name a hand-written CUDA kernel of
+``ops/``: ``True`` routes through the kernel's wrapper (the kernel for a
+CUDA tensor, its plain PyTorch version for a CPU tensor), ``False`` takes
+the plain module path, and ``'auto'`` means "the kernel when the tensor is
+on CUDA" — except ``fused_projection``, whose ``'auto'`` keeps the exact-erf
+plain head exactly as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """THINGS-EEG dataset layout (ref ``Retrieval/eegdatasets_leaveone.py``)."""
+
+    data_path: str = ""
+    img_directory_training: str = ""
+    img_directory_test: str = ""
+    #: training set: 1654 classes x 10 images x 4 EEG repetitions
+    n_train_classes: int = 1654
+    images_per_train_class: int = 10
+    train_reps: int = 4
+    #: test set: 200 classes x 1 image x 80 repetitions (averaged by default)
+    n_test_classes: int = 200
+    test_reps: int = 80
+    average_test_reps: bool = True
+    n_channels: int = 63
+    n_timepoints: int = 250
+    time_window: tuple[float, float] = (0.0, 1.0)
+    #: clip-space embedding width (OpenCLIP ViT-H/14)
+    clip_dim: int = 1024
+    normalize_img_features: bool = True
+    text_prompt_template: str = "This picture is {description}"
+
+    @classmethod
+    def from_json(cls, path: str) -> "DataConfig":
+        """Load the reference's ``data_config.json`` path file."""
+        with open(path) as f:
+            raw = json.load(f)
+        return cls(
+            data_path=raw.get("data_path", ""),
+            img_directory_training=raw.get("img_directory_training", ""),
+            img_directory_test=raw.get("img_directory_test", ""),
+        )
+
+
+@dataclass(frozen=True)
+class ATMSConfig:
+    """ATM-S flagship encoder (ref ``Retrieval/ATMS_retrieval.py:44-59,171-191``).
+
+    Channel-token iTransformer: each of the 63 EEG channels becomes a token of
+    its 250-sample time course; a subject token is prepended; one post-norm
+    attention layer mixes channels; a ShallowNet-style temporal-spatial conv
+    stack plus a projector maps to the 1024-d CLIP space.
+    """
+
+    n_channels: int = 63
+    seq_len: int = 250
+    d_model: int = 250
+    n_heads: int = 4
+    n_layers: int = 1
+    d_ff: int = 256
+    dropout: float = 0.25
+    num_subjects: int = 10
+    #: per-subject value embeddings (joint training, ref ``Embed.py:127-130``)
+    joint_train: bool = False
+    # tsconv stage (ref ``ATMS_retrieval.py:97-125``)
+    conv_filters: int = 40
+    temporal_kernel: int = 25
+    pool_size: int = 51
+    pool_stride: int = 5
+    conv_dropout: float = 0.5
+    emb_size: int = 40
+    proj_dim: int = 1024
+    proj_dropout: float = 0.5
+    #: exact-erf GELU in the attention FFN (the reference's ``F.gelu``);
+    #: the kernel computes tanh GELU, so True forces the plain layer
+    exact_gelu: bool = False
+    #: CUDA attention-layer kernel (ops/attention.py)
+    fused_attention: bool | str = "auto"
+    #: CUDA tsconv stage-1 kernel (ops/tsconv.py)
+    fused_tsconv: bool | str = "auto"
+    #: CUDA projection-head kernel (ops/projection.py); 'auto' keeps the
+    #: plain exact-erf head, as in the JAX package
+    fused_projection: bool | str = "auto"
+

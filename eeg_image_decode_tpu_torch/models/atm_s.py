@@ -1,0 +1,123 @@
+"""ATM-S, the flagship EEG encoder (counterpart of
+``eeg_image_decode_tpu/models/atm_s.py``; ref
+``Retrieval/ATMS_retrieval.py:44-191``), eval mode:
+
+    (B, 63, 250) EEG
+      → ChannelTokenEmbedding: Dense(250→250) per channel + positions
+        + subject token prepended
+      → post-norm attention layer(s) over the 64 tokens, 4 heads of 62,
+        FFN 256 (ops/attention.py: one CUDA kernel per layer on the card)
+      → encoder_norm (fp32 LayerNorm), keep the first 63 tokens
+      → TSConv (stage 1 in ops/tsconv.py) → (B, 36, 40)
+      → flatten (1440) → ProjectionHead → (B, 1024) fp32
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from eeg_image_decode_tpu_torch.core.config import ATMSConfig
+from eeg_image_decode_tpu_torch.models.layers import (
+    Dense,
+    LNParams,
+    ProjectionHead,
+    TSConv,
+    check_fused,
+    layer_norm_fast,
+)
+from eeg_image_decode_tpu_torch.models.subject_embed import (
+    ChannelTokenEmbedding,
+)
+from eeg_image_decode_tpu_torch.ops.attention import (
+    attention_layer_reference,
+    fused_attention_layer,
+)
+
+
+class ChannelAttentionLayer(nn.Module):
+    """Post-norm transformer encoder layer (ref ``Transformer_EncDec.py:27-51``).
+
+    Faithful quirks: head dim = d_model // n_heads (250//4 = 62, so the QKV
+    projections are 250→248), softmax scale 1/√62, FFN as two Dense layers.
+    ``fused`` True/'auto' runs ``fused_attention_layer`` (the kernel for a
+    CUDA tensor, its plain version on the CPU); ``exact_gelu=True`` needs the
+    erf GELU the kernel does not compute, so it forces the plain layer."""
+
+    def __init__(self, d_model: int = 250, n_heads: int = 4, d_ff: int = 256,
+                 fused: bool | str = "auto", exact_gelu: bool = False):
+        super().__init__()
+        check_fused(fused, "fused_attention")
+        self.n_heads = n_heads
+        self.exact_gelu = exact_gelu
+        self.use_kernel = bool(fused) and not exact_gelu
+        inner = (d_model // n_heads) * n_heads
+        self.q_proj = Dense(d_model, inner)
+        self.k_proj = Dense(d_model, inner)
+        self.v_proj = Dense(d_model, inner)
+        self.out_proj = Dense(inner, d_model)
+        self.norm1 = LNParams(d_model)
+        self.ffn_in = Dense(d_model, d_ff)
+        self.ffn_out = Dense(d_ff, d_model)
+        self.norm2 = LNParams(d_model)
+
+    def params(self) -> dict:
+        """The layer's weights under the kernel's parameter names."""
+        return {
+            "wq": self.q_proj.kernel, "bq": self.q_proj.bias,
+            "wk": self.k_proj.kernel, "bk": self.k_proj.bias,
+            "wv": self.v_proj.kernel, "bv": self.v_proj.bias,
+            "wo": self.out_proj.kernel, "bo": self.out_proj.bias,
+            "ln1_s": self.norm1.scale, "ln1_b": self.norm1.bias,
+            "w1": self.ffn_in.kernel, "b1": self.ffn_in.bias,
+            "w2": self.ffn_out.kernel, "b2": self.ffn_out.bias,
+            "ln2_s": self.norm2.scale, "ln2_b": self.norm2.bias,
+        }
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_kernel:
+            return fused_attention_layer(x, self.params(), self.n_heads)
+        params = {k: v.to(x.dtype) for k, v in self.params().items()}
+        return attention_layer_reference(x, params, self.n_heads,
+                                         exact_gelu=self.exact_gelu)
+
+
+class ATMS(nn.Module):
+    """ATM-S encoder → (B, proj_dim) fp32 CLIP-space features."""
+
+    def __init__(self, config: ATMSConfig = ATMSConfig(),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.dtype = dtype
+        self.embedding = ChannelTokenEmbedding(
+            n_channels=cfg.n_channels, seq_len=cfg.seq_len,
+            d_model=cfg.d_model, num_subjects=cfg.num_subjects,
+            joint_train=cfg.joint_train)
+        for i in range(cfg.n_layers):
+            self.add_module(f"encoder_layer_{i}", ChannelAttentionLayer(
+                d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
+                fused=cfg.fused_attention, exact_gelu=cfg.exact_gelu))
+        self.encoder_norm = LNParams(cfg.d_model)
+        self.enc_eeg = TSConv(
+            filters=cfg.conv_filters, temporal_kernel=cfg.temporal_kernel,
+            pool_size=cfg.pool_size, pool_stride=cfg.pool_stride,
+            emb_size=cfg.emb_size, spatial_extent=cfg.n_channels,
+            fused_stage1=cfg.fused_tsconv)
+        k_fused = cfg.temporal_kernel + cfg.pool_size - 1
+        n_pos = (cfg.d_model - k_fused) // cfg.pool_stride + 1
+        self.proj_eeg = ProjectionHead(
+            n_pos * cfg.emb_size, cfg.proj_dim, fused=cfg.fused_projection)
+
+    def forward(self, x: torch.Tensor,
+                subject_ids: torch.Tensor | None = None) -> torch.Tensor:
+        h = self.embedding(x, subject_ids, self.dtype)
+        for i in range(self.config.n_layers):
+            h = getattr(self, f"encoder_layer_{i}")(h)
+        h = layer_norm_fast(h, self.encoder_norm)
+        # keep the first n_channels tokens: with the subject token prepended
+        # this keeps [subject, ch_0..ch_61] and drops the last electrode, as
+        # the reference does (``ATMS_retrieval.py:91``)
+        h = h[:, : self.config.n_channels, :]
+        return self.proj_eeg(self.enc_eeg(h, self.dtype), self.dtype)

@@ -1,0 +1,185 @@
+"""Shared building blocks of the ATM-S encoder (counterpart of
+``eeg_image_decode_tpu/models/layers.py``): the tsconv stack, the projection
+head and the raw logit scale.
+
+Parameters keep the JAX package's names and layouts (dense kernels are
+(d_in, d_out)); ``utils/convert.py`` maps a JAX variable tree onto them. The
+modules are inference-only: BatchNorm uses its running statistics and
+dropout is off (training is slice 2 of the port, see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from eeg_image_decode_tpu_torch.ops.projection import fused_projection_head
+from eeg_image_decode_tpu_torch.ops.tsconv import (
+    fold_pool_into_kernel,
+    tsconv_pool_fused,
+    tsconv_pool_reference,
+)
+
+
+def sinusoidal_position_embedding(n_positions: int, d_model: int) -> np.ndarray:
+    """Interleaved sin/cos table (ref ``models/subject_layers/Embed.py:8-26``)."""
+    position = np.arange(n_positions, dtype=np.float64)[:, None]
+    div_term = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float64) * -(np.log(10000.0) / d_model)
+    )
+    pe = np.zeros((n_positions, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term[: d_model // 2])
+    return pe.astype(np.float32)
+
+
+def check_fused(value, name: str) -> None:
+    if value not in (True, False, "auto"):
+        raise ValueError(f"{name} must be True, False or 'auto'; got {value!r}")
+
+
+class Dense(nn.Module):
+    """``kernel`` (d_in, d_out) and ``bias`` at the paths flax's Dense uses;
+    ``h @ kernel`` in h's dtype (fp32 accumulation) plus the bias in it."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(h, self.kernel.to(h.dtype)) + self.bias.to(h.dtype)
+
+
+class LNParams(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+
+def layer_norm_fast(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=float32)``: fp32 stats with the fast variance
+    max(E[h²] − μ², 0), eps 1e-6; fp32 out."""
+    h32 = h.float()
+    mu = h32.mean(-1, keepdim=True)
+    var = torch.clamp(h32.square().mean(-1, keepdim=True) - mu * mu, min=0.0)
+    return (h32 - mu) * (torch.rsqrt(var + 1e-6) * ln.scale) + ln.bias
+
+
+class BatchNormEval(nn.Module):
+    """flax ``BatchNorm(use_running_average=True)`` over the last axis:
+    normalised in fp32 with the running statistics (eps 1e-5), returned in
+    the input's dtype."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.var + 1e-5) * self.scale
+        return ((x - self.mean) * mul + self.bias).to(x.dtype)
+
+
+class TSConv(nn.Module):
+    """Temporal→spatial conv stack (ShallowNet-style ``tsconv``), eval mode.
+
+    (B, C, T) → (B, P, emb_size). Stage 1: the folded 75-tap stride-5
+    correlation (``ops/tsconv.py``) + BN + ELU. Stage 2: the spatial conv
+    over all C electrodes + BN + ELU. Stage 3: a 1x1 conv to ``emb_size``.
+    Ref ``Retrieval/ATMS_retrieval.py:97-125``.
+
+    The JAX module is NHWC: stage 1 gives (B, C, P, F), the spatial conv is
+    a (C, 1) HWIO kernel contracting C and F, and the tokens come out
+    p-major, f-minor. Here the spatial kernel is stored as (C·F, F_out) with
+    c-major rows, which is the HWIO kernel reshaped."""
+
+    def __init__(self, filters: int = 40, temporal_kernel: int = 25,
+                 pool_size: int = 51, pool_stride: int = 5,
+                 emb_size: int = 40, spatial_extent: int = 63,
+                 fused_stage1: bool | str = "auto"):
+        super().__init__()
+        check_fused(fused_stage1, "fused_tsconv")
+        self.pool_size = pool_size
+        self.pool_stride = pool_stride
+        self.spatial_extent = spatial_extent
+        self.use_kernel = bool(fused_stage1)  # True and 'auto'
+        # no conv bias ahead of BatchNorm, as in the JAX package
+        self.temporal_conv_kernel = nn.Parameter(
+            torch.zeros(temporal_kernel, filters))
+        self.bn1 = BatchNormEval(filters)
+        self.spatial_conv = nn.Module()
+        self.spatial_conv.kernel = nn.Parameter(
+            torch.zeros(spatial_extent * filters, filters))
+        self.bn2 = BatchNormEval(filters)
+        self.proj_conv = Dense(filters, emb_size)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = x.to(dtype)
+        b, c, _ = x.shape
+        if c != self.spatial_extent:
+            raise ValueError(f"expected {self.spatial_extent} channel rows, "
+                             f"got {c}")
+        # fold in fp32, then round the taps to the working dtype
+        w_tilde = fold_pool_into_kernel(
+            self.temporal_conv_kernel, self.pool_size).to(dtype)
+        if self.use_kernel:  # the kernel on CUDA, its plain version on CPU
+            y = tsconv_pool_fused(x, w_tilde, self.pool_stride)
+        else:
+            y = tsconv_pool_reference(x, w_tilde, self.pool_stride)
+        y = F.elu(self.bn1(y))                               # (B, C, P, F)
+        p, f = y.shape[2], y.shape[3]
+        y = y.permute(0, 2, 1, 3).reshape(b * p, c * f)    # (B·P, C·F)
+        y = torch.matmul(y, self.spatial_conv.kernel.to(dtype))
+        y = F.elu(self.bn2(y))
+        y = self.proj_conv(y)                                # (B·P, emb)
+        return y.reshape(b, p, -1)
+
+
+class ProjectionHead(nn.Module):
+    """Flatten → Dense → residual(GELU→Dense) → LayerNorm (ref ``Proj_eeg``,
+    ``Retrieval/ATMS_retrieval.py:157-167``), eval mode, fp32 out.
+
+    ``fused=True`` runs ``ops/projection.py::fused_projection_head`` (the
+    kernel on CUDA: tanh GELU, |Δ| ≲ 1e-3 from the default). ``False`` and
+    ``'auto'`` keep the exact-erf head with the fast-variance LayerNorm,
+    as the JAX package's ``'auto'`` does."""
+
+    def __init__(self, d_in: int, proj_dim: int = 1024,
+                 fused: bool | str = "auto"):
+        super().__init__()
+        check_fused(fused, "fused_projection")
+        self.use_kernel = fused != "auto" and bool(fused)
+        self.in_proj = Dense(d_in, proj_dim)
+        self.res_proj = Dense(proj_dim, proj_dim)
+        self.ln = LNParams(proj_dim)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1).to(dtype)
+        if self.use_kernel:
+            return fused_projection_head(x, {
+                "wi": self.in_proj.kernel, "bi": self.in_proj.bias,
+                "wr": self.res_proj.kernel, "br": self.res_proj.bias,
+                "ln_s": self.ln.scale, "ln_b": self.ln.bias,
+            })
+        a = self.in_proj(x)
+        h = self.res_proj(F.gelu(a, approximate="none"))
+        return layer_norm_fast(a + h, self.ln)
+
+
+class LogitScale(nn.Module):
+    """The raw trainable temperature (init ln(1/0.07) ≈ 2.659). Reference
+    quirk preserved: it multiplies the logits directly and is never
+    exponentiated (``Retrieval/ATMS_retrieval.py:179,227-229``)."""
+
+    def __init__(self, init_value: float = float(np.log(1 / 0.07))):
+        super().__init__()
+        self.logit_scale = nn.Parameter(torch.tensor(init_value))
+
+    def forward(self) -> torch.Tensor:
+        return self.logit_scale

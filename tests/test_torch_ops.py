@@ -1,0 +1,122 @@
+"""The port's three kernel modules against the JAX kernels.
+
+On this host the JAX kernels run in Pallas interpret mode and the port's
+wrappers run their plain PyTorch versions (the tensors lie on the CPU); both
+see the same numpy inputs and weights. Tolerance: fp32 throughout, JAX at
+'highest' matmul precision (conftest.py), atol = rtol = 1e-4 per op — the
+two sides differ only in fp32 summation order.
+
+The CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_kernels_cuda.py.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from eeg_image_decode_tpu.ops import attention as jax_attention
+from eeg_image_decode_tpu.ops import projection as jax_projection
+from eeg_image_decode_tpu.ops import tsconv as jax_tsconv
+from eeg_image_decode_tpu_torch.ops import _build
+from eeg_image_decode_tpu_torch.ops.attention import (
+    attention_layer_reference,
+    fused_attention_layer,
+)
+from eeg_image_decode_tpu_torch.ops.projection import (
+    fused_projection_head,
+    projection_head_reference,
+)
+from eeg_image_decode_tpu_torch.ops.tsconv import (
+    fold_pool_into_kernel,
+    tsconv_pool_fused,
+    tsconv_pool_reference,
+)
+from torch_port_case import attention_params, projection_params
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _t(tree):
+    return {k: torch.from_numpy(v) for k, v in tree.items()}
+
+
+def _j(tree):
+    return {k: jnp.asarray(v) for k, v in tree.items()}
+
+
+# (d_model, heads, d_ff): the second truncates the heads like ATM-S's
+# 250 → 4 × 62 = 248
+@pytest.mark.parametrize("d,heads,ff", [(32, 4, 64), (30, 4, 40)])
+def test_attention_matches_jax_kernel(d, heads, ff):
+    rng = np.random.default_rng(1)
+    inner = (d // heads) * heads
+    x = rng.normal(size=(3, 9, d)).astype(np.float32)
+    params = attention_params(rng, d, inner, ff)
+    want = np.asarray(jax_attention.fused_attention_layer(
+        jnp.asarray(x), _j(params), None, heads, True))
+    with torch.no_grad():
+        got = fused_attention_layer(torch.from_numpy(x), _t(params), heads)
+        plain = attention_layer_reference(torch.from_numpy(x), _t(params),
+                                          heads)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(plain.numpy(), want, **TOL)
+
+
+def test_tsconv_matches_jax_kernel():
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 8, 100)).astype(np.float32)
+    w = (rng.normal(size=(9, 6)) / 3.0).astype(np.float32)
+    w_tilde_jax = jax_tsconv.fold_pool_into_kernel(jnp.asarray(w), 16)
+    w_tilde = fold_pool_into_kernel(torch.from_numpy(w), 16)
+    np.testing.assert_allclose(w_tilde.numpy(), np.asarray(w_tilde_jax),
+                               **TOL)
+    want = np.asarray(jax_tsconv.tsconv_pool_fused(
+        jnp.asarray(x), w_tilde_jax, 4, True))
+    got = tsconv_pool_fused(torch.from_numpy(x), w_tilde, 4)
+    plain = tsconv_pool_reference(torch.from_numpy(x), w_tilde, 4)
+    assert got.shape == want.shape == (2, 8, 20, 6)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(plain.numpy(), want, **TOL)
+
+
+def test_projection_matches_jax_kernel():
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(5, 48)).astype(np.float32)
+    params = projection_params(rng, 48, 32)
+    want = np.asarray(jax_projection.fused_projection_head(
+        jnp.asarray(x), _j(params), None, 0.0, True))
+    got = fused_projection_head(torch.from_numpy(x), _t(params))
+    plain = projection_head_reference(torch.from_numpy(x), _t(params))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(plain.numpy(), want, **TOL)
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    """A CPU tensor runs the plain version: no launch is counted."""
+    _build.reset_launches()
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 48)).astype(np.float32))
+    fused_projection_head(x, _t(projection_params(rng, 48, 32)))
+    assert _build.LAUNCHES == {k: 0 for k in _build.LAUNCHES}
+
+
+def test_package_imports_without_jax():
+    """The port imports no JAX, flax, optax or JAX-package module."""
+    code = (
+        "import sys\n"
+        "import eeg_image_decode_tpu_torch.cli\n"
+        "import eeg_image_decode_tpu_torch.data.synthetic\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'eeg_image_decode_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)

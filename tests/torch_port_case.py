@@ -1,0 +1,68 @@
+"""Shared inputs of the port's tests (tests/test_torch_*.py). Imports no
+JAX at module level: tests/test_torch_kernels_cuda.py runs without it."""
+
+import numpy as np
+
+#: small ATM-S: 8 channels of T 100, d_model 32, 4 heads, d_ff 64, a 5-tap
+#: temporal kernel and a 12-wide, stride-2 pool (P = 6), 8 filters, 16-d out
+SMALL = dict(n_channels=8, seq_len=100, d_model=32, n_heads=4, d_ff=64,
+             num_subjects=3, conv_filters=8, temporal_kernel=5, pool_size=12,
+             pool_stride=2, emb_size=8, proj_dim=16)
+
+
+def randomize(variables, seed):
+    """Every leaf of a JAX variable tree redrawn from a numpy seed, as
+    nested dicts of numpy arrays."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        shape = np.shape(leaf)
+        if "'var'" in name:
+            v = rng.uniform(0.5, 1.5, size=shape)
+        elif "'mean'" in name or "'bias'" in name:
+            v = 0.1 * rng.normal(size=shape)
+        elif "'scale'" in name:
+            v = 1.0 + 0.1 * rng.normal(size=shape)
+        elif "'logit_scale'" in name:
+            v = np.asarray(2.6592600225)
+        elif "kernel" in name:
+            fan_in = int(np.prod(shape[:-1]))
+            v = rng.normal(size=shape) / np.sqrt(fan_in)
+        else:  # subject tokens
+            v = rng.normal(size=shape)
+        return np.asarray(v, np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, variables)
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def attention_params(rng, d, inner, ff):
+    shapes = {"wq": (d, inner), "bq": (inner,), "wk": (d, inner),
+              "bk": (inner,), "wv": (d, inner), "bv": (inner,),
+              "wo": (inner, d), "bo": (d,), "ln1_s": (d,), "ln1_b": (d,),
+              "w1": (d, ff), "b1": (ff,), "w2": (ff, d), "b2": (d,),
+              "ln2_s": (d,), "ln2_b": (d,)}
+    out = {}
+    for k, s in shapes.items():
+        if len(s) == 2:
+            v = rng.normal(size=s) / np.sqrt(s[0])
+        elif k.endswith("_s"):
+            v = 1.0 + 0.1 * rng.normal(size=s)
+        else:
+            v = 0.1 * rng.normal(size=s)
+        out[k] = v.astype(np.float32)
+    return out
+
+
+def projection_params(rng, d_in, d_out):
+    return {
+        "wi": (rng.normal(size=(d_in, d_out)) / np.sqrt(d_in)).astype(np.float32),
+        "bi": (0.1 * rng.normal(size=d_out)).astype(np.float32),
+        "wr": (rng.normal(size=(d_out, d_out)) / np.sqrt(d_out)).astype(np.float32),
+        "br": (0.1 * rng.normal(size=d_out)).astype(np.float32),
+        "ln_s": (1.0 + 0.1 * rng.normal(size=d_out)).astype(np.float32),
+        "ln_b": (0.1 * rng.normal(size=d_out)).astype(np.float32),
+    }

@@ -6,11 +6,17 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of every CUDA kernel from ``csrc/`` with its time.
-2. Each kernel at the serving shapes (B = 256, full ATM-S width) in bfloat16
-   and float32: max |Δ| against its plain PyTorch version on the same
-   inputs, with the tolerance stated; its time, the plain version's, a
-   library yardstick's where one exists (CUDA events, warm, median of 25
-   launches); and its bound, the least time the card could take for the
+2. Each kernel against its plain PyTorch version on the same inputs, in
+   bfloat16 and float32, with the tolerance stated: the three forward
+   kernels at the serving shapes (B = 256), and the training kernels at the
+   training shapes (B = 1024, full ATM-S width): the attention forward in
+   mask mode and in seed mode (the card's Philox draw must equal the plain
+   draw exactly, and the seed-mode forward the mask-mode forward fed that
+   draw, bit for bit), the attention backward (dx and all 16 gradients) and
+   the tsconv backward (dx and dw̃), each backward twice, bit for bit. Per
+   kernel: its time, the plain version's, a library yardstick's where one
+   PyTorch call computes the same function (CUDA events, warm, median of 25
+   launches), and its bound, the least time the card could take for the
    same work (bytes over 3.35 TB/s or operations over the dtype's peak,
    whichever is larger).
 3. The serving path at full width (``ATMSConfig()``, bf16, max_batch 256,
@@ -25,7 +31,20 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    with the default (exact-erf) projection head, which launches the
    attention and tsconv kernels, and with ``fused_projection=True``, which
    launches all three.
-4. One JSON line listing the kernels, then the result line
+4. The training path at full width: one subject's split drawn on the card
+   from a seed (``make_synthetic_device_data``: 1654 classes × 10 images ×
+   4 repetitions = 66,160 × 63 × 250 fp32, plus 200 test classes), then
+   ``ContrastiveTrainer`` at ``ATMSConfig()``, batch 1024, bf16, dropout on,
+   for one epoch (64 steps) and ``evaluate()``. The launch counts (set to 0
+   before the epoch and before the evaluation) must show the seeded
+   attention forward, the attention backward and both tsconv kernels once
+   per step; the loss must be finite and the mean of the last 8 steps below
+   that of the first 8. One step's gradients through the kernels are held
+   against the same step through the plain versions (same batch, the seven
+   dropout sites pinned to the same masks). Then the step time (p50 of
+   per-step CUDA-event times, the first 3 steps left out), samples/s, the
+   epoch and evaluation seconds and the peak device memory.
+5. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Any failure raises before the result line, and the exit code is not 0.
@@ -46,7 +65,8 @@ from unittest import mock
 import numpy as np
 
 SEED = 20200220
-BATCH = 256
+BATCH = 256          # serving
+TRAIN_BATCH = 1024   # training (ContrastiveTrainConfig().batch_size)
 REPS = 25
 #: H100 SXM published peaks (NVIDIA data sheet, dense), at a 700 W limit
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -256,6 +276,296 @@ def check_kernels(torch) -> dict:
     return rows
 
 
+# ——— phase 2, training kernels: B = 1024, full width ———
+
+L_TOK, D_MODEL, HEADS, D_FF = 64, 250, 4, 256
+P_DROP = 0.25
+#: backward kernel vs plain, as a share of the largest |plain| value of each
+#: output: fp32 differs in summation order only; in bf16 an fp32 sum that
+#: lands on the other side of a rounding boundary moves an intermediate by
+#: one bf16 ulp (2^-8), and the LayerNorm and softmax backward carry that
+#: into their neighbours. The key bias's gradient is zero in exact
+#: arithmetic (softmax ignores a shift of the scores), so its error is taken
+#: against the largest of the three QKV bias gradients.
+BWD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+#: the reasons printed beside each tolerance
+TOL_REASON = {
+    "float32": "fp32: the two sum in another order, nothing else",
+    "attention_fwd_masks": "one bf16 rounding of an intermediate per site, "
+                           "2 ulps of an output < 16",
+    "attention_fwd_seed": "one bf16 rounding of an intermediate per site, "
+                          "2 ulps of an output < 16",
+    "keep_masks": "the same Philox bits: exact",
+    "attention_bwd": "share of each output's largest |plain|: a bf16 "
+                     "rounding flip (2^-8) spread by the LayerNorm and "
+                     "softmax backward",
+    "tsconv_bwd": "share of each output's largest |plain|: fp32 sums of "
+                  "bf16 products, order only",
+}
+#: why a kernel has no library yardstick
+NO_LIBRARY = {
+    "attention_fwd_masks": "none: no one PyTorch call computes the layer",
+    "attention_fwd_seed": "none: no one PyTorch call computes the layer",
+    "keep_masks": "none: torch.rand draws other bits (not the same function)",
+    "attention_bwd": "none: no one PyTorch call computes the layer's "
+                     "backward",
+}
+#: dropout-mode forward vs plain: as the no-dropout layer, but the kept
+#: values 1/keep (4/3) scale what enters the LayerNorms, and each site adds
+#: a rounding in bf16: 2 ulps of an output of magnitude < 16 (2^-3)
+DROPOUT_FWD_TOL = {"bfloat16": 2.0 ** -3, "float32": 1e-4}
+
+
+def attention_case(torch, dtype, batch: int, seed: int):
+    """x (batch, 64, 250), the 16 parameters, a cotangent; in dtype."""
+    from eeg_image_decode_tpu_torch.ops.attention import PARAM_ORDER
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    inner = (D_MODEL // HEADS) * HEADS
+    shapes = {"wq": (D_MODEL, inner), "bq": (inner,), "wk": (D_MODEL, inner),
+              "bk": (inner,), "wv": (D_MODEL, inner), "bv": (inner,),
+              "wo": (inner, D_MODEL), "bo": (D_MODEL,), "ln1_s": (D_MODEL,),
+              "ln1_b": (D_MODEL,), "w1": (D_MODEL, D_FF), "b1": (D_FF,),
+              "w2": (D_FF, D_MODEL), "b2": (D_MODEL,), "ln2_s": (D_MODEL,),
+              "ln2_b": (D_MODEL,)}
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    p = {}
+    for k in PARAM_ORDER:
+        s = shapes[k]
+        if len(s) == 2:
+            p[k] = randn(*s, scale=s[0] ** -0.5)
+        elif k.endswith("_s"):
+            p[k] = randn(*s, scale=0.1, shift=1.0)
+        else:
+            p[k] = randn(*s, scale=0.1)
+    p = {k: v.to(dtype) for k, v in p.items()}
+    x = randn(batch, L_TOK, D_MODEL).to(dtype)
+    gout = randn(batch, L_TOK, D_MODEL).to(dtype)
+    return x, p, gout
+
+
+def attention_flops(batch: int) -> float:
+    inner = (D_MODEL // HEADS) * HEADS
+    hd = inner // HEADS
+    return batch * 2 * L_TOK * (3 * D_MODEL * inner + 2 * HEADS * L_TOK * hd
+                                + inner * D_MODEL + 2 * D_MODEL * D_FF)
+
+
+def scaled_errors(torch, got: dict, want: dict) -> dict:
+    """max |got − want| per output over the largest |want| (the QKV biases
+    share the largest scale of the three)."""
+    scale = {k: w.float().abs().max().item() for k, w in want.items()}
+    bias = max(scale.get(k, 0.0) for k in ("bq", "bk", "bv"))
+    out = {}
+    for k, w in want.items():
+        s = bias if k in ("bq", "bk", "bv") else scale[k]
+        out[k] = (got[k].float() - w.float()).abs().max().item() / max(s, 1e-30)
+    return out
+
+
+def check_training_kernels(torch) -> dict:
+    from eeg_image_decode_tpu_torch.ops.attention import (
+        MASK_ORDER,
+        PARAM_ORDER,
+        attention_layer_backward_reference,
+        attention_layer_reference,
+        draw_keep_masks,
+        draw_keep_masks_on_card,
+        fused_attention_layer,
+        fused_attention_layer_backward,
+    )
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        fold_pool_into_kernel,
+        out_positions,
+        tsconv_pool_backward_reference,
+        tsconv_pool_fused_backward,
+    )
+
+    B = TRAIN_BATCH
+    rows = {}
+
+    def record(name, dname, replaces, source, kern, plain, library, flops,
+               nbytes, err, tol, **extra):
+        b_ms, b_by = bound(flops, nbytes, dname)
+        reason = TOL_REASON["float32" if dname == "float32" and name !=
+                            "keep_masks" else name]
+        row = {"phase": "kernel", "name": name, "dtype": dname,
+               "shape_batch": B, "max_abs_err": err, "tolerance": tol,
+               "tolerance_reason": reason,
+               "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+               "library_ms": cuda_ms(torch, library) if library else None,
+               "library": "dense g2 @ E^T + x2^T @ g2" if library
+               else NO_LIBRARY[name],
+               "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+               "bytes": nbytes, **extra}
+        emit(row)
+        rows[(name, dname)] = dict(row, replaces=replaces, source=source)
+        return row
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        sz = torch.tensor([], dtype=dtype).element_size()
+        x, p, gout = attention_case(torch, dtype, B, SEED + 10)
+        n_par = sum(v.numel() for v in p.values())
+        flops = attention_flops(B)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        shapes = {"m_attn": (B, HEADS, L_TOK, L_TOK),
+                  "m_res": (B, L_TOK, D_MODEL), "m_ffn1": (B, L_TOK, D_FF),
+                  "m_ffn2": (B, L_TOK, D_MODEL)}
+        masks = {k: ((torch.rand(s, generator=g, device="cuda") >= P_DROP)
+                     .float() / (1 - P_DROP)).to(dtype)
+                 for k, s in shapes.items()}
+        n_mask = sum(m.numel() for m in masks.values())
+        tol_fwd = DROPOUT_FWD_TOL[dname]
+
+        # forward, mask mode
+        got = fused_attention_layer(x, p, HEADS, masks=masks)
+        want = attention_layer_reference(x, p, HEADS, masks=masks)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        record("attention_fwd_masks", dname,
+               "eeg_image_decode_tpu/ops/attention.py:136",
+               "eeg_image_decode_tpu_torch/csrc/attention_fwd.cu",
+               lambda: fused_attention_layer(x, p, HEADS, masks=masks),
+               lambda: attention_layer_reference(x, p, HEADS, masks=masks),
+               None, flops, (2 * x.numel() + n_par + n_mask) * sz, err,
+               tol_fwd)
+        if not err <= tol_fwd:
+            raise RuntimeError(f"attention_fwd_masks {dname}: {err}")
+
+        # the seeded draw: the card's Philox against the plain one, exactly
+        seed = SEED % (2**31 - 1)
+        seed_t = torch.tensor([seed], dtype=torch.int32, device="cuda")
+        card = draw_keep_masks_on_card(seed_t, B, HEADS, L_TOK, D_MODEL, D_FF,
+                                       P_DROP)
+        drawn = draw_keep_masks(seed, B, HEADS, L_TOK, D_MODEL, D_FF, P_DROP,
+                                device="cuda")
+        torch.cuda.synchronize()
+        equal = all(torch.equal(card[k], drawn[k]) for k in MASK_ORDER)
+        kept = {k: float((card[k] > 0).float().mean()) for k in MASK_ORDER}
+        if dtype == torch.bfloat16:
+            err = max((card[k] - drawn[k]).abs().max().item()
+                      for k in MASK_ORDER)
+            record("keep_masks", dname,
+                   "eeg_image_decode_tpu/ops/attention.py:109",
+                   "eeg_image_decode_tpu_torch/csrc/philox.cuh",
+                   lambda: draw_keep_masks_on_card(seed_t, B, HEADS, L_TOK,
+                                                   D_MODEL, D_FF, P_DROP),
+                   lambda: draw_keep_masks(seed, B, HEADS, L_TOK, D_MODEL,
+                                           D_FF, P_DROP, device="cuda"),
+                   None, 0.0, n_mask * 4, err, 0.0, masks_equal=equal,
+                   kept_fraction=kept)
+        if not equal:
+            raise RuntimeError("the card's keep-masks differ from the plain "
+                               "draw")
+        bad = {k: v for k, v in kept.items() if abs(v - 0.75) > 0.005}
+        if bad:
+            raise RuntimeError(f"kept fractions off 0.75 ± 0.005: {bad}")
+
+        # forward, seed mode: bit-equal to mask mode fed the card's draw
+        got = fused_attention_layer(x, p, HEADS, dropout_p=P_DROP,
+                                    seed=seed_t)
+        via_masks = fused_attention_layer(x, p, HEADS, masks=card)
+        want = attention_layer_reference(x, p, HEADS, masks=drawn)
+        torch.cuda.synchronize()
+        same = torch.equal(got, via_masks)
+        err = (got.float() - want.float()).abs().max().item()
+        record("attention_fwd_seed", dname,
+               "eeg_image_decode_tpu/ops/attention.py:136",
+               "eeg_image_decode_tpu_torch/csrc/attention_fwd.cu",
+               lambda: fused_attention_layer(x, p, HEADS, dropout_p=P_DROP,
+                                             seed=seed_t),
+               lambda: attention_layer_reference(x, p, HEADS, masks=drawn),
+               None, flops, (2 * x.numel() + n_par) * sz, err, tol_fwd,
+               equals_mask_mode_on_card_draw=same)
+        if not (same and err <= tol_fwd):
+            raise RuntimeError(f"attention_fwd_seed {dname}: bit-equal to "
+                               f"mask mode {same}, |Δ| {err}")
+
+        # backward, seed mode (the training path's): dx and 16 gradients
+        def kern_bwd():
+            return fused_attention_layer_backward(x, p, gout, HEADS,
+                                                  dropout_p=P_DROP,
+                                                  seed=seed_t)
+
+        dx1, g1 = kern_bwd()
+        dx2, g2 = kern_bwd()
+        dxp, gp = attention_layer_backward_reference(x, p, gout, HEADS,
+                                                     masks=drawn)
+        torch.cuda.synchronize()
+        got = {"x": dx1, **g1}
+        want = {"x": dxp, **gp}
+        repeat = torch.equal(dx1, dx2) and all(
+            torch.equal(g1[k], g2[k]) for k in PARAM_ORDER)
+        finite = all(torch.isfinite(v.float()).all().item()
+                     for v in got.values())
+        errs = scaled_errors(torch, got, want)
+        err = max((got[k].float() - want[k].float()).abs().max().item()
+                  for k in want)
+        tol = BWD_TOL[dname]
+        record("attention_bwd", dname,
+               "eeg_image_decode_tpu/ops/attention.py:368",
+               "eeg_image_decode_tpu_torch/csrc/attention_bwd.cu",
+               kern_bwd,
+               lambda: attention_layer_backward_reference(x, p, gout, HEADS,
+                                                          masks=drawn),
+               None, 3 * flops, (3 * x.numel() + n_par) * sz + n_par * 4,
+               err, tol, max_scaled_err=max(errs.values()),
+               scaled_err=errs, bit_identical_rerun=repeat)
+        if not (repeat and finite and max(errs.values()) <= tol):
+            raise RuntimeError(f"attention_bwd {dname}: rerun bit-equal "
+                               f"{repeat}, finite {finite}, errors {errs}")
+
+        # tsconv backward: dx (fp32) and dw~ (fp32)
+        gt = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        C, T, K, Fn, pool, stride = 63, 250, 25, 40, 51, 5
+        w_tilde = fold_pool_into_kernel(
+            torch.randn(K, Fn, generator=gt, device="cuda") * K ** -0.5,
+            pool).to(dtype)
+        M = w_tilde.shape[0]
+        P = out_positions(T, M, stride)
+        xt = torch.randn(B, C, T, generator=gt, device="cuda").to(dtype)
+        gt_out = torch.randn(B, C, P, Fn, generator=gt,
+                             device="cuda").to(dtype)
+        m_idx = torch.arange(T, device="cuda")[:, None] - torch.arange(
+            P, device="cuda")[None, :] * stride
+        valid = (m_idx >= 0) & (m_idx < M)
+        e = torch.where(valid[..., None], w_tilde[m_idx.clamp(0, M - 1)],
+                        torch.zeros((), dtype=dtype, device="cuda"))
+        e = e.reshape(T, P * Fn)
+        x2 = xt.reshape(B * C, T)
+        g2d = gt_out.reshape(B * C, P * Fn)
+
+        def kern_ts():
+            return tsconv_pool_fused_backward(xt, w_tilde, gt_out, stride)
+
+        (a1, b1), (a2, b2) = kern_ts(), kern_ts()
+        ap, bp = tsconv_pool_backward_reference(xt, w_tilde, gt_out, stride)
+        torch.cuda.synchronize()
+        repeat = torch.equal(a1, a2) and torch.equal(b1, b2)
+        errs = scaled_errors(torch, {"x": a1, "w_tilde": b1},
+                             {"x": ap, "w_tilde": bp})
+        err = max((a1 - ap).abs().max().item(), (b1 - bp).abs().max().item())
+        rows_n = B * C
+        record("tsconv_bwd", dname, "eeg_image_decode_tpu/ops/tsconv.py:130",
+               "eeg_image_decode_tpu_torch/csrc/tsconv_bwd.cu", kern_ts,
+               lambda: tsconv_pool_backward_reference(xt, w_tilde, gt_out,
+                                                      stride),
+               lambda: (torch.matmul(g2d, e.T), torch.matmul(x2.T, g2d)),
+               2 * 2 * rows_n * P * M * Fn,
+               (xt.numel() + gt_out.numel() + w_tilde.numel()) * sz
+               + (xt.numel() + w_tilde.numel()) * 4,
+               err, tol, max_scaled_err=max(errs.values()), scaled_err=errs,
+               bit_identical_rerun=repeat)
+        if not (repeat and max(errs.values()) <= tol):
+            raise RuntimeError(f"tsconv_bwd {dname}: rerun bit-equal "
+                               f"{repeat}, errors {errs}")
+    return rows
+
+
 # ——— phase 3: the serving path through the port's HTTP daemon ———
 
 
@@ -289,7 +599,8 @@ def plain_versions():
     return [
         mock.patch("eeg_image_decode_tpu_torch.models.atm_s."
                    "fused_attention_layer",
-                   lambda x, p, h=4: attention_layer_reference(x, cast(p, x), h)),
+                   lambda x, p, h=4, **_: attention_layer_reference(
+                       x, cast(p, x), h)),
         mock.patch("eeg_image_decode_tpu_torch.models.layers.tsconv_pool_fused",
                    lambda x, w, s=5: tsconv_pool_reference(x, w.to(x.dtype), s)),
         mock.patch("eeg_image_decode_tpu_torch.models.layers."
@@ -392,6 +703,223 @@ def serve_path(torch, variant: str, fused_projection: bool, eeg, sids,
         server.stop()
 
 
+# ——— phase 4: the training path ———
+
+
+def plain_training_ops(torch):
+    """The attention layer and tsconv stage 1 as autograd Functions of
+    their plain versions (forward and backward), with the wrappers'
+    signatures: the same step without any kernel."""
+    from eeg_image_decode_tpu_torch.ops.attention import (
+        PARAM_ORDER,
+        attention_layer_backward_reference,
+        attention_layer_reference,
+    )
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        tsconv_pool_backward_reference,
+        tsconv_pool_reference,
+    )
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, n_heads, masks, *flat):
+            ctx.save_for_backward(x, *flat)
+            ctx.n_heads, ctx.masks = n_heads, masks
+            return attention_layer_reference(
+                x, dict(zip(PARAM_ORDER, flat)), n_heads, masks=masks)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, *flat = ctx.saved_tensors
+            dx, grads = attention_layer_backward_reference(
+                x, dict(zip(PARAM_ORDER, flat)), g, ctx.n_heads,
+                masks=ctx.masks)
+            return (dx, None, None,
+                    *[grads[k].to(x.dtype) for k in PARAM_ORDER])
+
+    class PlainTSConv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, stride):
+            ctx.save_for_backward(x, w)
+            ctx.stride = stride
+            return tsconv_pool_reference(x, w, stride)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            dx, dw = tsconv_pool_backward_reference(x, w, g, ctx.stride)
+            return dx.to(x.dtype), dw.to(w.dtype), None
+
+    def attention(x, params, n_heads=4, *, masks=None, dropout_p=0.0,
+                  seed=None):
+        if masks is None and dropout_p > 0.0:
+            raise RuntimeError("the plain step takes pinned masks only")
+        dt = x.dtype
+        flat = [params[k].to(dt) for k in PARAM_ORDER]
+        masks = None if masks is None else {k: v.to(dt)
+                                            for k, v in masks.items()}
+        return PlainAttention.apply(x, n_heads, masks, *flat)
+
+    def tsconv(x, w_tilde, stride=5):
+        return PlainTSConv.apply(x, w_tilde.to(x.dtype), stride)
+
+    return [mock.patch("eeg_image_decode_tpu_torch.models.atm_s."
+                       "fused_attention_layer", attention),
+            mock.patch("eeg_image_decode_tpu_torch.models.layers."
+                       "tsconv_pool_fused", tsconv)]
+
+
+#: one training step's gradients, kernels against plain versions, as the
+#: relative L2 error per parameter: both round at the same places in bf16,
+#: and an fp32 sum that lands on the other side of a bf16 rounding boundary
+#: moves an intermediate by 2^-8; 5e-2 is about ten such flips per value
+#: on average across a gradient
+GRAD_TOL = 5e-2
+
+
+def grad_check(torch, trainer) -> dict:
+    """The same step (batch, pinned masks at the seven sites) through the
+    kernels and through the plain versions."""
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.ops.attention import draw_keep_masks
+    from eeg_image_decode_tpu_torch.train.contrastive import batch_loss
+
+    model, cfg, data = trainer.model, trainer.cfg, trainer.data
+    B = TRAIN_BATCH
+    idx = torch.arange(B, device="cuda")
+    batch = {"eeg": data.eeg[idx], "subject_ids": data.subject_ids[idx],
+             "img_feat": data.img_feat[data.img_idx[idx]],
+             "text_feat": data.text_feat[data.text_idx[idx]]}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def keep(shape, p):
+        return (torch.rand(shape, generator=g, device="cuda") >= p).float() \
+            / (1.0 - p)
+
+    masks = {"emb": keep((B, L_TOK, D_MODEL), 0.25),
+             "layer0": draw_keep_masks(SEED + 21, B, HEADS, L_TOK, D_MODEL,
+                                       D_FF, 0.25, device="cuda"),
+             "tsconv": keep((B, 1, 36, 40), 0.5),
+             "proj": keep((B, 1024), 0.5)}
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step(plain: bool):
+        model.load_state_dict(saved)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with ExitStack() as stack:
+            if plain:
+                for patch in plain_training_ops(torch):
+                    stack.enter_context(patch)
+            loss, _ = batch_loss(model, cfg, batch, dropout_masks=masks)
+            loss.backward()
+        return float(loss.detach()), {k: p.grad.detach().float().clone()
+                             for k, p in model.named_parameters()}
+
+    _build.reset_launches()
+    loss_k, grads_k = step(False)
+    launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    loss_p, grads_p = step(True)
+    if any(_build.LAUNCHES.values()):
+        raise RuntimeError("the plain step launched a kernel")
+    model.load_state_dict(saved)
+    model.zero_grad(set_to_none=True)
+    norms = {k: v.norm().item() for k, v in grads_p.items()}
+    qkv = [k for k in norms if k.split(".")[-2] in ("q_proj", "k_proj",
+                                                    "v_proj")
+           and k.endswith("bias")]
+    bias_scale = max(norms[k] for k in qkv)
+    rel = {k: (grads_k[k] - grads_p[k]).norm().item()
+           / max(bias_scale if k in qkv else norms[k], 1e-30)
+           for k in grads_p}
+    worst = max(rel, key=rel.get)
+    row = {"phase": "train_grad_check", "dtype": "bfloat16",
+           "loss_kernels": loss_k, "loss_plain": loss_p,
+           "launches_kernel_step": launches, "tolerance": GRAD_TOL,
+           "worst_param": worst, "worst_rel_l2": rel[worst],
+           "rel_l2": rel}
+    emit(row)
+    if not (rel[worst] <= GRAD_TOL and np.isfinite(loss_k)):
+        raise RuntimeError(f"step gradients, kernels vs plain: {worst} "
+                           f"{rel[worst]} > {GRAD_TOL}")
+    return row
+
+
+def train_path(torch, card: str) -> tuple[dict, object]:
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_device_data,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+    )
+
+    tcfg = ContrastiveTrainConfig()
+    if tcfg.batch_size != TRAIN_BATCH:
+        raise RuntimeError(f"batch {tcfg.batch_size} != {TRAIN_BATCH}")
+    t0 = time.perf_counter()
+    train, test = make_synthetic_device_data(seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
+                          device="cuda", seed=SEED)
+    trainer = ContrastiveTrainer(model, tcfg, train, test, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    metrics = trainer.train_epoch(0)
+    train_launches = dict(_build.LAUNCHES)
+    losses = trainer.last_steps["step_loss"]
+    step_ms = trainer.last_steps["step_ms"]
+    n_steps = len(losses)
+    wrong = {k: train_launches[k] for k in
+             ("attention_fwd_seed", "attention_bwd", "tsconv_fwd",
+              "tsconv_bwd") if train_launches[k] != n_steps}
+    if n_steps != train.n // TRAIN_BATCH or wrong:
+        raise RuntimeError(f"training launches per step are not 1: {wrong} "
+                           f"over {n_steps} steps")
+    first8, last8 = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+    if not (np.all(np.isfinite(losses)) and last8 < first8):
+        raise RuntimeError(f"loss did not fall: first 8 {first8}, last 8 "
+                           f"{last8}")
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    evaluation = trainer.evaluate(0)                 # reads back: synced
+    eval_s = time.perf_counter() - t0
+    eval_launches = dict(_build.LAUNCHES)
+    if not (eval_launches["attention_fwd"] and eval_launches["tsconv_fwd"]):
+        raise RuntimeError(f"evaluation launched no forward kernel: "
+                           f"{eval_launches}")
+    if not all(np.isfinite(v) for v in evaluation.values()):
+        raise RuntimeError(f"non-finite evaluation: {evaluation}")
+    p50 = float(np.median(step_ms[3:]))
+    row = {"phase": "train", "card": card, "dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "train_samples": train.n,
+           "steps": n_steps, "loss_first8": first8, "loss_last8": last8,
+           "epoch_loss": metrics["loss"], "train_acc": metrics["train_acc"],
+           "step_ms_p50": p50, "step_ms_min": float(np.min(step_ms[3:])),
+           "step_ms_max": float(np.max(step_ms[3:])),
+           "samples_per_s": TRAIN_BATCH / (p50 / 1e3),
+           "epoch_s": metrics["epoch_time_s"],
+           "epoch_samples_per_s": metrics["samples_per_s"],
+           "eval_s": eval_s, "data_on_card_s": data_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_train": train_launches,
+           "launches_per_step": {k: v / n_steps
+                                 for k, v in train_launches.items()},
+           "launches_eval": eval_launches, "eval": evaluation,
+           "step_loss": losses}
+    emit(row)
+    return row, trainer
+
+
 def main() -> int:
     import torch
 
@@ -420,6 +948,7 @@ def main() -> int:
             print("ptxas:", line.strip(), flush=True)
 
     kernels = check_kernels(torch)
+    kernels.update(check_training_kernels(torch))
 
     train, test = make_synthetic_retrieval_data(
         n_classes=200, images_per_class=1, train_reps=2, seed=SEED)
@@ -432,13 +961,29 @@ def main() -> int:
         serve_path(torch, "fused_projection", True, eeg, sids, gallery),
     ]
 
+    del train, test, eeg
+    train_row, trainer = train_path(torch, card)
+    grad_check(torch, trainer)
+
+    # launches on the main paths: the serving requests, the training epoch
+    # and the evaluation (each counted from 0); the seeded mask draw runs
+    # inside every seeded forward and every backward of the epoch
+    main_path = {k: sum(r["launches"][k] for r in serve_rows)
+                 + train_row["launches_train"][k]
+                 + train_row["launches_eval"][k]
+                 for k in _build.LAUNCHES}
+    main_path["keep_masks"] = (train_row["launches_train"]["attention_fwd_seed"]
+                               + train_row["launches_train"]["attention_bwd"])
     line = []
-    for name in ("attention_fwd", "tsconv_fwd", "projection_fwd"):
+    for name in ("attention_fwd", "attention_fwd_seed", "keep_masks",
+                 "attention_bwd", "tsconv_fwd", "tsconv_bwd",
+                 "projection_fwd"):
         k = kernels[(name, "bfloat16")]
+        if not main_path[name]:
+            raise RuntimeError(f"{name} was not launched on the main path")
         line.append({
             "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"],
-            "launches": sum(r["launches"][name] for r in serve_rows),
+            "replaces": k["replaces"], "launches": main_path[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],

@@ -1,7 +1,8 @@
 """Configuration of the port (copy of ``eeg_image_decode_tpu/core/config.py``).
 
-Only the dataclasses the serving slice needs are copied: ``DataConfig`` and
-``ATMSConfig``. Defaults reproduce the reference's hyperparameters.
+The dataclasses the serving and training slices need are copied:
+``DataConfig``, ``ATMSConfig`` and ``ContrastiveTrainConfig``. Defaults
+reproduce the reference's hyperparameters.
 
 The three ``fused_*`` switches name a hand-written CUDA kernel of
 ``ops/``: ``True`` routes through the kernel's wrapper (the kernel for a
@@ -92,3 +93,29 @@ class ATMSConfig:
     #: plain exact-erf head, as in the JAX package
     fused_projection: bool | str = "auto"
 
+
+@dataclass(frozen=True)
+class ContrastiveTrainConfig:
+    """Contrastive retrieval training (ref ``Retrieval/ATMS_retrieval.py:516-586``).
+
+    The JAX config's ``ckpt_every_epochs``, ``host_dtype`` and
+    ``data_axis`` belong to the checkpointer and the streaming and mesh
+    modes, which are not ported yet (ROADMAP.md)."""
+
+    encoder: str = "atms"
+    batch_size: int = 1024
+    epochs: int = 40
+    lr: float = 3e-4
+    weight_decay: float = 1e-2  # AdamW default (torch), applied decoupled
+    #: loss = alpha*img_clip + (1-alpha)*text_clip (ref ``:206,234``)
+    alpha: float = 0.99
+    #: reconstruction variant: alpha*MSE*10 + (1-alpha)*img_clip*10
+    #: (ref ``Generation/ATMS_reconstruction.py:198,227-228``)
+    recon_loss: bool = False
+    recon_alpha: float = 0.90
+    logit_scale_init: float = 2.6592600225  # ln(1/0.07)
+    seed: int = 0
+    eval_ks: tuple[int, ...] = (2, 4, 10, 50, 100, 200)
+    #: dtype for activations on the compute path; params stay fp32 (the
+    #: model's dtype is set when it is built, ``build_encoder(dtype=)``)
+    compute_dtype: str = "bfloat16"

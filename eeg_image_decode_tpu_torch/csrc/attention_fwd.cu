@@ -1,8 +1,9 @@
-// Fused post-norm channel-attention layer of ATM-S, forward, no dropout.
+// Fused post-norm channel-attention layer of ATM-S, forward.
 //
 // Replaces the TPU kernel eeg_image_decode_tpu/ops/attention.py::_kernel
-// (launched by _attention_pallas), in its mask-free, seed-free mode: the
-// whole layer
+// (launched by _attention_pallas) in its three modes: no dropout, explicit
+// keep-masks (has_masks) and in-kernel seeded masks (has_seed, the draw of
+// _draw_keep_masks: csrc/philox.cuh). The whole layer
 //
 //   q,k,v = x Wq/Wk/Wv + b (D -> H*hd)   per head: softmax(q k^T / sqrt(hd)) v
 //   a = o Wo + bo;  h1 = LN1(x + a);  y = gelu_tanh(h1 W1 + b1) W2 + b2
@@ -13,27 +14,36 @@
 // Rounding follows the JAX kernel: each dense is an fp32-accumulated product
 // rounded to the working type, plus the bias in the working type; scores and
 // softmax are fp32, the probabilities are rounded before P V; LayerNorm is
-// fp32 (eps 1e-6, biased variance).
+// fp32 (eps 1e-6, biased variance). Dropout multiplies, in the working type,
+// the rounded probabilities (m_attn), the output projection (m_res), the
+// GELU output (m_ffn1) and the second dense (m_ffn2), as the JAX kernel does;
+// a seeded mask's kept value is 1/keep rounded to the working type.
 //
 // Bound on the H100 (ATM-S: L 64, D 250, 4 heads of 62, FF 256): about
 // 52 MFLOP per sample against 64 KB of activations in and out, so the layer
 // is compute-bound (13.4 GFLOP at B 256 is ~14 us at the bf16 tensor-core
-// peak, the 16 MB of activations ~5 us). This first version runs the
-// products as fp32 FMA loops (common.cuh::gemm_rows), one block per sample,
-// and keeps what the bound asks for: activations read once and written once,
-// every intermediate on chip. It is bound instead by streaming the weights
-// (0.75 MB in bf16) from L2: each warp job covers 8 rows, so a block reads
-// each weight 8 times, and 16 warps per SM hide little of the L2 latency.
-// Tensor-core (mma/wgmma) products over weight tiles staged in shared memory
-// are the next step.
+// peak, the 16 MB of activations ~5 us). Mask mode adds 130 KB of bf16
+// masks per sample, which brings the bytes level with the operations. This
+// first version runs the products as fp32 FMA loops (common.cuh::gemm_rows),
+// one block per sample, and keeps what the bound asks for: activations read
+// once and written once, every intermediate on chip, seeded masks drawn in
+// registers. It is bound instead by streaming the weights (0.75 MB in bf16)
+// from L2: each warp job covers 8 rows, so a block reads each weight 8
+// times, and 16 warps per SM hide little of the L2 latency. Tensor-core
+// (mma/wgmma) products over weight tiles staged in shared memory are the
+// next step.
 //
 // Shared memory per block: x/h1 (L x D), o / FFN hidden (L x inner, then
 // L x FF), q_h k_h v_h of the current head (3 x L x hd) and the fp32 scores
 // (L x L): 104 KB in bf16 (two blocks per SM), 191 KB in fp32.
+//
+// keep_masks_kernel writes the seeded masks out (fp32), so that what the
+// card draws can be held against the plain draw exactly.
 
 #include <cmath>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -48,10 +58,16 @@ struct AttnArgs {
   int L, D, inner, FF, H;
   float scale;
   size_t off_o, off_qkv, off_s;
+  Dropout drop;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// kMode: kDropNone, kDropMasks or kDropSeed; the no-dropout kernel carries
+// no dropout code at all. The dropout modes in bf16 are held to 128
+// registers, so that two blocks share an SM as their 104 KB of shared memory
+// allows (unbounded they take ~195).
+template <typename T, int kMode>
+__global__ void __launch_bounds__(
+    kThreads, (kMode != kDropNone && sizeof(T) == 2) ? 2 : 1)
     attention_fwd_kernel(const AttnArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = p.L, D = p.D, inner = p.inner, FF = p.FF, H = p.H;
@@ -80,7 +96,11 @@ __global__ void __launch_bounds__(kThreads)
   T* vh = kh + L * hd;
   float* sc = reinterpret_cast<float*>(smem + p.off_s);  // L x L
 
-  const long base = (long)blockIdx.x * L * D;
+  const long sample = blockIdx.x;
+  const uint32_t seed = kMode == kDropSeed ? (uint32_t)*p.drop.seed : 0u;
+  const float kept = rnd<T>(p.drop.inv_keep);
+  constexpr bool drop = kMode != kDropNone;
+  const long base = sample * L * D;
   const T* x = static_cast<const T*>(p.x) + base;
   T* out = static_cast<T*>(p.out) + base;
   for (int i = threadIdx.x; i < L * D; i += blockDim.x) xs[i] = x[i];
@@ -125,7 +145,13 @@ __global__ void __launch_bounds__(kThreads)
         s += e;
       }
       s = warp_sum(s);
-      for (int j = lane; j < L; j += 32) row[j] = rnd<T>(row[j] / s);
+      for (int j = lane; j < L; j += 32) {
+        float pr = rnd<T>(row[j] / s);
+        if (drop)
+          pr = rnd<T>(pr * keep_factor<T>(p.drop, seed, 0, sample, (long)H * L * L,
+                                          ((long)h * L + i) * L + j, kept));
+        row[j] = pr;
+      }
     }
     __syncthreads();
     // o[:, head h] = P v_h
@@ -141,7 +167,10 @@ __global__ void __launch_bounds__(kThreads)
   gemm_rows<8, 4, T, T>(
       os, inner, L, inner, D, D, [&](int n) { return wo + n; },
       [&](int i, int n, float acc) {
-        const float a = rnd<T>(rnd<T>(acc) + to_f(bo[n]));
+        float a = rnd<T>(rnd<T>(acc) + to_f(bo[n]));
+        if (drop)
+          a = rnd<T>(a * keep_factor<T>(p.drop, seed, 1, sample, (long)L * D,
+                                        (long)i * D + n, kept));
         xs[i * D + n] = from_f<T>(to_f(xs[i * D + n]) + a);
       });
   __syncthreads();
@@ -162,14 +191,21 @@ __global__ void __launch_bounds__(kThreads)
       xs, D, L, D, FF, FF, [&](int n) { return w1 + n; },
       [&](int i, int n, float acc) {
         const float u = rnd<T>(rnd<T>(acc) + to_f(b1[n]));
-        ys[i * FF + n] = from_f<T>(gelu_tanh(u));
+        float y = rnd<T>(gelu_tanh(u));
+        if (drop)
+          y = rnd<T>(y * keep_factor<T>(p.drop, seed, 2, sample, (long)L * FF,
+                                        (long)i * FF + n, kept));
+        ys[i * FF + n] = from_f<T>(y);
       });
   __syncthreads();
   // h1 <- h1 + (y W2 + b2), in place
   gemm_rows<8, 4, T, T>(
       ys, FF, L, FF, D, D, [&](int n) { return w2 + n; },
       [&](int i, int n, float acc) {
-        const float y = rnd<T>(rnd<T>(acc) + to_f(b2[n]));
+        float y = rnd<T>(rnd<T>(acc) + to_f(b2[n]));
+        if (drop)
+          y = rnd<T>(y * keep_factor<T>(p.drop, seed, 3, sample, (long)L * D,
+                                        (long)i * D + n, kept));
         xs[i * D + n] = from_f<T>(to_f(xs[i * D + n]) + y);
       });
   __syncthreads();
@@ -184,24 +220,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The seeded masks of B samples, written out in fp32 (0 or 1/keep): one
+// thread per element, the draw of keep_factor's seed mode.
+__global__ void keep_masks_kernel(const int* seed_ptr, uint32_t thresh,
+                                  float inv_keep, int B, int H, int L, int D,
+                                  int FF, float* m0, float* m1, float* m2,
+                                  float* m3) {
+  const uint32_t seed = (uint32_t)*seed_ptr;
+  const long per[4] = {(long)H * L * L, (long)L * D, (long)L * FF,
+                       (long)L * D};
+  float* out[4] = {m0, m1, m2, m3};
+  const long stride = (long)gridDim.x * blockDim.x;
+  for (int site = 0; site < 4; ++site) {
+    const long total = per[site] * B;
+    for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+         i += stride) {
+      const long b = i / per[site], e = i - b * per[site];
+      out[site][i] = keep_bits(seed, (uint32_t)b, (uint32_t)site,
+                               (uint32_t)e) < thresh
+                         ? inv_keep
+                         : 0.f;
+    }
+  }
+}
+
+template <typename T, int kMode>
+int launch_mode(AttnArgs a, int B, size_t smem, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      attention_fwd_kernel<T, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  attention_fwd_kernel<T, kMode><<<B, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(AttnArgs a, int B, size_t smem, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attention_fwd_kernel<T><<<B, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.drop.mode == kDropMasks)
+    return launch_mode<T, kDropMasks>(a, B, smem, stream);
+  if (a.drop.mode == kDropSeed)
+    return launch_mode<T, kDropSeed>(a, B, smem, stream);
+  return launch_mode<T, kDropNone>(a, B, smem, stream);
 }
 
 }  // namespace
 
 // x, out: (B, L, D) contiguous; w: 16 device pointers in the order above,
 // weights (D, inner), (inner, D), (D, FF), (FF, D) row-major, all in dtype.
+// drop_mode 0: no dropout; 1: masks[4] in dtype, (B,H,L,L), (B,L,D),
+// (B,L,FF), (B,L,D); 2: the int32 seed at seed (a device pointer), keep iff
+// bits < thresh, kept value inv_keep rounded to dtype.
 extern "C" int eid_attention_fwd(int dtype, const void* x,
                                  const void* const* w, void* out, int B,
                                  int L, int D, int inner, int FF, int H,
-                                 void* stream) {
+                                 int drop_mode, const void* const* masks,
+                                 const int* seed, unsigned thresh,
+                                 float inv_keep, void* stream) {
   if (B <= 0) return 0;
   if (H <= 0 || inner % H != 0) return (int)cudaErrorInvalidValue;
   const size_t sz = dtype == kBF16 ? 2 : 4;
@@ -219,6 +293,14 @@ extern "C" int eid_attention_fwd(int dtype, const void* x,
   a.off_o = align16((size_t)L * D * sz);
   a.off_qkv = a.off_o + align16((size_t)L * inner * sz);
   a.off_s = a.off_qkv + align16((size_t)3 * L * hd * sz);
+  a.drop.mode = drop_mode;
+  for (int i = 0; i < 4; ++i) a.drop.mask[i] = masks[i];
+  a.drop.seed = seed;
+  a.drop.thresh = thresh;
+  a.drop.inv_keep = inv_keep;
+  if (drop_mode < kDropNone || drop_mode > kDropSeed ||
+      (drop_mode == kDropSeed && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
   size_t smem = a.off_s + (size_t)L * L * 4;
   const size_t ffn_end = a.off_o + (size_t)L * FF * sz;
   if (ffn_end > smem) smem = ffn_end;
@@ -227,4 +309,14 @@ extern "C" int eid_attention_fwd(int dtype, const void* x,
   if (dtype == kBF16) return launch<__nv_bfloat16>(a, B, smem, s);
   if (dtype == kF32) return launch<float>(a, B, smem, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// seed: device pointer to the int32 seed; out: four fp32 (B, ...) masks.
+extern "C" int eid_keep_masks(const int* seed, unsigned thresh,
+                              float inv_keep, int B, int H, int L, int D,
+                              int FF, float* const* out, void* stream) {
+  if (B <= 0) return 0;
+  keep_masks_kernel<<<264, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      seed, thresh, inv_keep, B, H, L, D, FF, out[0], out[1], out[2], out[3]);
+  return (int)cudaGetLastError();
 }

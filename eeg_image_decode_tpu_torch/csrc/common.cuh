@@ -109,6 +109,55 @@ __device__ __forceinline__ void gemm_rows(const TA* A, int lda, int M, int K,
   }
 }
 
+// gemm_rows with a strided A: A(i, k) = A[i*a_rs + k*a_ks], so a transposed
+// operand in shared memory (a_rs = 1, a_ks = row length) needs no copy.
+template <int TM, int TN, typename TA, typename TB, typename ColPtr,
+          typename Epi>
+__device__ __forceinline__ void gemm_strided(const TA* A, int a_rs, int a_ks,
+                                             int M, int K, int N, long bsk,
+                                             ColPtr col_ptr, Epi epi) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int col_tiles = (N + 32 * TN - 1) / (32 * TN);
+  const int row_tiles = (M + TM - 1) / TM;
+  for (int job = warp; job < row_tiles * col_tiles; job += n_warps) {
+    const int i0 = (job / col_tiles) * TM;
+    const int n0 = (job % col_tiles) * 32 * TN + lane;
+    const TB* bp[TN];
+#pragma unroll
+    for (int c = 0; c < TN; ++c)
+      bp[c] = (n0 + 32 * c < N) ? col_ptr(n0 + 32 * c) : nullptr;
+    const TA* ap[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+      ap[r] = (i0 + r < M) ? A + (long)(i0 + r) * a_rs : nullptr;
+    float acc[TM][TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+        a[r] = ap[r] ? to_f(ap[r][(long)k * a_ks]) : 0.f;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) b[c] = bp[c] ? to_f(bp[c][k * bsk]) : 0.f;
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+#pragma unroll
+      for (int c = 0; c < TN; ++c)
+        if (ap[r] && bp[c]) epi(i0 + r, n0 + 32 * c, acc[r][c]);
+  }
+}
+
 // Post-norm LayerNorm of one row held by one warp: biased variance
 // E[(h - mu)^2], eps inside the rsqrt, as the JAX kernels compute it.
 template <typename TS>

@@ -12,6 +12,7 @@ retrieval rises above chance, validating the full pipeline end-to-end.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from eeg_image_decode_tpu_torch.data.things_eeg import EEGRetrievalData
 
@@ -93,6 +94,85 @@ def make_synthetic_retrieval_data(
         subject_ids=np.full(n_test_classes, subject_id, np.int32),
         img_idx=np.arange(n_test_classes, dtype=np.int32),
         text_idx=np.arange(n_test_classes, dtype=np.int32),
+        img_features=test_img,
+        text_features=text_feats[:n_test_classes],
+        n_classes=n_test_classes,
+        images_per_class=1,
+    )
+    return train, test
+
+
+def make_synthetic_device_data(
+    n_classes: int = 1654,
+    images_per_class: int = 10,
+    train_reps: int = 4,
+    n_channels: int = 63,
+    n_timepoints: int = 250,
+    clip_dim: int = 1024,
+    n_test_classes: int = 200,
+    snr: float = 1.0,
+    seed: int = 20200220,
+    subject_id: int = 1,
+    device: str | torch.device = "cuda",
+) -> tuple[EEGRetrievalData, EEGRetrievalData]:
+    """The recipe of :func:`make_synthetic_retrieval_data` (class anchors,
+    a rank-16 class signature mixed into channel × time, unit-variance noise),
+    drawn with a ``torch.Generator`` directly on ``device``, so a split of
+    one subject's real size (66,160 × 63 × 250 fp32, 4.2 GB) never passes
+    through the host. The draws differ from the numpy recipe's; the shapes,
+    scales and class structure are the same."""
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def unit(a):
+        return a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+
+    anchors = unit(randn(n_classes, clip_dim))
+    img_feats = unit(anchors[:, None, :]
+                     + 0.1 * randn(n_classes, images_per_class, clip_dim))
+    img_feats = img_feats.reshape(n_classes * images_per_class, clip_dim)
+    text_feats = unit(anchors + 0.05 * randn(n_classes, clip_dim))
+    rank = 16
+    class_latent = randn(n_classes, rank)
+    mix = randn(rank, n_channels * n_timepoints) / np.sqrt(rank)
+
+    def epochs(labels: torch.Tensor, noise_scale: float) -> torch.Tensor:
+        out = torch.empty((len(labels), n_channels * n_timepoints),
+                          device=dev)
+        for lo in range(0, len(labels), 8192):  # bounded temporaries
+            hi = min(lo + 8192, len(labels))
+            out[lo:hi] = snr * (class_latent[labels[lo:hi]] @ mix) \
+                + noise_scale * randn(hi - lo, n_channels * n_timepoints)
+        return out.reshape(len(labels), n_channels, n_timepoints)
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    n_train = n_classes * images_per_class * train_reps
+    train_labels = torch.arange(n_classes, **i32).repeat_interleave(
+        images_per_class * train_reps)
+    local = torch.arange(n_train, **i32)
+    train = EEGRetrievalData(
+        eeg=epochs(train_labels.long(), 1.0),
+        labels=train_labels,
+        subject_ids=torch.full((n_train,), subject_id, **i32),
+        img_idx=local // train_reps,
+        text_idx=local // (images_per_class * train_reps),
+        img_features=img_feats,
+        text_features=text_feats,
+        n_classes=n_classes,
+        images_per_class=images_per_class,
+    )
+    test_labels = torch.arange(n_test_classes, **i32)
+    test_img = unit(anchors[:n_test_classes]
+                    + 0.1 * randn(n_test_classes, clip_dim))
+    test = EEGRetrievalData(
+        eeg=epochs(test_labels.long(), 0.25),
+        labels=test_labels,
+        subject_ids=torch.full((n_test_classes,), subject_id, **i32),
+        img_idx=torch.arange(n_test_classes, **i32),
+        text_idx=torch.arange(n_test_classes, **i32),
         img_features=test_img,
         text_features=text_feats[:n_test_classes],
         n_classes=n_test_classes,

@@ -1,6 +1,8 @@
 """The flat retrieval-split container (copy of ``EEGRetrievalData`` from
-``eeg_image_decode_tpu/data/things_eeg.py``). The THINGS-EEG file readers
-are not ported yet (ROADMAP.md)."""
+``eeg_image_decode_tpu/data/things_eeg.py``). Its arrays are numpy arrays,
+or tensors already on a device (``data/synthetic.py::
+make_synthetic_device_data``). The THINGS-EEG file readers are not ported
+yet (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -22,3 +24,11 @@ class EEGRetrievalData:
     text_features: np.ndarray  # (n_cls, D) float32
     n_classes: int
     images_per_class: int = 1
+
+    @property
+    def n(self) -> int:
+        return int(self.eeg.shape[0])
+
+    def class_img_features(self):
+        """One image feature per class (the train-time probe's targets)."""
+        return self.img_features[:: self.images_per_class]

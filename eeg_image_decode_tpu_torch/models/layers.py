@@ -3,9 +3,11 @@
 head and the raw logit scale.
 
 Parameters keep the JAX package's names and layouts (dense kernels are
-(d_in, d_out)); ``utils/convert.py`` maps a JAX variable tree onto them. The
-modules are inference-only: BatchNorm uses its running statistics and
-dropout is off (training is slice 2 of the port, see ROADMAP.md).
+(d_in, d_out)); ``utils/convert.py`` maps a JAX variable tree onto them.
+Each module's ``forward`` takes ``train``: in train mode BatchNorm uses the
+batch statistics and updates its running ones, and dropout is on. A dropout
+site takes either a pre-scaled keep-mask (the JAX ``dropout_mask``
+convention) or draws one from a ``torch.Generator`` (:func:`dropout`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,20 @@ def sinusoidal_position_embedding(n_positions: int, d_model: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term[: d_model // 2])
     return pe.astype(np.float32)
+
+
+def dropout(h: torch.Tensor, p: float, *, train: bool, mask=None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """One dropout site. ``mask`` (a pre-scaled keep-mask, broadcastable to
+    h) is applied in h's dtype whenever it is given, as the JAX modules'
+    ``dropout_mask``; otherwise, in train mode with p > 0, a keep-mask of
+    value 1/(1−p) is drawn from ``generator`` on h's device."""
+    if mask is not None:
+        return h * mask.to(h.device, h.dtype)
+    if not train or p == 0.0:
+        return h
+    keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+    return h * (keep.to(torch.float32) / (1.0 - p)).to(h.dtype)
 
 
 def check_fused(value, name: str) -> None:
@@ -69,10 +85,17 @@ def layer_norm_fast(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
     return (h32 - mu) * (torch.rsqrt(var + 1e-6) * ln.scale) + ln.bias
 
 
-class BatchNormEval(nn.Module):
-    """flax ``BatchNorm(use_running_average=True)`` over the last axis:
-    normalised in fp32 with the running statistics (eps 1e-5), returned in
-    the input's dtype."""
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis,
+    normalised in fp32 and returned in the input's dtype.
+
+    Eval: the running statistics. Train: the batch statistics in fp32 with
+    the fast variance max(E[x²] − E[x]², 0) (flax ``_compute_stats``), and
+    the running statistics move to ``0.9·old + 0.1·batch`` with the biased
+    batch variance. This is not ``torch.nn.BatchNorm``, whose running
+    variance is the unbiased one, with momentum 0.1 on the new value."""
+
+    momentum = 0.9
 
     def __init__(self, features: int):
         super().__init__()
@@ -81,18 +104,28 @@ class BatchNormEval(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + 1e-5) * self.scale
-        return ((x - self.mean) * mul + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            x32 = x.float().reshape(-1, x.shape[-1])
+            mean = x32.mean(0)
+            var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + 1e-5) * self.scale
+        return ((x - mean) * mul + self.bias).to(x.dtype)
 
 
 class TSConv(nn.Module):
-    """Temporal→spatial conv stack (ShallowNet-style ``tsconv``), eval mode.
+    """Temporal→spatial conv stack (ShallowNet-style ``tsconv``).
 
     (B, C, T) → (B, P, emb_size). Stage 1: the folded 75-tap stride-5
     correlation (``ops/tsconv.py``) + BN + ELU. Stage 2: the spatial conv
-    over all C electrodes + BN + ELU. Stage 3: a 1x1 conv to ``emb_size``.
-    Ref ``Retrieval/ATMS_retrieval.py:97-125``.
+    over all C electrodes + BN + ELU + dropout. Stage 3: a 1x1 conv to
+    ``emb_size``. Ref ``Retrieval/ATMS_retrieval.py:97-125``.
 
     The JAX module is NHWC: stage 1 gives (B, C, P, F), the spatial conv is
     a (C, 1) HWIO kernel contracting C and F, and the tokens come out
@@ -102,9 +135,10 @@ class TSConv(nn.Module):
     def __init__(self, filters: int = 40, temporal_kernel: int = 25,
                  pool_size: int = 51, pool_stride: int = 5,
                  emb_size: int = 40, spatial_extent: int = 63,
-                 fused_stage1: bool | str = "auto"):
+                 dropout: float = 0.5, fused_stage1: bool | str = "auto"):
         super().__init__()
         check_fused(fused_stage1, "fused_tsconv")
+        self.dropout = dropout
         self.pool_size = pool_size
         self.pool_stride = pool_stride
         self.spatial_extent = spatial_extent
@@ -112,14 +146,18 @@ class TSConv(nn.Module):
         # no conv bias ahead of BatchNorm, as in the JAX package
         self.temporal_conv_kernel = nn.Parameter(
             torch.zeros(temporal_kernel, filters))
-        self.bn1 = BatchNormEval(filters)
+        self.bn1 = BatchNorm(filters)
         self.spatial_conv = nn.Module()
         self.spatial_conv.kernel = nn.Parameter(
             torch.zeros(spatial_extent * filters, filters))
-        self.bn2 = BatchNormEval(filters)
+        self.bn2 = BatchNorm(filters)
         self.proj_conv = Dense(filters, emb_size)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, *,
+                train: bool = False, dropout_mask=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``dropout_mask``: the pre-scaled keep-mask of the site after the
+        second ELU, broadcastable to the JAX (B, 1, P, F) activation."""
         x = x.to(dtype)
         b, c, _ = x.shape
         if c != self.spatial_extent:
@@ -132,36 +170,47 @@ class TSConv(nn.Module):
             y = tsconv_pool_fused(x, w_tilde, self.pool_stride)
         else:
             y = tsconv_pool_reference(x, w_tilde, self.pool_stride)
-        y = F.elu(self.bn1(y))                               # (B, C, P, F)
+        y = F.elu(self.bn1(y, train))                        # (B, C, P, F)
         p, f = y.shape[2], y.shape[3]
         y = y.permute(0, 2, 1, 3).reshape(b * p, c * f)    # (B·P, C·F)
         y = torch.matmul(y, self.spatial_conv.kernel.to(dtype))
-        y = F.elu(self.bn2(y))
+        y = F.elu(self.bn2(y, train))                        # (B·P, F)
+        y = dropout(y.reshape(b, 1, p, -1), self.dropout, train=train,
+                    mask=dropout_mask, generator=generator).reshape(b * p, -1)
         y = self.proj_conv(y)                                # (B·P, emb)
         return y.reshape(b, p, -1)
 
 
 class ProjectionHead(nn.Module):
-    """Flatten → Dense → residual(GELU→Dense) → LayerNorm (ref ``Proj_eeg``,
-    ``Retrieval/ATMS_retrieval.py:157-167``), eval mode, fp32 out.
+    """Flatten → Dense → residual(GELU→Dense→Dropout) → LayerNorm (ref
+    ``Proj_eeg``, ``Retrieval/ATMS_retrieval.py:157-167``), fp32 out.
 
     ``fused=True`` runs ``ops/projection.py::fused_projection_head`` (the
-    kernel on CUDA: tanh GELU, |Δ| ≲ 1e-3 from the default). ``False`` and
-    ``'auto'`` keep the exact-erf head with the fast-variance LayerNorm,
-    as the JAX package's ``'auto'`` does."""
+    kernel on CUDA: tanh GELU, |Δ| ≲ 1e-3 from the default), in eval mode
+    only: its dropout modes and backward kernel are not ported yet
+    (ROADMAP.md). ``False`` and ``'auto'`` keep the exact-erf head with the
+    fast-variance LayerNorm, as the JAX package's ``'auto'`` does."""
 
     def __init__(self, d_in: int, proj_dim: int = 1024,
-                 fused: bool | str = "auto"):
+                 fused: bool | str = "auto", dropout: float = 0.5):
         super().__init__()
         check_fused(fused, "fused_projection")
         self.use_kernel = fused != "auto" and bool(fused)
+        self.dropout = dropout
         self.in_proj = Dense(d_in, proj_dim)
         self.res_proj = Dense(proj_dim, proj_dim)
         self.ln = LNParams(proj_dim)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, *,
+                train: bool = False, dropout_mask=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1).to(dtype)
         if self.use_kernel:
+            if train:
+                raise NotImplementedError(
+                    "training with fused_projection=True needs the head's "
+                    "dropout modes and backward kernel, not ported yet "
+                    "(ROADMAP.md)")
             return fused_projection_head(x, {
                 "wi": self.in_proj.kernel, "bi": self.in_proj.bias,
                 "wr": self.res_proj.kernel, "br": self.res_proj.bias,
@@ -169,6 +218,8 @@ class ProjectionHead(nn.Module):
             })
         a = self.in_proj(x)
         h = self.res_proj(F.gelu(a, approximate="none"))
+        h = dropout(h, self.dropout, train=train, mask=dropout_mask,
+                    generator=generator)
         return layer_norm_fast(a + h, self.ln)
 
 

@@ -17,9 +17,8 @@ from eeg_image_decode_tpu_torch.utils.device import resolve_device
 class ContrastiveModel(nn.Module):
     """encoder + the raw logit scale (init ln(1/0.07), used without exp).
 
-    Inference only: ``forward`` refuses to run in training mode, since
-    training (dropout, batch statistics, the backward kernels) is not ported
-    yet (ROADMAP.md)."""
+    ``.train()`` puts the encoder in train mode (dropout, batch statistics);
+    ``build_encoder`` returns the model in eval mode."""
 
     def __init__(self, encoder: nn.Module,
                  logit_scale_init: float = 2.6592600225):
@@ -28,12 +27,13 @@ class ContrastiveModel(nn.Module):
         self.logit_scale = LogitScale(logit_scale_init)
 
     def forward(self, x: torch.Tensor,
-                subject_ids: torch.Tensor | None = None
+                subject_ids: torch.Tensor | None = None, *,
+                dropout_masks: dict | None = None,
+                generator: torch.Generator | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP.md); call .eval()")
-        return self.encoder(x, subject_ids), self.logit_scale()
+        feats = self.encoder(x, subject_ids, train=self.training,
+                             dropout_masks=dropout_masks, generator=generator)
+        return feats, self.logit_scale()
 
 
 @torch.no_grad()

@@ -12,6 +12,7 @@ from torch import nn
 
 from eeg_image_decode_tpu_torch.models.layers import (
     Dense,
+    dropout,
     sinusoidal_position_embedding,
 )
 
@@ -40,12 +41,14 @@ class ChannelTokenEmbedding(nn.Module):
     """(B, C, T) EEG → (B, C+1, d_model) tokens in ``dtype`` (ref
     ``Embed.py:124-162``): a Dense over time shared by all channels, plus the
     positional code over the C channel rows, then the subject token at
-    position 0. Eval mode: no dropout."""
+    position 0, then one dropout over the whole token sequence, the subject
+    token included (``Embed.py:162``)."""
 
     def __init__(self, n_channels: int = 63, seq_len: int = 250,
                  d_model: int = 250, num_subjects: int = 10,
-                 joint_train: bool = False):
+                 joint_train: bool = False, dropout: float = 0.25):
         super().__init__()
+        self.dropout = dropout
         if joint_train:
             raise NotImplementedError(
                 "joint_train (per-subject value embeddings) is not ported "
@@ -58,7 +61,8 @@ class ChannelTokenEmbedding(nn.Module):
             persistent=False)
 
     def forward(self, x: torch.Tensor, subject_ids: torch.Tensor | None,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, *, train: bool = False, dropout_mask=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.value_embedding(x.to(dtype))
         if x.shape[1] != self.pe.shape[0]:
             raise ValueError(f"expected {self.pe.shape[0]} channels, "
@@ -67,4 +71,5 @@ class ChannelTokenEmbedding(nn.Module):
         if subject_ids is not None:
             tok = self.subject_token(subject_ids).to(dtype)
             x = torch.cat([tok, x], dim=1)
-        return x
+        return dropout(x, self.dropout, train=train, mask=dropout_mask,
+                       generator=generator)

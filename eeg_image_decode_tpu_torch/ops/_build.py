@@ -40,18 +40,39 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: dict[str, int] = {
-    "attention_fwd": 0, "tsconv_fwd": 0, "projection_fwd": 0,
+    "attention_fwd": 0, "attention_fwd_masks": 0, "attention_fwd_seed": 0,
+    "attention_bwd": 0, "keep_masks": 0, "tsconv_fwd": 0, "tsconv_bwd": 0,
+    "projection_fwd": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
+#: name → (argument types, result type)
 _SIGNATURES = {
-    # dtype, x, w[16], out, B, L, D, inner, FF, H, stream
-    "eid_attention_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # dtype, x, w[16], out, B, L, D, inner, FF, H, drop mode, masks[4],
+    # seed (device), thresh, keep value, stream
+    "eid_attention_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _U, _F, _P], _I),
+    # seed (device), thresh, keep value, B, H, L, D, FF, out[4], stream
+    "eid_keep_masks": ([_P, _U, _F, _I, _I, _I, _I, _I, _P, _P], _I),
+    # dtype, B, L, D, inner, FF, H → workspace bytes
+    "eid_attention_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
+    # dtype, x, g, w[16], wt[6], dx, out[5], ws, B, L, D, inner, FF, H,
+    # drop mode, masks[4], seed (device), thresh, keep value, stream
+    "eid_attention_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P, _P, _U, _F, _P], _I),
     # dtype, x, w, out, rows, T, M, F, P, stride, stream
-    "eid_tsconv_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "eid_tsconv_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    # rows, M, F → workspace bytes
+    "eid_tsconv_bwd_workspace": ([_I, _I, _I], _LL),
+    # dtype, x, g, w, dx, dw, ws, rows, T, M, F, P, stride, stream
+    "eid_tsconv_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P], _I),
     # dtype, x, w[6], out, B, Din, Dout, stream
-    "eid_projection_fwd": [_I, _P, _P, _P, _I, _I, _I, _P],
+    "eid_projection_fwd": ([_I, _P, _P, _P, _I, _I, _I, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -130,10 +151,10 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+            for name, (argtypes, restype) in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             handle.eid_error_string.argtypes = [ctypes.c_int]
             handle.eid_error_string.restype = ctypes.c_char_p
             _lib = handle

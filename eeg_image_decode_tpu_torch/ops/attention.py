@@ -7,17 +7,39 @@ One whole ATM-S encoder layer (ref ``Transformer_EncDec.py:27-51``):
     → output projection → residual → LayerNorm → FFN (tanh GELU)
     → residual → LayerNorm
 
-``fused_attention_layer`` runs it as one CUDA kernel per sample
-(``csrc/attention_fwd.cu``) for a CUDA tensor, and as its plain PyTorch
-version, ``attention_layer_reference``, for a CPU tensor. Forward only, no
-dropout: this is the serving path. The dropout modes and the backward kernel
-belong to training (see ROADMAP.md).
+with dropout at four sites: ``m_attn`` (B, H, L, L) on the rounded softmax
+probabilities, ``m_res`` (B, L, D) on the output projection, ``m_ffn1``
+(B, L, FF) after the GELU and ``m_ffn2`` (B, L, D) after the second dense.
+
+``fused_attention_layer`` is a ``torch.autograd.Function``. For a CUDA
+tensor its forward is ``csrc/attention_fwd.cu`` and its backward
+``csrc/attention_bwd.cu`` (recompute on chip, dx per sample, fp32 parameter
+gradients reduced in a fixed order, so two runs agree bit for bit). For a
+CPU tensor it runs the plain versions: ``attention_layer_reference`` and
+``attention_layer_backward_reference``, which follows the rounding points
+of the JAX backward kernel line by line.
+
+Dropout, three modes (as in the JAX kernel):
+
+- none;
+- ``masks``: explicit pre-scaled keep-masks, cast to x's dtype;
+- ``dropout_p`` + ``seed``: the masks are drawn inside both kernels by a
+  Philox-4x32-10 counter generator (``csrc/philox.cuh``;
+  :func:`draw_keep_masks` is the same generator in int64 tensor arithmetic).
+  Each mask element is a pure function of (seed, global sample index, site,
+  element index): key (seed, sample), counter (element // 4, site, 0, 0),
+  word element % 4. Keep iff ``bits < uint32(keep · 0xFFFFFFFF)``, value
+  ``1/keep`` (rounded to x's dtype in the forward, fp32 in the backward, as
+  the JAX kernels do). The bits differ from the TPU hardware generator's;
+  only the keep rule and the purity are shared with it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +47,80 @@ from eeg_image_decode_tpu_torch.ops import _build
 
 PARAM_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
                "ln1_s", "ln1_b", "w1", "b1", "w2", "b2", "ln2_s", "ln2_b")
+MASK_ORDER = ("m_attn", "m_res", "m_ffn1", "m_ffn2")
+_MODES = {"none": 0, "masks": 1, "seed": 2}
+
+# ——— Philox-4x32-10 (Salmon et al., SC'11; Random123's constants) ———
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of a·b for a constant a and int64 b < 2³²,
+    without overflowing int64: a = a_hi·2¹⁶ + a_lo."""
+    p_lo = b * (a & 0xFFFF)
+    p_hi = b * (a >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32_10(counter, key) -> tuple[torch.Tensor, ...]:
+    """Philox-4x32-10 on int64 tensors holding uint32 values: four counter
+    words and two key words (tensors or ints, broadcast) → four words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _U32
+            k1 = (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_rule(dropout_p: float) -> tuple[int, float]:
+    """(threshold, value): keep iff bits < threshold, as the JAX kernel's
+    ``np.uint32(int(keep * 0xFFFFFFFF))``; a kept element is ``1/keep``."""
+    keep = 1.0 - dropout_p
+    return int(keep * 0xFFFFFFFF), float(np.float32(1.0 / keep))
+
+
+def _site_bits(seed: int, rows: torch.Tensor, site: int, n: int) -> torch.Tensor:
+    """(len(rows), n) uint32 draws (as int64) of one site."""
+    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=rows.device)
+    c0 = groups[None, :].expand(len(rows), -1)
+    zero = torch.zeros_like(c0)
+    words = philox4x32_10((c0, zero + site, zero, zero),
+                          (seed & _U32, rows[:, None]))
+    return torch.stack(words, dim=-1).reshape(len(rows), -1)[:, :n]
+
+
+def draw_keep_masks(seed, batch: int, n_heads: int, length: int, d_model: int,
+                    d_ff: int, dropout_p: float, *, row0: int = 0,
+                    device=None) -> dict[str, torch.Tensor]:
+    """The four fp32 keep-masks (values 0 or 1/keep) that the seed-mode
+    kernels draw for samples ``row0 … row0+batch−1``: the plain version of
+    ``csrc/philox.cuh``."""
+    seed = int(seed)
+    thresh, value = keep_rule(dropout_p)
+    rows = torch.arange(row0, row0 + batch, dtype=torch.int64, device=device)
+    shapes = {"m_attn": (n_heads, length, length),
+              "m_res": (length, d_model),
+              "m_ffn1": (length, d_ff),
+              "m_ffn2": (length, d_model)}
+    out = {}
+    for site, (name, shape) in enumerate(shapes.items()):
+        bits = _site_bits(seed, rows, site, math.prod(shape))
+        out[name] = torch.where(
+            bits < thresh, torch.tensor(value, device=device),
+            torch.tensor(0.0, device=device)).reshape(batch, *shape)
+    return out
+
+
+# ——— plain versions ———
 
 
 def _dense(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -43,17 +139,20 @@ def _ln(h: torch.Tensor, s: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def attention_layer_reference(x: torch.Tensor, params: dict,
-                              n_heads: int = 4, *,
+                              n_heads: int = 4, *, masks: dict | None = None,
                               exact_gelu: bool = False) -> torch.Tensor:
     """Plain PyTorch layer: (B, L, D) → (B, L, D) in x's dtype.
 
     Matmuls in x's dtype with fp32 accumulation, fp32 softmax and LayerNorm,
-    tanh GELU in the FFN — the math of the kernel. ``exact_gelu=True`` is the
-    module's erf-GELU path, which the kernel does not compute."""
+    tanh GELU in the FFN — the math of the kernel. ``masks``: the four
+    pre-scaled keep-masks, applied in x's dtype where the JAX kernel applies
+    them. ``exact_gelu=True`` is the module's erf-GELU path, which the kernel
+    does not compute."""
     B, L, D = x.shape
     inner = params["wq"].shape[1]
     hd = inner // n_heads
     dt = x.dtype
+    m = {k: v.to(dt) for k, v in masks.items()} if masks is not None else None
     q = _dense(x, params["wq"], params["bq"]).reshape(B, L, n_heads, hd)
     k = _dense(x, params["wk"], params["bk"]).reshape(B, L, n_heads, hd)
     v = _dense(x, params["wv"], params["bv"]).reshape(B, L, n_heads, hd)
@@ -61,30 +160,198 @@ def attention_layer_reference(x: torch.Tensor, params: dict,
     # fp32-accumulated q k^T
     scores = torch.einsum("blhe,bshe->bhls", q.float(), k.float())
     probs = torch.softmax(scores * (1.0 / math.sqrt(hd)), dim=-1).to(dt)
+    if m is not None:
+        probs = probs * m["m_attn"]
     out = torch.einsum("bhls,bshd->blhd", probs, v)
     out = _dense(out.reshape(B, L, inner), params["wo"], params["bo"])
+    if m is not None:
+        out = out * m["m_res"]
     h = _ln(x + out, params["ln1_s"], params["ln1_b"])
     y = _dense(h, params["w1"], params["b1"])
-    y = F.gelu(y.float(), approximate="none" if exact_gelu else "tanh")
-    y = _dense(y.to(dt), params["w2"], params["b2"])
+    y = F.gelu(y.float(), approximate="none" if exact_gelu else "tanh").to(dt)
+    if m is not None:
+        y = y * m["m_ffn1"]
+    y = _dense(y, params["w2"], params["b2"])
+    if m is not None:
+        y = y * m["m_ffn2"]
     return _ln(h + y, params["ln2_s"], params["ln2_b"])
 
 
-def fused_attention_layer(x: torch.Tensor, params: dict,
-                          n_heads: int = 4) -> torch.Tensor:
-    """Fused post-norm attention layer: (B, L, D) → (B, L, D), no dropout.
+def _gelu_tanh_and_grad(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    c = float(np.float32(np.sqrt(2.0 / np.pi)))
+    a = float(np.float32(0.044715))
+    t = torch.tanh(c * (u + a * u * u * u))
+    g = 0.5 * u * (1.0 + t)
+    dg = 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * c * (1.0 + 3.0 * a * u * u)
+    return g, dg
 
-    ``params``: wq,bq,wk,bk,wv,bv (D, H·hd), wo (H·hd, D), bo, ln1_s, ln1_b,
-    w1 (D, FF), b1, w2 (FF, D), b2, ln2_s, ln2_b, in the JAX layout. They are
-    cast to x's dtype, as the JAX launcher does. A CPU tensor runs
-    :func:`attention_layer_reference`; a CUDA tensor launches the kernel
-    (float32 or bfloat16) or raises."""
-    p = {k: params[k].to(x.dtype).contiguous() for k in PARAM_ORDER}
-    if x.device.type == "cpu":
-        return attention_layer_reference(x, p, n_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attention_layer: no kernel for {x.device}")
-    x = x.contiguous()
+
+def attention_layer_backward_reference(
+        x: torch.Tensor, params: dict, g: torch.Tensor, n_heads: int = 4, *,
+        masks: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """Plain backward of the layer, following the JAX ``_bwd_kernel`` line
+    by line: recompute the forward (fp32 softmax, LN and residuals; the
+    operands of every product rounded to x's dtype, fp32 accumulation), then
+    backprop through LN2, the FFN, LN1, the output projection, the per-head
+    softmax and QKV. ``masks`` are used as given, in fp32 (the JAX launcher
+    hands mask mode the x-dtype masks, seed mode the fp32 draw).
+
+    Returns dx in x's dtype and the 16 parameter gradients in fp32."""
+    B, L, D = x.shape
+    dt = x.dtype
+    inner = params["wq"].shape[1]
+    hd = inner // n_heads
+    N = B * L
+    p = {k: params[k].to(dt).float() for k in PARAM_ORDER}
+    use_drop = masks is not None
+    if use_drop:
+        m_attn = masks["m_attn"].float()
+        mres = masks["m_res"].reshape(N, D).float()
+        mf1 = masks["m_ffn1"].reshape(N, -1).float()
+        mf2 = masks["m_ffn2"].reshape(N, D).float()
+
+    def mm(a, b):  # operands in dt, fp32 accumulation
+        return torch.matmul(a.to(dt).float(), b.to(dt).float())
+
+    xf = x.reshape(N, D)
+    g_out = g.reshape(N, D).float()
+
+    # ——— forward recompute ———
+    q = (mm(xf, p["wq"]) + p["bq"]).to(dt)
+    k = (mm(xf, p["wk"]) + p["bk"]).to(dt)
+    v = (mm(xf, p["wv"]) + p["bv"]).to(dt)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+
+    def head(t, h):
+        return t[:, h * hd:(h + 1) * hd].reshape(B, L, hd).float()
+
+    probs, probsm, heads = [], [], []
+    for h in range(n_heads):
+        s = torch.einsum("ble,bme->blm", head(q, h), head(k, h))
+        pr = torch.softmax(s * scale, dim=-1)
+        pm = pr * m_attn[:, h] if use_drop else pr
+        oh = torch.einsum("blm,bme->ble", pm.to(dt).float(), head(v, h))
+        probs.append(pr)
+        probsm.append(pm)
+        heads.append(oh.to(dt).reshape(N, hd))
+    concat_o = torch.cat(heads, dim=1)
+    attn = mm(concat_o, p["wo"]) + p["bo"]
+    if use_drop:
+        attn = attn * mres
+    r1 = xf.float() + attn
+
+    def ln_fwd(h32, s_p, b_p):
+        mu = h32.mean(-1, keepdim=True)
+        var = (h32 - mu).square().mean(-1, keepdim=True)
+        inv = torch.rsqrt(var + 1e-6)
+        xhat = (h32 - mu) * inv
+        return xhat * s_p + b_p, xhat, inv
+
+    h1, xhat1, inv1 = ln_fwd(r1, p["ln1_s"], p["ln1_b"])
+    h1dt = h1.to(dt)
+    u = mm(h1dt, p["w1"]) + p["b1"]
+    g1, dgelu = _gelu_tanh_and_grad(u)
+    g1m = g1 * mf1 if use_drop else g1
+    z = mm(g1m.to(dt), p["w2"]) + p["b2"]
+    if use_drop:
+        z = z * mf2
+    r2 = h1 + z
+    _, xhat2, inv2 = ln_fwd(r2, p["ln2_s"], p["ln2_b"])
+
+    # ——— backward ———
+    def ln_bwd(gy, xhat, inv, s_p):
+        gxh = gy * s_p
+        gx = (gxh - gxh.mean(-1, keepdim=True)
+              - xhat * (gxh * xhat).mean(-1, keepdim=True)) * inv
+        return gx, (gy * xhat).sum(0), gy.sum(0)
+
+    grads = {}
+    d_r2, grads["ln2_s"], grads["ln2_b"] = ln_bwd(g_out, xhat2, inv2,
+                                                  p["ln2_s"])
+    d_z = d_r2 * mf2 if use_drop else d_r2
+    grads["w2"] = mm(g1m.to(dt).T, d_z)
+    grads["b2"] = d_z.sum(0)
+    d_g1m = mm(d_z, p["w2"].T)
+    d_g1 = d_g1m * mf1 if use_drop else d_g1m
+    d_u = d_g1 * dgelu
+    grads["w1"] = mm(h1dt.T, d_u)
+    grads["b1"] = d_u.sum(0)
+    d_h1 = d_r2 + mm(d_u, p["w1"].T)
+    d_r1, grads["ln1_s"], grads["ln1_b"] = ln_bwd(d_h1, xhat1, inv1,
+                                                  p["ln1_s"])
+    dx = d_r1
+    d_attn = d_r1 * mres if use_drop else d_r1
+    grads["wo"] = mm(concat_o.T, d_attn)
+    grads["bo"] = d_attn.sum(0)
+    d_concat = mm(d_attn, p["wo"].T)
+
+    d_parts = {"q": [], "k": [], "v": []}
+    for h in range(n_heads):
+        d_oh = head(d_concat, h).to(dt).float()
+        pm, pr = probsm[h], probs[h]
+        d_pm = torch.einsum("ble,bme->blm", d_oh, head(v, h))
+        d_vh = torch.einsum("blm,ble->bme", pm.to(dt).float(), d_oh)
+        d_p = d_pm * m_attn[:, h] if use_drop else d_pm
+        d_s = (d_p - (d_p * pr).sum(-1, keepdim=True)) * pr * scale
+        d_s = d_s.to(dt).float()
+        d_parts["q"].append(torch.einsum("blm,bme->ble", d_s, head(k, h)))
+        d_parts["k"].append(torch.einsum("blm,ble->bme", d_s, head(q, h)))
+        d_parts["v"].append(d_vh)
+    for name in ("q", "k", "v"):
+        d = torch.cat([t.reshape(N, hd) for t in d_parts[name]], dim=1)
+        grads["w" + name] = mm(xf.T, d)
+        grads["b" + name] = d.sum(0)
+        dx = dx + mm(d, p["w" + name].T)
+    return dx.to(dt).reshape(B, L, D), grads
+
+
+# ——— the kernels ———
+
+
+class _Dropout:
+    """How a call drops out: mode "none", "masks" (four tensors in x's
+    dtype) or "seed" (an int32 seed, a Python int or a one-element tensor,
+    and the rate)."""
+
+    def __init__(self, masks=None, dropout_p: float = 0.0, seed=None):
+        self.masks = masks
+        self.p = dropout_p
+        self.seed = seed
+        if masks is not None:
+            self.mode = "masks"
+        elif dropout_p > 0.0 and seed is not None:
+            self.mode = "seed"
+        else:
+            self.mode = "none"
+
+    def plain_masks(self, x, n_heads, d_ff):
+        """The masks the plain versions apply: as given, or drawn."""
+        if self.mode == "masks":
+            return self.masks
+        if self.mode == "seed":
+            B, L, D = x.shape
+            return draw_keep_masks(self.seed, B, n_heads, L, D, d_ff, self.p,
+                                   device=x.device)
+        return None
+
+    def c_args(self, x: torch.Tensor):
+        """(mode, mask pointer array, seed pointer, threshold, keep value)
+        for the launchers; keeps the device seed alive on ``self``."""
+        ptrs = [0, 0, 0, 0]
+        seed_ptr, thresh, value = 0, 0, 0.0
+        if self.mode == "masks":
+            ptrs = [self.masks[k].data_ptr() for k in MASK_ORDER]
+        elif self.mode == "seed":
+            if not torch.is_tensor(self.seed):
+                self.seed = torch.tensor([int(self.seed)], dtype=torch.int32)
+            self.seed = self.seed.to(x.device, torch.int32).reshape(1)
+            seed_ptr = self.seed.data_ptr()
+            thresh, value = keep_rule(self.p)
+        return (_MODES[self.mode], (ctypes.c_void_p * 4)(*ptrs), seed_ptr,
+                ctypes.c_uint(thresh), ctypes.c_float(value))
+
+
+def _check_shapes(x, p, n_heads, masks):
     B, L, D = x.shape
     inner, FF = p["wq"].shape[1], p["w1"].shape[1]
     if inner % n_heads:
@@ -98,12 +365,172 @@ def fused_attention_layer(x: torch.Tensor, params: dict,
         if tuple(p[k].shape) != shape:
             raise ValueError(f"{k} has shape {tuple(p[k].shape)}, "
                              f"expected {shape}")
-    _build.check_cuda_args("fused_attention_layer", x, p)
+    if masks is not None:
+        want = {"m_attn": (B, n_heads, L, L), "m_res": (B, L, D),
+                "m_ffn1": (B, L, FF), "m_ffn2": (B, L, D)}
+        for k, shape in want.items():
+            if tuple(masks[k].shape) != shape:
+                raise ValueError(f"mask {k} has shape "
+                                 f"{tuple(masks[k].shape)}, expected {shape}")
+    return B, L, D, inner, FF
+
+
+def _forward(x, p, n_heads, drop: _Dropout) -> torch.Tensor:
+    FF = p["w1"].shape[1]
+    if x.device.type == "cpu":
+        masks = drop.plain_masks(x, n_heads, FF)
+        return attention_layer_reference(x, p, n_heads, masks=masks)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attention_layer: no kernel for {x.device}")
+    B, L, D, inner, FF = _check_shapes(x, p, n_heads, drop.masks)
+    _build.check_cuda_args("fused_attention_layer", x,
+                           {**p, **(drop.masks or {})})
     out = torch.empty_like(x)
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
+    mode, mptrs, seed_ptr, thresh, value = drop.c_args(x)
     rc = _build.lib().eid_attention_fwd(
         _build.DTYPE_CODES[x.dtype], x.data_ptr(), weights, out.data_ptr(),
-        B, L, D, inner, FF, n_heads, _build.stream_of(x))
-    _build.check(rc, "attention_fwd")
-    _build.LAUNCHES["attention_fwd"] += 1
+        B, L, D, inner, FF, n_heads, mode, mptrs, seed_ptr, thresh, value,
+        _build.stream_of(x))
+    name = {"none": "attention_fwd", "masks": "attention_fwd_masks",
+            "seed": "attention_fwd_seed"}[drop.mode]
+    _build.check(rc, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def _backward(x, p, g, n_heads, drop: _Dropout):
+    """(dx, fp32 gradients); p in x's dtype."""
+    FF = p["w1"].shape[1]
+    if x.device.type == "cpu":
+        masks = drop.plain_masks(x, n_heads, FF)
+        return attention_layer_backward_reference(x, p, g, n_heads,
+                                                  masks=masks)
+    B, L, D, inner, FF = _check_shapes(x, p, n_heads, drop.masks)
+    if g.shape != x.shape:
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected "
+                         f"{tuple(x.shape)}")
+    g = g.to(x.dtype).contiguous()
+    _build.check_cuda_args("fused_attention_layer backward", x,
+                           {**p, **(drop.masks or {}), "g": g})
+    code = _build.DTYPE_CODES[x.dtype]
+    lib = _build.lib()
+    ws_bytes = lib.eid_attention_bwd_workspace(code, B, L, D, inner, FF,
+                                               n_heads)
+    if ws_bytes < 0:
+        raise ValueError(f"attention_bwd: shapes (L {L}, D {D}, inner "
+                         f"{inner}, FF {FF}) do not fit the kernel")
+    ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    d_wqkv = torch.empty((D, 3 * inner), **f32)
+    d_wo = torch.empty((inner, D), **f32)
+    d_w1 = torch.empty((D, FF), **f32)
+    d_w2 = torch.empty((FF, D), **f32)
+    d_vec = torch.empty((3 * inner + 6 * D + FF,), **f32)
+    # transposed copies of the six weights, for the products with Wᵀ
+    wt = [p[k].t().contiguous() for k in ("wq", "wk", "wv", "wo", "w1", "w2")]
+    weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
+    wt_ptrs = _build.pointer_array(wt)
+    outs = _build.pointer_array([d_wqkv, d_wo, d_w1, d_w2, d_vec])
+    mode, mptrs, seed_ptr, thresh, value = drop.c_args(x)
+    rc = lib.eid_attention_bwd(
+        code, x.data_ptr(), g.data_ptr(), weights, wt_ptrs, dx.data_ptr(),
+        outs, ws.data_ptr(), B, L, D, inner, FF, n_heads, mode, mptrs,
+        seed_ptr, thresh, value, _build.stream_of(x))
+    _build.check(rc, "attention_bwd")
+    _build.LAUNCHES["attention_bwd"] += 1
+    grads = {"wq": d_wqkv[:, :inner], "wk": d_wqkv[:, inner:2 * inner],
+             "wv": d_wqkv[:, 2 * inner:], "wo": d_wo, "w1": d_w1, "w2": d_w2}
+    off = 0
+    for k, n in (("bq", inner), ("bk", inner), ("bv", inner), ("bo", D),
+                 ("b1", FF), ("b2", D), ("ln1_s", D), ("ln1_b", D),
+                 ("ln2_s", D), ("ln2_b", D)):
+        grads[k] = d_vec[off:off + n]
+        off += n
+    return dx, grads
+
+
+def fused_attention_layer_backward(x: torch.Tensor, params: dict,
+                                   g: torch.Tensor, n_heads: int = 4, *,
+                                   masks: dict | None = None,
+                                   dropout_p: float = 0.0, seed=None
+                                   ) -> tuple[torch.Tensor, dict]:
+    """The layer's backward on its own: (dx in x's dtype, the 16 parameter
+    gradients in fp32), for the cotangent ``g`` of
+    ``fused_attention_layer(x, params, n_heads, masks=, dropout_p=,
+    seed=)``. A CPU tensor runs :func:`attention_layer_backward_reference`;
+    a CUDA tensor launches ``csrc/attention_bwd.cu`` or raises."""
+    p = {k: params[k].to(x.dtype).contiguous() for k in PARAM_ORDER}
+    if masks is not None:
+        masks = {k: masks[k].to(x.device, x.dtype).contiguous()
+                 for k in MASK_ORDER}
+    return _backward(x.contiguous(), p, g, n_heads,
+                     _Dropout(masks, dropout_p, seed))
+
+
+class _AttentionLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n_heads, drop, *flat):
+        p = dict(zip(PARAM_ORDER, flat))
+        ctx.n_heads, ctx.drop = n_heads, drop
+        ctx.save_for_backward(x, *flat)
+        return _forward(x, p, n_heads, drop)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = ctx.saved_tensors
+        p = dict(zip(PARAM_ORDER, flat))
+        dx, grads = _backward(x, p, g, ctx.n_heads, ctx.drop)
+        # each gradient in the dtype of the parameter passed in (x's dtype),
+        # as the JAX launcher returns them
+        return (dx, None, None,
+                *[grads[k].to(p[k].dtype).contiguous() for k in PARAM_ORDER])
+
+
+def fused_attention_layer(x: torch.Tensor, params: dict, n_heads: int = 4, *,
+                          masks: dict | None = None, dropout_p: float = 0.0,
+                          seed=None) -> torch.Tensor:
+    """Fused post-norm attention layer: (B, L, D) → (B, L, D), differentiable.
+
+    ``params``: wq,bq,wk,bk,wv,bv (D, H·hd), wo (H·hd, D), bo, ln1_s, ln1_b,
+    w1 (D, FF), b1, w2 (FF, D), b2, ln2_s, ln2_b, in the JAX layout. They are
+    cast to x's dtype, as the JAX launcher does, and their gradients come
+    back through that cast. ``masks`` (dict of the four keep-masks) selects
+    mask mode; ``dropout_p > 0`` with ``seed`` (int32, an int or a
+    one-element tensor, which may lie on the card) selects seed mode. A CPU
+    tensor runs the plain versions; a CUDA tensor launches the kernels
+    (float32 or bfloat16) or raises."""
+    dt = x.dtype
+    flat = [params[k].to(dt).contiguous() for k in PARAM_ORDER]
+    if masks is not None:
+        masks = {k: masks[k].to(x.device, dt).contiguous() for k in MASK_ORDER}
+    drop = _Dropout(masks, dropout_p, seed)
+    return _AttentionLayer.apply(x.contiguous(), n_heads, drop, *flat)
+
+
+def draw_keep_masks_on_card(seed: torch.Tensor, batch: int, n_heads: int,
+                            length: int, d_model: int, d_ff: int,
+                            dropout_p: float) -> dict[str, torch.Tensor]:
+    """The masks the seed-mode kernels draw, written out by the card's own
+    Philox (``csrc/attention_fwd.cu::keep_masks_kernel``), fp32: what the
+    card draws can be compared with :func:`draw_keep_masks` exactly."""
+    if seed.device.type != "cuda":
+        raise ValueError("draw_keep_masks_on_card: the seed must lie on the "
+                         "card")
+    seed = seed.to(torch.int32).reshape(1).contiguous()
+    shapes = {"m_attn": (batch, n_heads, length, length),
+              "m_res": (batch, length, d_model),
+              "m_ffn1": (batch, length, d_ff),
+              "m_ffn2": (batch, length, d_model)}
+    out = {k: torch.empty(s, dtype=torch.float32, device=seed.device)
+           for k, s in shapes.items()}
+    thresh, value = keep_rule(dropout_p)
+    rc = _build.lib().eid_keep_masks(
+        seed.data_ptr(), ctypes.c_uint(thresh), ctypes.c_float(value), batch,
+        n_heads, length, d_model, d_ff,
+        _build.pointer_array([out[k] for k in MASK_ORDER]),
+        _build.stream_of(seed))
+    _build.check(rc, "keep_masks")
+    _build.LAUNCHES["keep_masks"] += 1
     return out

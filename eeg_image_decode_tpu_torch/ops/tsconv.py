@@ -9,9 +9,12 @@ every stage-1 formulation of the JAX package (conv + pool, the dense
 computes it with a hand port of the Pallas kernel, the formulation with the
 fewest FLOPs.
 
-``tsconv_pool_fused`` launches ``csrc/tsconv_fwd.cu`` for a CUDA tensor and
-runs ``tsconv_pool_reference`` (a strided unfold and one matmul) for a CPU
-tensor.
+``tsconv_pool_fused`` is a ``torch.autograd.Function``. For a CUDA tensor
+it launches ``csrc/tsconv_fwd.cu`` forward and ``csrc/tsconv_bwd.cu``
+backward; for a CPU tensor it runs the plain versions,
+``tsconv_pool_reference`` (a strided unfold and one matmul) and
+``tsconv_pool_backward_reference``. ``fold_pool_into_kernel`` stays plain
+PyTorch, so autograd carries dw̃ back to the 25-tap kernel.
 """
 
 from __future__ import annotations
@@ -48,19 +51,34 @@ def tsconv_pool_reference(x: torch.Tensor, w_tilde: torch.Tensor,
     return out.reshape(b, c, -1, f)
 
 
-def tsconv_pool_fused(x: torch.Tensor, w_tilde: torch.Tensor,
-                      stride: int = 5) -> torch.Tensor:
-    """Folded conv + pool: (B, C, T) × (M, F) → (B, C, P, F) in x's dtype.
+def tsconv_pool_backward_reference(x: torch.Tensor, w_tilde: torch.Tensor,
+                                   g: torch.Tensor, stride: int = 5
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain backward of stage 1, the two sums of the JAX backward kernel:
+    ``dx[r, p·s+m] += Σ_f g[r, p·F+f]·w̃[m, f]`` and
+    ``dw̃[m, f] = Σ_r Σ_p x[r, p·s+m]·g[r, p·F+f]``, with g and w̃ in x's
+    dtype and fp32 accumulation, positions added in order. Returns
+    (dx (B, C, T), dw̃ (M, F)), both fp32."""
+    b, c, t = x.shape
+    m, f = w_tilde.shape
+    x2 = x.reshape(b * c, t)
+    g3 = g.to(x.dtype).reshape(b * c, -1, f).float()          # (rows, P, F)
+    w32 = w_tilde.to(x.dtype).float()
+    d_win = torch.matmul(g3, w32.T)                           # (rows, P, M)
+    dx = torch.zeros((b * c, t), dtype=torch.float32, device=x.device)
+    for p in range(g3.shape[1]):
+        dx[:, p * stride:p * stride + m] += d_win[:, p]
+    windows = x2.unfold(1, m, stride).float()                 # (rows, P, M)
+    dw = torch.matmul(windows.reshape(-1, m).T, g3.reshape(-1, f))
+    return dx.reshape(b, c, t), dw
 
-    w̃ is cast to x's dtype, as the JAX launcher does. A CPU tensor runs
-    :func:`tsconv_pool_reference`; a CUDA tensor launches the kernel
-    (float32 or bfloat16) or raises."""
-    w_tilde = w_tilde.to(x.dtype).contiguous()
+
+def _forward(x: torch.Tensor, w_tilde: torch.Tensor,
+             stride: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return tsconv_pool_reference(x, w_tilde, stride)
     if x.device.type != "cuda":
         raise ValueError(f"tsconv_pool_fused: no kernel for {x.device}")
-    x = x.contiguous()
     b, c, t = x.shape
     m, f = w_tilde.shape
     n_pos = out_positions(t, m, stride)
@@ -74,3 +92,67 @@ def tsconv_pool_fused(x: torch.Tensor, w_tilde: torch.Tensor,
     _build.check(rc, "tsconv_fwd")
     _build.LAUNCHES["tsconv_fwd"] += 1
     return out
+
+
+def _backward(x: torch.Tensor, w_tilde: torch.Tensor, g: torch.Tensor,
+              stride: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if x.device.type == "cpu":
+        return tsconv_pool_backward_reference(x, w_tilde, g, stride)
+    b, c, t = x.shape
+    m, f = w_tilde.shape
+    n_pos = out_positions(t, m, stride)
+    g = g.to(x.dtype).contiguous()
+    _build.check_cuda_args("tsconv_pool_fused backward", x,
+                           {"w_tilde": w_tilde, "g": g})
+    if tuple(g.shape) != (b, c, n_pos, f):
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected "
+                         f"{(b, c, n_pos, f)}")
+    lib = _build.lib()
+    ws = torch.empty(max(lib.eid_tsconv_bwd_workspace(b * c, m, f), 1),
+                     dtype=torch.uint8, device=x.device)
+    dx = torch.empty((b, c, t), dtype=torch.float32, device=x.device)
+    dw = torch.empty((m, f), dtype=torch.float32, device=x.device)
+    rc = lib.eid_tsconv_bwd(
+        _build.DTYPE_CODES[x.dtype], x.data_ptr(), g.data_ptr(),
+        w_tilde.data_ptr(), dx.data_ptr(), dw.data_ptr(), ws.data_ptr(),
+        b * c, t, m, f, n_pos, stride, _build.stream_of(x))
+    _build.check(rc, "tsconv_bwd")
+    _build.LAUNCHES["tsconv_bwd"] += 1
+    return dx, dw
+
+
+def tsconv_pool_fused_backward(x: torch.Tensor, w_tilde: torch.Tensor,
+                               g: torch.Tensor, stride: int = 5
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stage 1's backward on its own: (dx, dw̃), both fp32, for the
+    cotangent ``g`` of ``tsconv_pool_fused(x, w_tilde, stride)``. A CPU
+    tensor runs :func:`tsconv_pool_backward_reference`; a CUDA tensor
+    launches ``csrc/tsconv_bwd.cu`` or raises."""
+    return _backward(x.contiguous(), w_tilde.to(x.dtype).contiguous(), g,
+                     stride)
+
+
+class _TSConvPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_tilde, stride):
+        ctx.stride = stride
+        ctx.save_for_backward(x, w_tilde)
+        return _forward(x, w_tilde, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_tilde = ctx.saved_tensors
+        dx, dw = _backward(x, w_tilde, g, ctx.stride)
+        return dx.to(x.dtype), dw.to(w_tilde.dtype), None
+
+
+def tsconv_pool_fused(x: torch.Tensor, w_tilde: torch.Tensor,
+                      stride: int = 5) -> torch.Tensor:
+    """Folded conv + pool: (B, C, T) × (M, F) → (B, C, P, F) in x's dtype,
+    differentiable in x and w̃.
+
+    w̃ is cast to x's dtype, as the JAX launcher does. A CPU tensor runs
+    the plain versions; a CUDA tensor launches the kernels (float32 or
+    bfloat16) or raises."""
+    return _TSConvPool.apply(x.contiguous(), w_tilde.to(x.dtype).contiguous(),
+                             stride)

@@ -9,8 +9,11 @@ lists). The roots run in the order given, each in its own process, which
 builds that checkout's kernels and times the attention, tsconv and
 projection kernels at the serving shapes of ``chip_smoke.py`` (B 256, full
 ATM-S width, bf16 and fp32; CUDA events, warm, median of 50 launches)
-beside their max |Δ| from the plain version. Compare two versions only within one run: interleave
-them, as above. Prints one JSON line per (root, kernel, dtype).
+beside their max |Δ| from the plain version, then, where the checkout has
+them, the training kernels at B 1024 (``chip_smoke.check_training_kernels``:
+its checks and rows, median of 25). Compare two versions only within one
+run: interleave them, as above. Prints one JSON line per (root, kernel,
+dtype).
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ for name, (_, _, make) in cs.kernel_cases(torch).items():
         print(json.dumps({"root": sys.argv[1], "name": name,
                           "dtype": str(dt).split(".")[-1], "max_abs_err": err,
                           "ms": cs.cuda_ms(torch, kern, 50)}), flush=True)
+if hasattr(cs, "check_training_kernels"):
+    print(json.dumps({"root": sys.argv[1], "training_kernels": True}),
+          flush=True)
+    cs.check_training_kernels(torch)
 """
 
 

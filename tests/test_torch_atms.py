@@ -98,12 +98,24 @@ def test_full_width_atms_matches_jax(tmp_path):
 
 
 def test_unported_encoders_and_training_raise():
+    """What is not ported yet raises: other encoders, joint-train subject
+    embeddings, and training through the fused projection head (its dropout
+    modes and backward kernel). Training the default model runs."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_encoder("nice", device="cpu")
-    model = build_encoder("atms", config=ATMSConfig(**SMALL), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        build_encoder("atms", config=ATMSConfig(**SMALL, joint_train=True),
+                      device="cpu")
+    x, sids = torch.zeros(2, 8, 100), torch.zeros(2, dtype=torch.int32)
+    model = build_encoder("atms", config=ATMSConfig(**SMALL,
+                                                    fused_projection=True),
+                          device="cpu")
     model.train()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(torch.zeros(1, 8, 100), torch.zeros(1, dtype=torch.int32))
+        model(x, sids)
+    model = build_encoder("atms", config=ATMSConfig(**SMALL), device="cpu")
+    feats, _ = model.train()(x, sids)
+    assert feats.shape == (2, 16)
 
 
 def test_entry_point_without_device_raises_on_cpu_host():

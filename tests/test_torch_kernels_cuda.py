@@ -26,7 +26,7 @@ from eeg_image_decode_tpu_torch.ops.tsconv import (
     tsconv_pool_fused,
     tsconv_pool_reference,
 )
-from torch_port_case import attention_params, projection_params
+from torch_port_case import attention_params, keep_masks, projection_params
 
 
 def _t(tree):
@@ -97,3 +97,174 @@ def test_projection_kernel_on_card(cuda, dtype, b, d_in, d_out):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     assert err <= CUDA_TOL[dtype], err
+
+
+# ——— training kernels: the attention forward's dropout modes, its
+# backward, the seeded mask draw and the tsconv backward ———
+
+# backward kernel vs plain on the card, as a share of the largest |plain|
+# value of each output: fp32 differs in summation order only; in bf16 an
+# fp32 sum that lands on the other side of a rounding boundary moves an
+# intermediate by one bf16 ulp (2^-8), and the LayerNorm and softmax
+# backward carry that into their neighbours
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _rel_err(got, want, scale=None):
+    if scale is None:
+        scale = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / max(scale, 1e-30)
+
+
+def _bias_scale(want: dict) -> float:
+    """The key bias's gradient is zero in exact arithmetic (softmax ignores
+    a shift of the scores), so what both sides compute there is rounding
+    noise: its error is measured against the largest of the three QKV bias
+    gradients, whose summands have the same size."""
+    return max(want[k].float().abs().max().item() for k in ("bq", "bk", "bv"))
+
+
+ATTN_SHAPES = [(32, 4, 64, 9), (250, 4, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,ff,length", ATTN_SHAPES)
+def test_attention_fwd_masks_kernel_on_card(cuda, dtype, d, heads, ff,
+                                            length):
+    rng = np.random.default_rng(8)
+    inner = (d // heads) * heads
+    x = torch.from_numpy(rng.normal(size=(5, length, d)).astype(np.float32))
+    params = {k: v.to(cuda, dtype) for k, v in
+              _t(attention_params(rng, d, inner, ff)).items()}
+    masks = {k: v.to(cuda, dtype) for k, v in
+             _t(keep_masks(rng, 5, heads, length, d, ff)).items()}
+    x = x.to(cuda, dtype)
+    got = fused_attention_layer(x, params, heads, masks=masks)
+    want = attention_layer_reference(x, params, heads, masks=masks)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= CUDA_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,ff,length", ATTN_SHAPES)
+def test_attention_fwd_seed_kernel_on_card(cuda, dtype, d, heads, ff,
+                                           length):
+    """The card's Philox draw equals the plain draw exactly; the seed-mode
+    forward equals the mask-mode forward fed that draw bit for bit, and the
+    plain layer within tolerance."""
+    from eeg_image_decode_tpu_torch.ops.attention import (
+        draw_keep_masks,
+        draw_keep_masks_on_card,
+    )
+
+    rng = np.random.default_rng(9)
+    inner = (d // heads) * heads
+    b, seed = 7, 123457
+    x = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
+    params = {k: v.to(cuda, dtype) for k, v in
+              _t(attention_params(rng, d, inner, ff)).items()}
+    x = x.to(cuda, dtype)
+    seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    card = draw_keep_masks_on_card(seed_t, b, heads, length, d, ff, 0.25)
+    plain = draw_keep_masks(seed, b, heads, length, d, ff, 0.25, device=cuda)
+    for k in plain:
+        assert torch.equal(card[k], plain[k]), k
+    got = fused_attention_layer(x, params, heads, dropout_p=0.25, seed=seed_t)
+    via_masks = fused_attention_layer(x, params, heads, masks=card)
+    want = attention_layer_reference(x, params, heads, masks=plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, via_masks)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= CUDA_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "masks", "seed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,ff,length", ATTN_SHAPES)
+def test_attention_bwd_kernel_on_card(cuda, dtype, d, heads, ff, length,
+                                      mode):
+    """dx and the 16 parameter gradients against the plain backward, and
+    two runs of the kernel bit-identical. B = 5 is no multiple of the
+    reduction's 32-row slabs."""
+    from eeg_image_decode_tpu_torch.ops.attention import (
+        PARAM_ORDER,
+        attention_layer_backward_reference,
+        draw_keep_masks,
+    )
+
+    rng = np.random.default_rng(10)
+    inner = (d // heads) * heads
+    b = 5
+    x = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
+    gout = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
+    params = {k: v.to(cuda, dtype).requires_grad_() for k, v in
+              _t(attention_params(rng, d, inner, ff)).items()}
+    x = x.to(cuda, dtype).requires_grad_()
+    gout = gout.to(cuda, dtype)
+    kw, plain_masks = {}, None
+    if mode == "masks":
+        kw["masks"] = {k: v.to(cuda, dtype) for k, v in
+                       _t(keep_masks(rng, b, heads, length, d, ff)).items()}
+        plain_masks = kw["masks"]
+    elif mode == "seed":
+        kw = {"dropout_p": 0.25, "seed": 99}
+        plain_masks = draw_keep_masks(99, b, heads, length, d, ff, 0.25,
+                                      device=cuda)
+
+    def kernel_grads():
+        out = fused_attention_layer(x, params, heads, **kw)
+        return torch.autograd.grad(out, [x, *[params[k] for k in PARAM_ORDER]],
+                                   gout)
+
+    got = kernel_grads()
+    again = kernel_grads()
+    with torch.no_grad():
+        dx, grads = attention_layer_backward_reference(
+            x, params, gout, heads, masks=plain_masks)
+    torch.cuda.synchronize()
+    want = [dx] + [grads[k] for k in PARAM_ORDER]
+    for name, a, a2, w in zip(("x",) + PARAM_ORDER, got, again, want):
+        assert torch.equal(a, a2), f"{name}: two runs differ"
+        assert torch.isfinite(a.float()).all(), name
+        scale = _bias_scale(grads) if name in ("bq", "bk", "bv") else None
+        err = _rel_err(a, w, scale)
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,t,k,f,pool,stride", [
+    (3 * 8, 100, 9, 6, 16, 4), (5 * 63, 250, 25, 40, 51, 5)])
+def test_tsconv_bwd_kernel_on_card(cuda, dtype, rows, t, k, f, pool, stride):
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        tsconv_pool_backward_reference,
+    )
+
+    rng = np.random.default_rng(11)
+    c = 8 if rows % 63 else 63
+    x = torch.from_numpy(rng.normal(size=(rows // c, c, t)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(k, f)) / np.sqrt(k)).astype(np.float32))
+    w_tilde = fold_pool_into_kernel(w, pool).to(cuda, dtype).requires_grad_()
+    x = x.to(cuda, dtype).requires_grad_()
+    n_pos = (t - w_tilde.shape[0]) // stride + 1
+    gout = torch.from_numpy(rng.normal(size=(rows // c, c, n_pos, f))
+                            .astype(np.float32)).to(cuda, dtype)
+
+    def kernel_grads():
+        out = tsconv_pool_fused(x, w_tilde, stride)
+        return torch.autograd.grad(out, [x, w_tilde], gout)
+
+    got = kernel_grads()
+    again = kernel_grads()
+    with torch.no_grad():
+        dx, dw = tsconv_pool_backward_reference(x, w_tilde, gout, stride)
+    torch.cuda.synchronize()
+    for name, a, a2, want in (("x", got[0], again[0], dx),
+                              ("w_tilde", got[1], again[1], dw)):
+        assert torch.equal(a, a2), f"{name}: two runs differ"
+        err = _rel_err(a, want.to(a.dtype))
+        assert err <= BWD_TOL[dtype], (name, err)

@@ -114,6 +114,9 @@ def test_package_imports_without_jax():
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
         "import eeg_image_decode_tpu_torch.data.synthetic\n"
+        "import eeg_image_decode_tpu_torch.losses\n"
+        "import eeg_image_decode_tpu_torch.train.contrastive\n"
+        "import eeg_image_decode_tpu_torch.train.evaluator\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"

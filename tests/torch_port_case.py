@@ -66,3 +66,14 @@ def projection_params(rng, d_in, d_out):
         "ln_s": (1.0 + 0.1 * rng.normal(size=d_out)).astype(np.float32),
         "ln_b": (0.1 * rng.normal(size=d_out)).astype(np.float32),
     }
+
+
+def keep_masks(rng, b, heads, length, d, ff, p=0.25):
+    """Pre-scaled keep-masks (0 or 1/(1−p)) of the attention layer's four
+    dropout sites, as numpy fp32."""
+    def keep(*shape):
+        return ((rng.random(shape) >= p) / (1.0 - p)).astype(np.float32)
+
+    return {"m_attn": keep(b, heads, length, length),
+            "m_res": keep(b, length, d), "m_ffn1": keep(b, length, ff),
+            "m_ffn2": keep(b, length, d)}

@@ -10,15 +10,16 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    bfloat16 and float32, with the tolerance stated: the three forward
    kernels at the serving shapes (B = 256), and the training kernels at the
    training shapes (B = 1024, full ATM-S width): the attention forward in
-   mask mode and in seed mode (the card's Philox draw must equal the plain
-   draw exactly, and the seed-mode forward the mask-mode forward fed that
-   draw, bit for bit), the attention backward (dx and all 16 gradients) and
-   the tsconv backward (dx and dw̃), each backward twice, bit for bit. Per
-   kernel: its time, the plain version's, a library yardstick's where one
-   PyTorch call computes the same function (CUDA events, warm, median of 25
-   launches), and its bound, the least time the card could take for the
-   same work (bytes over 3.35 TB/s or operations over the dtype's peak,
-   whichever is larger).
+   mask mode and in seed mode (the seed-mode forward must equal the
+   mask-mode forward fed the plain Philox draw ``draw_keep_masks``, bit for
+   bit, and in fp32 so must the backward), the attention backward (dx and
+   all 16 gradients) and the tsconv backward (dx and dw̃), each backward
+   through ``torch.autograd.grad`` as a training step runs it, twice, bit
+   for bit. Per kernel: its time, the plain version's, a library
+   yardstick's where one PyTorch call computes the same function (CUDA
+   events, warm, median of 25 launches), and its bound, the least time the
+   card could take for the same work (bytes over 3.35 TB/s or operations
+   over the dtype's peak, whichever is larger).
 3. The serving path at full width (``ATMSConfig()``, bf16, max_batch 256,
    seeded random weights, a 200 × 1024 L2-normalised gallery): the port's
    ``EEGDecodeServer`` on a free port answers ``/v1/retrieve`` requests of 1,
@@ -32,8 +33,8 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    attention and tsconv kernels, and with ``fused_projection=True``, which
    launches all three.
 4. The training path at full width: one subject's split drawn on the card
-   from a seed (``make_synthetic_device_data``: 1654 classes × 10 images ×
-   4 repetitions = 66,160 × 63 × 250 fp32, plus 200 test classes), then
+   from a seed (``make_synthetic_retrieval_data``: 1654 classes × 10 images
+   × 4 repetitions = 66,160 × 63 × 250 fp32, plus 200 test classes), then
    ``ContrastiveTrainer`` at ``ATMSConfig()``, batch 1024, bf16, dropout on,
    for one epoch (64 steps) and ``evaluate()``. The launch counts (set to 0
    before the epoch and before the evaluation) must show the seeded
@@ -45,7 +46,9 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    per-step CUDA-event times, the first 3 steps left out), samples/s, the
    epoch and evaluation seconds and the peak device memory.
 5. One JSON line listing the kernels, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
+   function inside the seeded forward and the backward, not a launch of its
+   own, so it has no row there: the bit-equalities of phase 2 hold it.
 
 Any failure raises before the result line, and the exit code is not 0.
 Without a CUDA device it exits with 2 and prints no result.
@@ -295,7 +298,6 @@ TOL_REASON = {
                            "2 ulps of an output < 16",
     "attention_fwd_seed": "one bf16 rounding of an intermediate per site, "
                           "2 ulps of an output < 16",
-    "keep_masks": "the same Philox bits: exact",
     "attention_bwd": "share of each output's largest |plain|: a bf16 "
                      "rounding flip (2^-8) spread by the LayerNorm and "
                      "softmax backward",
@@ -306,7 +308,6 @@ TOL_REASON = {
 NO_LIBRARY = {
     "attention_fwd_masks": "none: no one PyTorch call computes the layer",
     "attention_fwd_seed": "none: no one PyTorch call computes the layer",
-    "keep_masks": "none: torch.rand draws other bits (not the same function)",
     "attention_bwd": "none: no one PyTorch call computes the layer's "
                      "backward",
 }
@@ -373,15 +374,13 @@ def check_training_kernels(torch) -> dict:
         attention_layer_backward_reference,
         attention_layer_reference,
         draw_keep_masks,
-        draw_keep_masks_on_card,
         fused_attention_layer,
-        fused_attention_layer_backward,
     )
     from eeg_image_decode_tpu_torch.ops.tsconv import (
         fold_pool_into_kernel,
         out_positions,
         tsconv_pool_backward_reference,
-        tsconv_pool_fused_backward,
+        tsconv_pool_fused,
     )
 
     B = TRAIN_BATCH
@@ -390,8 +389,7 @@ def check_training_kernels(torch) -> dict:
     def record(name, dname, replaces, source, kern, plain, library, flops,
                nbytes, err, tol, **extra):
         b_ms, b_by = bound(flops, nbytes, dname)
-        reason = TOL_REASON["float32" if dname == "float32" and name !=
-                            "keep_masks" else name]
+        reason = TOL_REASON["float32" if dname == "float32" else name]
         row = {"phase": "kernel", "name": name, "dtype": dname,
                "shape_batch": B, "max_abs_err": err, "tolerance": tol,
                "tolerance_reason": reason,
@@ -436,39 +434,18 @@ def check_training_kernels(torch) -> dict:
         if not err <= tol_fwd:
             raise RuntimeError(f"attention_fwd_masks {dname}: {err}")
 
-        # the seeded draw: the card's Philox against the plain one, exactly
+        # forward, seed mode: bit-equal to mask mode fed the plain draw
         seed = SEED % (2**31 - 1)
         seed_t = torch.tensor([seed], dtype=torch.int32, device="cuda")
-        card = draw_keep_masks_on_card(seed_t, B, HEADS, L_TOK, D_MODEL, D_FF,
-                                       P_DROP)
         drawn = draw_keep_masks(seed, B, HEADS, L_TOK, D_MODEL, D_FF, P_DROP,
                                 device="cuda")
-        torch.cuda.synchronize()
-        equal = all(torch.equal(card[k], drawn[k]) for k in MASK_ORDER)
-        kept = {k: float((card[k] > 0).float().mean()) for k in MASK_ORDER}
-        if dtype == torch.bfloat16:
-            err = max((card[k] - drawn[k]).abs().max().item()
-                      for k in MASK_ORDER)
-            record("keep_masks", dname,
-                   "eeg_image_decode_tpu/ops/attention.py:109",
-                   "eeg_image_decode_tpu_torch/csrc/philox.cuh",
-                   lambda: draw_keep_masks_on_card(seed_t, B, HEADS, L_TOK,
-                                                   D_MODEL, D_FF, P_DROP),
-                   lambda: draw_keep_masks(seed, B, HEADS, L_TOK, D_MODEL,
-                                           D_FF, P_DROP, device="cuda"),
-                   None, 0.0, n_mask * 4, err, 0.0, masks_equal=equal,
-                   kept_fraction=kept)
-        if not equal:
-            raise RuntimeError("the card's keep-masks differ from the plain "
-                               "draw")
+        kept = {k: float((drawn[k] > 0).float().mean()) for k in MASK_ORDER}
         bad = {k: v for k, v in kept.items() if abs(v - 0.75) > 0.005}
         if bad:
             raise RuntimeError(f"kept fractions off 0.75 ± 0.005: {bad}")
-
-        # forward, seed mode: bit-equal to mask mode fed the card's draw
         got = fused_attention_layer(x, p, HEADS, dropout_p=P_DROP,
                                     seed=seed_t)
-        via_masks = fused_attention_layer(x, p, HEADS, masks=card)
+        via_masks = fused_attention_layer(x, p, HEADS, masks=drawn)
         want = attention_layer_reference(x, p, HEADS, masks=drawn)
         torch.cuda.synchronize()
         same = torch.equal(got, via_masks)
@@ -480,26 +457,39 @@ def check_training_kernels(torch) -> dict:
                                              seed=seed_t),
                lambda: attention_layer_reference(x, p, HEADS, masks=drawn),
                None, flops, (2 * x.numel() + n_par) * sz, err, tol_fwd,
-               equals_mask_mode_on_card_draw=same)
+               equals_mask_mode_on_plain_draw=same, kept_fraction=kept)
         if not (same and err <= tol_fwd):
             raise RuntimeError(f"attention_fwd_seed {dname}: bit-equal to "
                                f"mask mode {same}, |Δ| {err}")
 
-        # backward, seed mode (the training path's): dx and 16 gradients
-        def kern_bwd():
-            return fused_attention_layer_backward(x, p, gout, HEADS,
-                                                  dropout_p=P_DROP,
-                                                  seed=seed_t)
+        # backward, seed mode (the training path's), through autograd as a
+        # step runs it: dx and the 16 gradients, in the parameters' dtype
+        xg = x.detach().requires_grad_()
+        pg = {k: v.detach().requires_grad_() for k, v in p.items()}
+        inputs = [xg, *[pg[k] for k in PARAM_ORDER]]
+        out = fused_attention_layer(xg, pg, HEADS, dropout_p=P_DROP,
+                                    seed=seed_t)
 
-        dx1, g1 = kern_bwd()
-        dx2, g2 = kern_bwd()
+        def kern_bwd():
+            return torch.autograd.grad(out, inputs, gout, retain_graph=True)
+
+        got1, got2 = kern_bwd(), kern_bwd()
         dxp, gp = attention_layer_backward_reference(x, p, gout, HEADS,
                                                      masks=drawn)
+        extra = {}
+        if dtype == torch.float32:
+            # the mask-mode backward reads the same fp32 values that seed
+            # mode draws, so the two agree bit for bit
+            via = torch.autograd.grad(
+                fused_attention_layer(xg, pg, HEADS, masks=drawn), inputs,
+                gout)
+            extra["equals_mask_mode_on_plain_draw"] = all(
+                torch.equal(a, b) for a, b in zip(got1, via))
         torch.cuda.synchronize()
-        got = {"x": dx1, **g1}
+        names = ("x",) + PARAM_ORDER
+        got = dict(zip(names, got1))
         want = {"x": dxp, **gp}
-        repeat = torch.equal(dx1, dx2) and all(
-            torch.equal(g1[k], g2[k]) for k in PARAM_ORDER)
+        repeat = all(torch.equal(a, b) for a, b in zip(got1, got2))
         finite = all(torch.isfinite(v.float()).all().item()
                      for v in got.values())
         errs = scaled_errors(torch, got, want)
@@ -512,14 +502,17 @@ def check_training_kernels(torch) -> dict:
                kern_bwd,
                lambda: attention_layer_backward_reference(x, p, gout, HEADS,
                                                           masks=drawn),
-               None, 3 * flops, (3 * x.numel() + n_par) * sz + n_par * 4,
+               None, 3 * flops, (3 * x.numel() + 2 * n_par) * sz,
                err, tol, max_scaled_err=max(errs.values()),
-               scaled_err=errs, bit_identical_rerun=repeat)
-        if not (repeat and finite and max(errs.values()) <= tol):
+               scaled_err=errs, bit_identical_rerun=repeat, **extra)
+        if not (repeat and finite and max(errs.values()) <= tol
+                and extra.get("equals_mask_mode_on_plain_draw", True)):
             raise RuntimeError(f"attention_bwd {dname}: rerun bit-equal "
-                               f"{repeat}, finite {finite}, errors {errs}")
+                               f"{repeat}, finite {finite}, errors {errs}, "
+                               f"{extra}")
 
-        # tsconv backward: dx (fp32) and dw~ (fp32)
+        # tsconv backward through autograd: dx and dw~ in dtype (the
+        # kernel's fp32 sums, cast as a step casts them)
         gt = torch.Generator(device="cuda").manual_seed(SEED + 12)
         C, T, K, Fn, pool, stride = 63, 250, 25, 40, 51, 5
         w_tilde = fold_pool_into_kernel(
@@ -538,9 +531,13 @@ def check_training_kernels(torch) -> dict:
         e = e.reshape(T, P * Fn)
         x2 = xt.reshape(B * C, T)
         g2d = gt_out.reshape(B * C, P * Fn)
+        xt_g = xt.detach().requires_grad_()
+        w_g = w_tilde.detach().requires_grad_()
+        out_t = tsconv_pool_fused(xt_g, w_g, stride)
 
         def kern_ts():
-            return tsconv_pool_fused_backward(xt, w_tilde, gt_out, stride)
+            return torch.autograd.grad(out_t, [xt_g, w_g], gt_out,
+                                       retain_graph=True)
 
         (a1, b1), (a2, b2) = kern_ts(), kern_ts()
         ap, bp = tsconv_pool_backward_reference(xt, w_tilde, gt_out, stride)
@@ -548,7 +545,8 @@ def check_training_kernels(torch) -> dict:
         repeat = torch.equal(a1, a2) and torch.equal(b1, b2)
         errs = scaled_errors(torch, {"x": a1, "w_tilde": b1},
                              {"x": ap, "w_tilde": bp})
-        err = max((a1 - ap).abs().max().item(), (b1 - bp).abs().max().item())
+        err = max((a1.float() - ap).abs().max().item(),
+                  (b1.float() - bp).abs().max().item())
         rows_n = B * C
         record("tsconv_bwd", dname, "eeg_image_decode_tpu/ops/tsconv.py:130",
                "eeg_image_decode_tpu_torch/csrc/tsconv_bwd.cu", kern_ts,
@@ -556,8 +554,7 @@ def check_training_kernels(torch) -> dict:
                                                       stride),
                lambda: (torch.matmul(g2d, e.T), torch.matmul(x2.T, g2d)),
                2 * 2 * rows_n * P * M * Fn,
-               (xt.numel() + gt_out.numel() + w_tilde.numel()) * sz
-               + (xt.numel() + w_tilde.numel()) * 4,
+               (2 * xt.numel() + gt_out.numel() + 2 * w_tilde.numel()) * sz,
                err, tol, max_scaled_err=max(errs.values()), scaled_err=errs,
                bit_identical_rerun=repeat)
         if not (repeat and max(errs.values()) <= tol):
@@ -852,7 +849,7 @@ def train_path(torch, card: str) -> tuple[dict, object]:
         ContrastiveTrainConfig,
     )
     from eeg_image_decode_tpu_torch.data.synthetic import (
-        make_synthetic_device_data,
+        make_synthetic_retrieval_data,
     )
     from eeg_image_decode_tpu_torch.models.registry import build_encoder
     from eeg_image_decode_tpu_torch.ops import _build
@@ -864,7 +861,8 @@ def train_path(torch, card: str) -> tuple[dict, object]:
     if tcfg.batch_size != TRAIN_BATCH:
         raise RuntimeError(f"batch {tcfg.batch_size} != {TRAIN_BATCH}")
     t0 = time.perf_counter()
-    train, test = make_synthetic_device_data(seed=SEED, device="cuda")
+    train, test = make_synthetic_retrieval_data(
+        n_classes=1654, n_test_classes=200, seed=SEED, device="cuda")
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
     model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
@@ -951,11 +949,13 @@ def main() -> int:
     kernels.update(check_training_kernels(torch))
 
     train, test = make_synthetic_retrieval_data(
-        n_classes=200, images_per_class=1, train_reps=2, seed=SEED)
-    eeg = np.concatenate([test.eeg, train.eeg])          # 600 × 63 × 250
+        n_classes=200, images_per_class=1, train_reps=2, seed=SEED,
+        device="cpu")
+    # 600 × 63 × 250 request rows; the gallery: 200 × 1024, unit rows
+    eeg = np.concatenate([test.eeg.numpy(), train.eeg.numpy()])
     sids = np.random.default_rng(SEED).integers(0, 10, len(eeg)).astype(
         np.int32)
-    gallery = test.img_features                          # 200 × 1024, unit rows
+    gallery = test.img_features.numpy()
     serve_rows = [
         serve_path(torch, "default_head", False, eeg, sids, gallery),
         serve_path(torch, "fused_projection", True, eeg, sids, gallery),
@@ -966,18 +966,15 @@ def main() -> int:
     grad_check(torch, trainer)
 
     # launches on the main paths: the serving requests, the training epoch
-    # and the evaluation (each counted from 0); the seeded mask draw runs
-    # inside every seeded forward and every backward of the epoch
+    # and the evaluation (each counted from 0). The seeded mask draw is a
+    # device function of the seeded forward and the backward, not a launch.
     main_path = {k: sum(r["launches"][k] for r in serve_rows)
                  + train_row["launches_train"][k]
                  + train_row["launches_eval"][k]
                  for k in _build.LAUNCHES}
-    main_path["keep_masks"] = (train_row["launches_train"]["attention_fwd_seed"]
-                               + train_row["launches_train"]["attention_bwd"])
     line = []
-    for name in ("attention_fwd", "attention_fwd_seed", "keep_masks",
-                 "attention_bwd", "tsconv_fwd", "tsconv_bwd",
-                 "projection_fwd"):
+    for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",
+                 "tsconv_fwd", "tsconv_bwd", "projection_fwd"):
         k = kernels[(name, "bfloat16")]
         if not main_path[name]:
             raise RuntimeError(f"{name} was not launched on the main path")

@@ -100,9 +100,12 @@ class ContrastiveTrainConfig:
 
     The JAX config's ``ckpt_every_epochs``, ``host_dtype`` and
     ``data_axis`` belong to the checkpointer and the streaming and mesh
-    modes, which are not ported yet (ROADMAP.md)."""
+    modes, which are not ported yet (ROADMAP.md). Its ``encoder``,
+    ``compute_dtype`` and ``logit_scale_init`` belong to the model here:
+    the trainer takes a ``build_encoder`` model, named by its first
+    argument, computing in its ``dtype=`` (``torch.bfloat16`` for the JAX
+    default's bf16 compute) and holding its logit scale (init ln(1/0.07))."""
 
-    encoder: str = "atms"
     batch_size: int = 1024
     epochs: int = 40
     lr: float = 3e-4
@@ -113,9 +116,5 @@ class ContrastiveTrainConfig:
     #: (ref ``Generation/ATMS_reconstruction.py:198,227-228``)
     recon_loss: bool = False
     recon_alpha: float = 0.90
-    logit_scale_init: float = 2.6592600225  # ln(1/0.07)
     seed: int = 0
     eval_ks: tuple[int, ...] = (2, 4, 10, 50, 100, 200)
-    #: dtype for activations on the compute path; params stay fp32 (the
-    #: model's dtype is set when it is built, ``build_encoder(dtype=)``)
-    compute_dtype: str = "bfloat16"

@@ -36,9 +36,6 @@
 // Shared memory per block: x/h1 (L x D), o / FFN hidden (L x inner, then
 // L x FF), q_h k_h v_h of the current head (3 x L x hd) and the fp32 scores
 // (L x L): 104 KB in bf16 (two blocks per SM), 191 KB in fp32.
-//
-// keep_masks_kernel writes the seeded masks out (fp32), so that what the
-// card draws can be held against the plain draw exactly.
 
 #include <cmath>
 
@@ -220,30 +217,6 @@ __global__ void __launch_bounds__(
   }
 }
 
-// The seeded masks of B samples, written out in fp32 (0 or 1/keep): one
-// thread per element, the draw of keep_factor's seed mode.
-__global__ void keep_masks_kernel(const int* seed_ptr, uint32_t thresh,
-                                  float inv_keep, int B, int H, int L, int D,
-                                  int FF, float* m0, float* m1, float* m2,
-                                  float* m3) {
-  const uint32_t seed = (uint32_t)*seed_ptr;
-  const long per[4] = {(long)H * L * L, (long)L * D, (long)L * FF,
-                       (long)L * D};
-  float* out[4] = {m0, m1, m2, m3};
-  const long stride = (long)gridDim.x * blockDim.x;
-  for (int site = 0; site < 4; ++site) {
-    const long total = per[site] * B;
-    for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += stride) {
-      const long b = i / per[site], e = i - b * per[site];
-      out[site][i] = keep_bits(seed, (uint32_t)b, (uint32_t)site,
-                               (uint32_t)e) < thresh
-                         ? inv_keep
-                         : 0.f;
-    }
-  }
-}
-
 template <typename T, int kMode>
 int launch_mode(AttnArgs a, int B, size_t smem, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -309,14 +282,4 @@ extern "C" int eid_attention_fwd(int dtype, const void* x,
   if (dtype == kBF16) return launch<__nv_bfloat16>(a, B, smem, s);
   if (dtype == kF32) return launch<float>(a, B, smem, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// seed: device pointer to the int32 seed; out: four fp32 (B, ...) masks.
-extern "C" int eid_keep_masks(const int* seed, unsigned thresh,
-                              float inv_keep, int B, int H, int L, int D,
-                              int FF, float* const* out, void* stream) {
-  if (B <= 0) return 0;
-  keep_masks_kernel<<<264, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      seed, thresh, inv_keep, B, H, L, D, FF, out[0], out[1], out[2], out[3]);
-  return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 """The flat retrieval-split container (copy of ``EEGRetrievalData`` from
 ``eeg_image_decode_tpu/data/things_eeg.py``). Its arrays are numpy arrays,
 or tensors already on a device (``data/synthetic.py::
-make_synthetic_device_data``). The THINGS-EEG file readers are not ported
-yet (ROADMAP.md)."""
+make_synthetic_retrieval_data``). The THINGS-EEG file readers are not
+ported yet (ROADMAP.md)."""
 
 from __future__ import annotations
 

@@ -41,7 +41,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: dict[str, int] = {
     "attention_fwd": 0, "attention_fwd_masks": 0, "attention_fwd_seed": 0,
-    "attention_bwd": 0, "keep_masks": 0, "tsconv_fwd": 0, "tsconv_bwd": 0,
+    "attention_bwd": 0, "tsconv_fwd": 0, "tsconv_bwd": 0,
     "projection_fwd": 0,
 }
 
@@ -56,8 +56,6 @@ _SIGNATURES = {
     # seed (device), thresh, keep value, stream
     "eid_attention_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _U, _F, _P], _I),
-    # seed (device), thresh, keep value, B, H, L, D, FF, out[4], stream
-    "eid_keep_masks": ([_P, _U, _F, _I, _I, _I, _I, _I, _P, _P], _I),
     # dtype, B, L, D, inner, FF, H → workspace bytes
     "eid_attention_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
     # dtype, x, g, w[16], wt[6], dx, out[5], ws, B, L, D, inner, FF, H,

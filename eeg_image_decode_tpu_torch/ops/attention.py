@@ -451,24 +451,6 @@ def _backward(x, p, g, n_heads, drop: _Dropout):
     return dx, grads
 
 
-def fused_attention_layer_backward(x: torch.Tensor, params: dict,
-                                   g: torch.Tensor, n_heads: int = 4, *,
-                                   masks: dict | None = None,
-                                   dropout_p: float = 0.0, seed=None
-                                   ) -> tuple[torch.Tensor, dict]:
-    """The layer's backward on its own: (dx in x's dtype, the 16 parameter
-    gradients in fp32), for the cotangent ``g`` of
-    ``fused_attention_layer(x, params, n_heads, masks=, dropout_p=,
-    seed=)``. A CPU tensor runs :func:`attention_layer_backward_reference`;
-    a CUDA tensor launches ``csrc/attention_bwd.cu`` or raises."""
-    p = {k: params[k].to(x.dtype).contiguous() for k in PARAM_ORDER}
-    if masks is not None:
-        masks = {k: masks[k].to(x.device, x.dtype).contiguous()
-                 for k in MASK_ORDER}
-    return _backward(x.contiguous(), p, g, n_heads,
-                     _Dropout(masks, dropout_p, seed))
-
-
 class _AttentionLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, n_heads, drop, *flat):
@@ -507,30 +489,3 @@ def fused_attention_layer(x: torch.Tensor, params: dict, n_heads: int = 4, *,
         masks = {k: masks[k].to(x.device, dt).contiguous() for k in MASK_ORDER}
     drop = _Dropout(masks, dropout_p, seed)
     return _AttentionLayer.apply(x.contiguous(), n_heads, drop, *flat)
-
-
-def draw_keep_masks_on_card(seed: torch.Tensor, batch: int, n_heads: int,
-                            length: int, d_model: int, d_ff: int,
-                            dropout_p: float) -> dict[str, torch.Tensor]:
-    """The masks the seed-mode kernels draw, written out by the card's own
-    Philox (``csrc/attention_fwd.cu::keep_masks_kernel``), fp32: what the
-    card draws can be compared with :func:`draw_keep_masks` exactly."""
-    if seed.device.type != "cuda":
-        raise ValueError("draw_keep_masks_on_card: the seed must lie on the "
-                         "card")
-    seed = seed.to(torch.int32).reshape(1).contiguous()
-    shapes = {"m_attn": (batch, n_heads, length, length),
-              "m_res": (batch, length, d_model),
-              "m_ffn1": (batch, length, d_ff),
-              "m_ffn2": (batch, length, d_model)}
-    out = {k: torch.empty(s, dtype=torch.float32, device=seed.device)
-           for k, s in shapes.items()}
-    thresh, value = keep_rule(dropout_p)
-    rc = _build.lib().eid_keep_masks(
-        seed.data_ptr(), ctypes.c_uint(thresh), ctypes.c_float(value), batch,
-        n_heads, length, d_model, d_ff,
-        _build.pointer_array([out[k] for k in MASK_ORDER]),
-        _build.stream_of(seed))
-    _build.check(rc, "keep_masks")
-    _build.LAUNCHES["keep_masks"] += 1
-    return out

@@ -121,17 +121,6 @@ def _backward(x: torch.Tensor, w_tilde: torch.Tensor, g: torch.Tensor,
     return dx, dw
 
 
-def tsconv_pool_fused_backward(x: torch.Tensor, w_tilde: torch.Tensor,
-                               g: torch.Tensor, stride: int = 5
-                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stage 1's backward on its own: (dx, dw̃), both fp32, for the
-    cotangent ``g`` of ``tsconv_pool_fused(x, w_tilde, stride)``. A CPU
-    tensor runs :func:`tsconv_pool_backward_reference`; a CUDA tensor
-    launches ``csrc/tsconv_bwd.cu`` or raises."""
-    return _backward(x.contiguous(), w_tilde.to(x.dtype).contiguous(), g,
-                     stride)
-
-
 class _TSConvPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_tilde, stride):

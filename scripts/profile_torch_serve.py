@@ -58,11 +58,12 @@ def main() -> int:
     model = build_encoder("atms", config=cfg, dtype=torch.bfloat16,
                           device="cuda", seed=SEED)
     train, test = make_synthetic_retrieval_data(
-        n_classes=200, images_per_class=1, train_reps=2, seed=SEED)
-    eeg = np.concatenate([test.eeg, train.eeg])[: args.batch]
+        n_classes=200, images_per_class=1, train_reps=2, seed=SEED,
+        device="cpu")
+    eeg = np.concatenate([test.eeg.numpy(), train.eeg.numpy()])[: args.batch]
     sids = np.ones(args.batch, np.int32)
-    svc = RetrievalService(model, test.img_features, max_batch=args.batch,
-                           device="cuda")
+    svc = RetrievalService(model, test.img_features.numpy(),
+                           max_batch=args.batch, device="cuda")
     svc.warmup((cfg.n_channels, cfg.seq_len))
     dev = svc.device
 

@@ -33,7 +33,7 @@ SEED = 20200220
 #: substrings of the port's kernel names (csrc/*.cu)
 OWN = ("attention_fwd_kernel", "attention_bwd_rows_kernel",
        "atb_partial_kernel", "sum_rows_kernel", "tsconv_fwd_kernel",
-       "tsconv_bwd_kernel", "keep_masks_kernel", "projection_fwd_kernel")
+       "tsconv_bwd_kernel", "projection_fwd_kernel")
 
 
 def emit(obj) -> None:
@@ -64,7 +64,7 @@ def main() -> int:
         ContrastiveTrainConfig,
     )
     from eeg_image_decode_tpu_torch.data.synthetic import (
-        make_synthetic_device_data,
+        make_synthetic_retrieval_data,
     )
     from eeg_image_decode_tpu_torch.models.registry import build_encoder
     from eeg_image_decode_tpu_torch.train.contrastive import (
@@ -75,7 +75,9 @@ def main() -> int:
     )
 
     cfg = ContrastiveTrainConfig()
-    train, _ = make_synthetic_device_data(seed=SEED, device="cuda")
+    train, _ = make_synthetic_retrieval_data(n_classes=1654,
+                                             n_test_classes=200, seed=SEED,
+                                             device="cuda")
     model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
                           device="cuda", seed=SEED)
     data = DeviceData.from_host(train, "cuda")

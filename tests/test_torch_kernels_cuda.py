@@ -152,33 +152,40 @@ def test_attention_fwd_masks_kernel_on_card(cuda, dtype, d, heads, ff,
 @pytest.mark.parametrize("d,heads,ff,length", ATTN_SHAPES)
 def test_attention_fwd_seed_kernel_on_card(cuda, dtype, d, heads, ff,
                                            length):
-    """The card's Philox draw equals the plain draw exactly; the seed-mode
-    forward equals the mask-mode forward fed that draw bit for bit, and the
-    plain layer within tolerance."""
+    """The seed-mode forward equals the mask-mode forward fed the plain
+    Philox draw bit for bit, and the plain layer within tolerance; in fp32,
+    where mask mode reads the very values seed mode draws, so does the
+    backward."""
     from eeg_image_decode_tpu_torch.ops.attention import (
+        PARAM_ORDER,
         draw_keep_masks,
-        draw_keep_masks_on_card,
     )
 
     rng = np.random.default_rng(9)
     inner = (d // heads) * heads
     b, seed = 7, 123457
     x = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
-    params = {k: v.to(cuda, dtype) for k, v in
+    gout = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
+    params = {k: v.to(cuda, dtype).requires_grad_() for k, v in
               _t(attention_params(rng, d, inner, ff)).items()}
-    x = x.to(cuda, dtype)
+    x = x.to(cuda, dtype).requires_grad_()
+    gout = gout.to(cuda, dtype)
     seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda)
-    card = draw_keep_masks_on_card(seed_t, b, heads, length, d, ff, 0.25)
     plain = draw_keep_masks(seed, b, heads, length, d, ff, 0.25, device=cuda)
-    for k in plain:
-        assert torch.equal(card[k], plain[k]), k
     got = fused_attention_layer(x, params, heads, dropout_p=0.25, seed=seed_t)
-    via_masks = fused_attention_layer(x, params, heads, masks=card)
-    want = attention_layer_reference(x, params, heads, masks=plain)
+    via_masks = fused_attention_layer(x, params, heads, masks=plain)
+    with torch.no_grad():
+        want = attention_layer_reference(x, params, heads, masks=plain)
     torch.cuda.synchronize()
     assert torch.equal(got, via_masks)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= CUDA_TOL[dtype], err
+    if dtype == torch.float32:
+        inputs = [x, *[params[k] for k in PARAM_ORDER]]
+        for name, a, w in zip(("x",) + PARAM_ORDER,
+                              torch.autograd.grad(got, inputs, gout),
+                              torch.autograd.grad(via_masks, inputs, gout)):
+            assert torch.equal(a, w), name
 
 
 @pytest.mark.cuda

@@ -302,7 +302,7 @@ def test_trainer_fits_on_cpu_and_needs_a_device(tmp_path):
     CSV log. Without device="cpu" the trainer wants the CUDA card."""
     train, test = make_synthetic_retrieval_data(
         n_classes=12, images_per_class=2, train_reps=2, n_channels=C,
-        n_timepoints=T, clip_dim=SMALL["proj_dim"], seed=46)
+        n_timepoints=T, clip_dim=SMALL["proj_dim"], seed=46, device="cpu")
     cfg = ContrastiveTrainConfig(batch_size=8, eval_ks=(2, 4, 12))
     model = build_encoder("atms", config=ATMSConfig(**SMALL), device="cpu")
     trainer = ContrastiveTrainer(model, cfg, train, test, device="cpu",

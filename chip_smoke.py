@@ -32,6 +32,13 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    with the default (exact-erf) projection head, which launches the
    attention and tsconv kernels, and with ``fused_projection=True``, which
    launches all three.
+   Phase 2 also holds the projection head's training kernels at B = 1024:
+   the forward in mask mode and in seed mode (p = 0.5; the seeded forward
+   bit-equal to mask mode fed ``draw_keep_mask``, the kept fraction), and
+   the backward (dx and the six gradients) through ``torch.autograd.grad``,
+   twice, bit for bit, in fp32 bit-equal to mask mode on the plain draw;
+   their library yardstick is two matmuls + ``F.gelu(tanh)`` +
+   ``F.dropout`` + ``F.layer_norm`` and autograd of that chain.
 4. The training path at full width: one subject's split drawn on the card
    from a seed (``make_synthetic_retrieval_data``: 1654 classes × 10 images
    × 4 repetitions = 66,160 × 63 × 250 fp32, plus 200 test classes), then
@@ -45,10 +52,32 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    dropout sites pinned to the same masks). Then the step time (p50 of
    per-step CUDA-event times, the first 3 steps left out), samples/s, the
    epoch and evaluation seconds and the peak device memory.
-5. One JSON line listing the kernels, then the result line
+5. The fused-head joint path at full width: the same split with seeded
+   subject ids over 0..9, ``ATMSConfig(fused_projection=True,
+   joint_train=True)``, a ``Checkpointer`` in a temporary directory.
+   ``fit(1)``: the launch counts must show all six training kernels once
+   per step (the seeded projection forward and the projection backward
+   among them) and the mode-0 projection forward in the evaluation; the
+   loss finite and falling; a checkpoint saved. A fresh model and trainer
+   ``resume()`` from it and run epoch 1, whose per-step losses are held
+   against epoch 1 of the uninterrupted run (|Δ| ≤ 0.05, and whether they
+   are bit-equal). One step's gradients through the kernels against the
+   plain versions, in seed mode with the same generator seed on both sides
+   (the kernels draw in-kernel, the plain versions draw the same bits with
+   ``draw_keep_masks`` / ``draw_keep_mask``). Then the step p50 beside
+   phase 4's.
+6. The CLI: a small THINGS-EEG-shaped tree (two subjects, 30 train classes,
+   20 test concepts) and its feature file written to a temporary directory;
+   ``cli train-retrieval`` for two epochs at full model width on the card,
+   ``--resume-dir`` for a third, then ``cli evaluate`` on the run
+   directory, whose row must equal the trainer's last evaluation.
+7. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
-   function inside the seeded forward and the backward, not a launch of its
-   own, so it has no row there: the bit-equalities of phase 2 hold it.
+   function inside the seeded forwards and the backwards, not a launch of
+   its own, so it has no row there: the bit-equalities of phase 2 hold it.
+   The mask-mode forwards are reached through the ops only (a pinned mask
+   in the model routes around the fused head), so they are reported in
+   phase 2 and not in that line.
 
 Any failure raises before the result line, and the exit code is not 0.
 Without a CUDA device it exits with 2 and prints no result.
@@ -56,10 +85,14 @@ Without a CUDA device it exits with 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
 from contextlib import ExitStack
@@ -303,7 +336,18 @@ TOL_REASON = {
                      "softmax backward",
     "tsconv_bwd": "share of each output's largest |plain|: fp32 sums of "
                   "bf16 products, order only",
+    "projection_fwd_masks": "only g is rounded to bf16 and the output is "
+                            "fp32: the no-dropout head's 4e-3, twice, since "
+                            "a kept z is doubled",
+    "projection_fwd_seed": "as projection_fwd_masks",
+    "projection_bwd": "share of each output's largest |plain|: a bf16 "
+                      "rounding flip (2^-8) of g, d_z or d_a, and the cast "
+                      "of the gradients to bf16",
 }
+#: the projection head's dropout-mode forward vs plain (fp32 output)
+PROJ_FWD_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
+P_DROP_PROJ = 0.5
+D_IN, D_OUT = 1440, 1024
 #: why a kernel has no library yardstick
 NO_LIBRARY = {
     "attention_fwd_masks": "none: no one PyTorch call computes the layer",
@@ -387,7 +431,8 @@ def check_training_kernels(torch) -> dict:
     rows = {}
 
     def record(name, dname, replaces, source, kern, plain, library, flops,
-               nbytes, err, tol, **extra):
+               nbytes, err, tol, library_desc="dense g2 @ E^T + x2^T @ g2",
+               **extra):
         b_ms, b_by = bound(flops, nbytes, dname)
         reason = TOL_REASON["float32" if dname == "float32" else name]
         row = {"phase": "kernel", "name": name, "dtype": dname,
@@ -395,8 +440,7 @@ def check_training_kernels(torch) -> dict:
                "tolerance_reason": reason,
                "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
                "library_ms": cuda_ms(torch, library) if library else None,
-               "library": "dense g2 @ E^T + x2^T @ g2" if library
-               else NO_LIBRARY[name],
+               "library": library_desc if library else NO_LIBRARY[name],
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                "bytes": nbytes, **extra}
         emit(row)
@@ -560,7 +604,139 @@ def check_training_kernels(torch) -> dict:
         if not (repeat and max(errs.values()) <= tol):
             raise RuntimeError(f"tsconv_bwd {dname}: rerun bit-equal "
                                f"{repeat}, errors {errs}")
+        check_projection_training_kernels(torch, dtype, record)
     return rows
+
+
+def check_projection_training_kernels(torch, dtype, record) -> None:
+    """The projection head's mask-mode and seed-mode forward and its
+    backward at B = 1024, one dtype."""
+    import torch.nn.functional as F
+
+    from eeg_image_decode_tpu_torch.ops.projection import (
+        PARAM_ORDER,
+        draw_keep_mask,
+        fused_projection_head,
+        projection_head_backward_reference,
+        projection_head_reference,
+    )
+
+    B = TRAIN_BATCH
+    dname = str(dtype).split(".")[-1]
+    sz = torch.tensor([], dtype=dtype).element_size()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    p = {"wi": randn(D_IN, D_OUT, scale=D_IN ** -0.5),
+         "bi": randn(D_OUT, scale=0.1),
+         "wr": randn(D_OUT, D_OUT, scale=D_OUT ** -0.5),
+         "br": randn(D_OUT, scale=0.1),
+         "ln_s": randn(D_OUT, scale=0.1, shift=1.0),
+         "ln_b": randn(D_OUT, scale=0.1)}
+    p = {k: v.to(dtype) for k, v in p.items()}
+    x = randn(B, D_IN).to(dtype)
+    gout = randn(B, D_OUT)                               # fp32, as the loss's
+    mask = ((torch.rand(B, D_OUT, generator=g, device="cuda") >= P_DROP_PROJ)
+            .float() / (1 - P_DROP_PROJ)).to(dtype)
+    n_par = sum(v.numel() for v in p.values())
+    flops = 2 * B * (D_IN * D_OUT + D_OUT * D_OUT)
+    fwd_bytes = (x.numel() + n_par) * sz + B * D_OUT * 4
+    replaces_fwd = "eeg_image_decode_tpu/ops/projection.py:94"
+    source_fwd = "eeg_image_decode_tpu_torch/csrc/projection_fwd.cu"
+    tol_fwd = PROJ_FWD_TOL[dname]
+    lib_desc = ("2 matmuls + F.gelu(tanh) + F.dropout + F.layer_norm"
+                " (and autograd of it for the backward)")
+
+    def library(xx, pp):
+        a = torch.matmul(xx, pp["wi"]) + pp["bi"]
+        z = torch.matmul(F.gelu(a, approximate="tanh"), pp["wr"]) + pp["br"]
+        z = F.dropout(z, P_DROP_PROJ, training=True)
+        return F.layer_norm(a + z, (D_OUT,), pp["ln_s"], pp["ln_b"], 1e-6)
+
+    # forward, mask mode
+    with torch.no_grad():
+        got = fused_projection_head(x, p, mask)
+        want = projection_head_reference(x, p, mask)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        record("projection_fwd_masks", dname, replaces_fwd, source_fwd,
+               lambda: fused_projection_head(x, p, mask),
+               lambda: projection_head_reference(x, p, mask),
+               lambda: library(x, p), flops, fwd_bytes + mask.numel() * sz,
+               err, tol_fwd, library_desc=lib_desc)
+        if not (err <= tol_fwd and torch.isfinite(got).all()):
+            raise RuntimeError(f"projection_fwd_masks {dname}: {err}")
+
+        # forward, seed mode: bit-equal to mask mode fed the plain draw
+        seed = (SEED + 1) % (2**31 - 1)
+        seed_t = torch.tensor([seed], dtype=torch.int32, device="cuda")
+        drawn = draw_keep_mask(seed, B, D_OUT, P_DROP_PROJ, device="cuda")
+        kept = float((drawn > 0).float().mean())
+        if abs(kept - (1 - P_DROP_PROJ)) > 0.005:
+            raise RuntimeError(f"kept fraction {kept} off 0.5 ± 0.005")
+        got = fused_projection_head(x, p, None, P_DROP_PROJ, seed_t)
+        via_mask = fused_projection_head(x, p, drawn)
+        want = projection_head_reference(x, p, drawn)
+        torch.cuda.synchronize()
+        same = torch.equal(got, via_mask)
+        err = (got - want).abs().max().item()
+        record("projection_fwd_seed", dname, replaces_fwd, source_fwd,
+               lambda: fused_projection_head(x, p, None, P_DROP_PROJ, seed_t),
+               lambda: projection_head_reference(x, p, drawn),
+               lambda: library(x, p), flops, fwd_bytes, err, tol_fwd,
+               library_desc=lib_desc, equals_mask_mode_on_plain_draw=same,
+               kept_fraction=kept)
+        if not (same and err <= tol_fwd):
+            raise RuntimeError(f"projection_fwd_seed {dname}: bit-equal to "
+                               f"mask mode {same}, |Δ| {err}")
+
+    # backward, seed mode (the training path's), through autograd as a step
+    # runs it: dx and the six gradients, in the parameters' dtype
+    xg = x.detach().requires_grad_()
+    pg = {k: v.detach().requires_grad_() for k, v in p.items()}
+    inputs = [xg, *[pg[k] for k in PARAM_ORDER]]
+    out = fused_projection_head(xg, pg, None, P_DROP_PROJ, seed_t)
+
+    def kern_bwd():
+        return torch.autograd.grad(out, inputs, gout, retain_graph=True)
+
+    got1, got2 = kern_bwd(), kern_bwd()
+    via = torch.autograd.grad(fused_projection_head(xg, pg, drawn), inputs,
+                              gout)
+    dxp, gp = projection_head_backward_reference(x, p, gout, drawn)
+    out_lib = library(xg, pg)
+
+    def lib_bwd():
+        return torch.autograd.grad(out_lib, inputs, gout, retain_graph=True)
+
+    torch.cuda.synchronize()
+    names = ("x",) + PARAM_ORDER
+    got = dict(zip(names, got1))
+    want = {"x": dxp, **gp}
+    repeat = all(torch.equal(a, b) for a, b in zip(got1, got2))
+    equals_mask = all(torch.equal(a, b) for a, b in zip(got1, via))
+    finite = all(torch.isfinite(v.float()).all().item() for v in got.values())
+    errs = {k: (got[k].float() - want[k].float()).abs().max().item()
+            / max(want[k].float().abs().max().item(), 1e-30) for k in want}
+    err = max((got[k].float() - want[k].float()).abs().max().item()
+              for k in want)
+    tol = BWD_TOL[dname]
+    record("projection_bwd", dname,
+           "eeg_image_decode_tpu/ops/projection.py:128",
+           "eeg_image_decode_tpu_torch/csrc/projection_bwd.cu", kern_bwd,
+           lambda: projection_head_backward_reference(x, p, gout, drawn),
+           lib_bwd, 3 * flops,
+           (2 * x.numel() + 2 * n_par) * sz + gout.numel() * 4, err, tol,
+           library_desc=lib_desc, max_scaled_err=max(errs.values()),
+           scaled_err=errs, bit_identical_rerun=repeat,
+           equals_mask_mode_on_plain_draw=equals_mask)
+    if not (repeat and finite and max(errs.values()) <= tol
+            and (equals_mask or dtype != torch.float32)):
+        raise RuntimeError(f"projection_bwd {dname}: rerun bit-equal "
+                           f"{repeat}, finite {finite}, equals mask mode "
+                           f"{equals_mask}, errors {errs}")
 
 
 # ——— phase 3: the serving path through the port's HTTP daemon ———
@@ -602,7 +778,7 @@ def plain_versions():
                    lambda x, w, s=5: tsconv_pool_reference(x, w.to(x.dtype), s)),
         mock.patch("eeg_image_decode_tpu_torch.models.layers."
                    "fused_projection_head",
-                   lambda x, p: projection_head_reference(x, cast(p, x))),
+                   lambda x, p, *_: projection_head_reference(x, cast(p, x))),
     ]
 
 
@@ -704,13 +880,22 @@ def serve_path(torch, variant: str, fused_projection: bool, eeg, sids,
 
 
 def plain_training_ops(torch):
-    """The attention layer and tsconv stage 1 as autograd Functions of
-    their plain versions (forward and backward), with the wrappers'
-    signatures: the same step without any kernel."""
+    """The attention layer, tsconv stage 1 and the fused projection head as
+    autograd Functions of their plain versions (forward and backward), with
+    the wrappers' signatures: the same step without any kernel. In seed mode
+    they draw the masks the kernels draw, with ``draw_keep_masks`` and
+    ``draw_keep_mask``."""
     from eeg_image_decode_tpu_torch.ops.attention import (
         PARAM_ORDER,
         attention_layer_backward_reference,
         attention_layer_reference,
+        draw_keep_masks,
+    )
+    from eeg_image_decode_tpu_torch.ops.projection import (
+        PARAM_ORDER as PROJ_ORDER,
+        draw_keep_mask,
+        projection_head_backward_reference,
+        projection_head_reference,
     )
     from eeg_image_decode_tpu_torch.ops.tsconv import (
         tsconv_pool_backward_reference,
@@ -747,23 +932,54 @@ def plain_training_ops(torch):
             dx, dw = tsconv_pool_backward_reference(x, w, g, ctx.stride)
             return dx.to(x.dtype), dw.to(w.dtype), None
 
+    class PlainProjection(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, mask, *flat):
+            ctx.save_for_backward(x, *flat)
+            ctx.mask = mask
+            return projection_head_reference(
+                x, dict(zip(PROJ_ORDER, flat)), mask)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, *flat = ctx.saved_tensors
+            dx, grads = projection_head_backward_reference(
+                x, dict(zip(PROJ_ORDER, flat)), g, ctx.mask)
+            return (dx, None, *[grads[k].to(x.dtype) for k in PROJ_ORDER])
+
     def attention(x, params, n_heads=4, *, masks=None, dropout_p=0.0,
                   seed=None):
-        if masks is None and dropout_p > 0.0:
-            raise RuntimeError("the plain step takes pinned masks only")
         dt = x.dtype
         flat = [params[k].to(dt) for k in PARAM_ORDER]
-        masks = None if masks is None else {k: v.to(dt)
-                                            for k, v in masks.items()}
+        if masks is not None:  # mask mode reads them in x's dtype
+            masks = {k: v.to(dt) for k, v in masks.items()}
+        elif dropout_p > 0.0 and seed is not None:  # seed mode: the fp32 draw
+            B, L, D = x.shape
+            masks = draw_keep_masks(int(seed), B, n_heads, L, D,
+                                    params["w1"].shape[1], dropout_p,
+                                    device=x.device)
         return PlainAttention.apply(x, n_heads, masks, *flat)
 
     def tsconv(x, w_tilde, stride=5):
         return PlainTSConv.apply(x, w_tilde.to(x.dtype), stride)
 
+    def projection(x, params, mask=None, dropout_p=0.0, seed=None):
+        dt = x.dtype
+        flat = [params[k].to(dt) for k in PROJ_ORDER]
+        if mask is not None:
+            mask = mask.to(dt)
+        elif dropout_p > 0.0 and seed is not None:
+            mask = draw_keep_mask(int(seed), x.shape[0],
+                                  params["wi"].shape[1], dropout_p,
+                                  device=x.device)
+        return PlainProjection.apply(x, mask, *flat)
+
     return [mock.patch("eeg_image_decode_tpu_torch.models.atm_s."
                        "fused_attention_layer", attention),
             mock.patch("eeg_image_decode_tpu_torch.models.layers."
-                       "tsconv_pool_fused", tsconv)]
+                       "tsconv_pool_fused", tsconv),
+            mock.patch("eeg_image_decode_tpu_torch.models.layers."
+                       "fused_projection_head", projection)]
 
 
 #: one training step's gradients, kernels against plain versions, as the
@@ -774,9 +990,12 @@ def plain_training_ops(torch):
 GRAD_TOL = 5e-2
 
 
-def grad_check(torch, trainer) -> dict:
-    """The same step (batch, pinned masks at the seven sites) through the
-    kernels and through the plain versions."""
+def grad_check(torch, trainer, seeded: bool = False) -> dict:
+    """The same step through the kernels and through the plain versions:
+    the batch and either pinned masks at the seven sites, or (``seeded``)
+    the trainer's own seed mode with the same generator seed on both sides.
+    A pinned ``proj`` mask routes around the fused head, so the fused-head
+    model is checked seeded."""
     from eeg_image_decode_tpu_torch.ops import _build
     from eeg_image_decode_tpu_torch.ops.attention import draw_keep_masks
     from eeg_image_decode_tpu_torch.train.contrastive import batch_loss
@@ -793,11 +1012,12 @@ def grad_check(torch, trainer) -> dict:
         return (torch.rand(shape, generator=g, device="cuda") >= p).float() \
             / (1.0 - p)
 
-    masks = {"emb": keep((B, L_TOK, D_MODEL), 0.25),
-             "layer0": draw_keep_masks(SEED + 21, B, HEADS, L_TOK, D_MODEL,
-                                       D_FF, 0.25, device="cuda"),
-             "tsconv": keep((B, 1, 36, 40), 0.5),
-             "proj": keep((B, 1024), 0.5)}
+    masks = None if seeded else {
+        "emb": keep((B, L_TOK, D_MODEL), 0.25),
+        "layer0": draw_keep_masks(SEED + 21, B, HEADS, L_TOK, D_MODEL, D_FF,
+                                  0.25, device="cuda"),
+        "tsconv": keep((B, 1, 36, 40), 0.5),
+        "proj": keep((B, 1024), 0.5)}
     saved = {k: v.clone() for k, v in model.state_dict().items()}
 
     def step(plain: bool):
@@ -808,7 +1028,11 @@ def grad_check(torch, trainer) -> dict:
             if plain:
                 for patch in plain_training_ops(torch):
                     stack.enter_context(patch)
-            loss, _ = batch_loss(model, cfg, batch, dropout_masks=masks)
+            if seeded:
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+                loss, _ = batch_loss(model, cfg, batch, generator=gen)
+            else:
+                loss, _ = batch_loss(model, cfg, batch, dropout_masks=masks)
             loss.backward()
         return float(loss.detach()), {k: p.grad.detach().float().clone()
                              for k, p in model.named_parameters()}
@@ -832,6 +1056,8 @@ def grad_check(torch, trainer) -> dict:
            for k in grads_p}
     worst = max(rel, key=rel.get)
     row = {"phase": "train_grad_check", "dtype": "bfloat16",
+           "dropout": "seed mode, one generator seed" if seeded
+           else "seven pinned masks",
            "loss_kernels": loss_k, "loss_plain": loss_p,
            "launches_kernel_step": launches, "tolerance": GRAD_TOL,
            "worst_param": worst, "worst_rel_l2": rel[worst],
@@ -843,13 +1069,11 @@ def grad_check(torch, trainer) -> dict:
     return row
 
 
-def train_path(torch, card: str) -> tuple[dict, object]:
+def train_path(torch, card: str, train, test,
+               data_s: float) -> tuple[dict, object]:
     from eeg_image_decode_tpu_torch.core.config import (
         ATMSConfig,
         ContrastiveTrainConfig,
-    )
-    from eeg_image_decode_tpu_torch.data.synthetic import (
-        make_synthetic_retrieval_data,
     )
     from eeg_image_decode_tpu_torch.models.registry import build_encoder
     from eeg_image_decode_tpu_torch.ops import _build
@@ -860,11 +1084,6 @@ def train_path(torch, card: str) -> tuple[dict, object]:
     tcfg = ContrastiveTrainConfig()
     if tcfg.batch_size != TRAIN_BATCH:
         raise RuntimeError(f"batch {tcfg.batch_size} != {TRAIN_BATCH}")
-    t0 = time.perf_counter()
-    train, test = make_synthetic_retrieval_data(
-        n_classes=1654, n_test_classes=200, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    data_s = time.perf_counter() - t0
     model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
                           device="cuda", seed=SEED)
     trainer = ContrastiveTrainer(model, tcfg, train, test, device="cuda")
@@ -918,6 +1137,204 @@ def train_path(torch, card: str) -> tuple[dict, object]:
     return row, trainer
 
 
+# ——— phase 5: the fused-head joint path, with a checkpoint and a resume ———
+
+TRAIN_KERNELS = ("attention_fwd_seed", "attention_bwd", "tsconv_fwd",
+                 "tsconv_bwd", "projection_fwd_seed", "projection_bwd")
+#: per-step losses of the resumed epoch against the uninterrupted run's:
+#: the restored state is bit-equal, so any difference comes from a
+#: PyTorch backward that sums in an order that varies (its index_put);
+#: 0.05 is well under one step's change of a loss near 9
+RESUME_TOL = 0.05
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fused_joint_path(torch, card: str, train, test, default_p50: float,
+                     main_launches: dict) -> dict:
+    from eeg_image_decode_tpu_torch.core.checkpoint import Checkpointer
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+
+    def with_subjects(split):
+        ids = torch.randint(0, 10, (split.n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        return dataclasses.replace(split, subject_ids=ids)
+
+    train, test = with_subjects(train), with_subjects(test)
+    used = int(torch.unique(train.subject_ids).numel())
+    acfg = ATMSConfig(fused_projection=True, joint_train=True)
+    tcfg = ContrastiveTrainConfig(ckpt_every_epochs=1)
+
+    def trainer_in(run_dir: str, seed: int) -> ContrastiveTrainer:
+        model = build_encoder("atms", config=acfg, dtype=torch.bfloat16,
+                              device="cuda", seed=seed)
+        return ContrastiveTrainer(
+            model, tcfg, train, test, device="cuda", output_dir=run_dir,
+            checkpointer=Checkpointer(os.path.join(run_dir, "ckpt")))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_") as run_dir:
+        first = trainer_in(run_dir, SEED)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        history = first.fit(1, log_fn=None)       # epoch 0, eval, checkpoint
+        launches = dict(_build.LAUNCHES)
+        add_launches(main_launches, launches)
+        losses = first.last_steps["step_loss"]
+        step_ms = first.last_steps["step_ms"]
+        n_steps = len(losses)
+        want = {k: n_steps for k in TRAIN_KERNELS}
+        want["tsconv_fwd"] += 1                    # the evaluation's
+        wrong = {k: launches[k] for k in want if launches[k] != want[k]}
+        if wrong or launches["projection_fwd"] != 1 \
+                or launches["attention_fwd"] != 1:
+            raise RuntimeError(f"fused joint path: launches {launches} over "
+                               f"{n_steps} steps and one evaluation")
+        first8, last8 = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+        if not (np.all(np.isfinite(losses)) and last8 < first8):
+            raise RuntimeError(f"fused joint path: loss did not fall: "
+                               f"{first8} -> {last8}")
+        if first.checkpointer.all_steps() != [1]:
+            raise RuntimeError("no checkpoint after the epoch: "
+                               f"{first.checkpointer.all_steps()}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # a fresh model (other weights) and trainer resume and run epoch 1
+        resumed = trainer_in(run_dir, SEED + 1)
+        t0 = time.perf_counter()
+        start = resumed.resume()
+        resume_s = time.perf_counter() - t0
+        same_state = all(
+            torch.equal(a, b) for a, b in zip(
+                resumed.model.state_dict().values(),
+                first.model.state_dict().values()))
+        if start != 1 or not same_state or resumed.state.step != n_steps:
+            raise RuntimeError(f"resume: epoch {start}, state restored "
+                               f"bit-equal {same_state}, step "
+                               f"{resumed.state.step}")
+        _build.reset_launches()
+        resumed.fit(2, log_fn=None)
+        add_launches(main_launches, dict(_build.LAUNCHES))
+        if [r["epoch"] for r in resumed.history] != [0, 1]:
+            raise RuntimeError(f"resumed history: {resumed.history}")
+        got = np.asarray(resumed.last_steps["step_loss"])
+        # the uninterrupted run: the first trainer goes on with epoch 1
+        first.train_epoch(1)
+        ref = np.asarray(first.last_steps["step_loss"])
+        delta = float(np.abs(got - ref).max())
+        bit_equal = bool(np.array_equal(got, ref))
+        if not (np.all(np.isfinite(got)) and delta <= RESUME_TOL):
+            raise RuntimeError(f"resumed epoch differs from the "
+                               f"uninterrupted one: max |Δloss| {delta}")
+        check = grad_check(torch, resumed, seeded=True)
+        missing = [k for k in TRAIN_KERNELS
+                   if check["launches_kernel_step"][k] != 1]
+        if missing:
+            raise RuntimeError(f"seeded step launched no {missing}")
+
+    p50 = float(np.median(step_ms[3:]))
+    row = {"phase": "train_fused_joint", "card": card, "dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "subjects_used": used, "steps": n_steps,
+           "loss_first8": first8, "loss_last8": last8,
+           "epoch_loss": history[0]["loss"], "eval": {
+               k: v for k, v in history[0].items() if k.startswith("top")},
+           "step_ms_p50": p50, "step_ms_min": float(np.min(step_ms[3:])),
+           "step_ms_max": float(np.max(step_ms[3:])),
+           "samples_per_s": TRAIN_BATCH / (p50 / 1e3),
+           "default_head_step_ms_p50": default_p50,
+           "epoch_s": history[0]["epoch_time_s"], "peak_mem_gb": peak_gb,
+           "launches_fit_one_epoch": launches,
+           "resume_s": resume_s, "resumed_state_bit_equal": same_state,
+           "resumed_epoch_max_abs_dloss": delta,
+           "resumed_epoch_bit_equal": bit_equal,
+           "resume_tolerance": RESUME_TOL,
+           "resumed_epoch_loss": float(got.mean())}
+    emit(row)
+    return row
+
+
+# ——— phase 6: the training CLI on a written THINGS-EEG-shaped tree ———
+
+
+def run_cli(argv: list[str]) -> tuple[dict, str | None]:
+    """``cli.main(argv)`` in this process: (the JSON row it prints last,
+    the run directory it names)."""
+    from eeg_image_decode_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    run_dir = next((ln.split(": ", 1)[1] for ln in lines
+                    if ln.startswith("run directory: ")), None)
+    return json.loads(lines[-1]), run_dir
+
+
+def cli_path(torch, main_launches: dict) -> dict:
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_things_tree,
+    )
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    ks, seed = "2,4,10,20", 7
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "things")
+        feats = write_synthetic_things_tree(
+            root, ("sub-01", "sub-02"), n_classes=30, n_test_classes=20,
+            seed=SEED)
+        tree_s = time.perf_counter() - t0
+        common = ["--data-path", root, "--features", feats, "--eval-ks", ks,
+                  "--subjects", "sub-01"]
+        train_args = [*common, "--batch-size", "256", "--seed", str(seed)]
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        row2, run_dir = run_cli(["train-retrieval", *train_args, "--epochs",
+                                 "2", "--output-dir",
+                                 os.path.join(tmp, "runs")])
+        row3, _ = run_cli(["train-retrieval", *train_args, "--epochs", "3",
+                           "--resume-dir", run_dir])
+        # the trainer's evaluation after epoch 2 drew from seed + 104729·2
+        scored, _ = run_cli(["evaluate", *common, "--run-dir", run_dir,
+                             "--seed", str(seed + 104729 * 2)])
+        cli_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        add_launches(main_launches, launches)
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+        with open(os.path.join(run_dir, "results.csv")) as f:
+            csv_rows = len(f.read().splitlines()) - 1
+    tops = [k for k in row3 if k.startswith("top")]
+    differ = {k: (scored.get(k), row3[k]) for k in tops
+              if scored.get(k) != row3[k]}
+    missing = [k for k in ("attention_fwd", "attention_fwd_seed",
+                           "attention_bwd", "tsconv_fwd", "tsconv_bwd")
+               if not launches[k]]
+    row = {"phase": "cli", "epochs": [row2["epoch"], row3["epoch"]],
+           "loss": [row2["loss"], row3["loss"]], "checkpoints": ckpts,
+           "csv_rows": csv_rows, "evaluate": scored,
+           "evaluate_equals_trainer": not differ, "launches": launches,
+           "write_tree_s": tree_s, "cli_s": cli_s}
+    emit(row)
+    if (differ or missing or row2["epoch"] != 1 or row3["epoch"] != 2
+            or ckpts != ["2", "3"] or csv_rows != 3 or scored["step"] != 3
+            or not np.isfinite([row2["loss"], row3["loss"]]).all()):
+        raise RuntimeError(f"cli path: evaluate differs {differ}, kernels "
+                           f"not launched {missing}, row {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -962,19 +1379,32 @@ def main() -> int:
     ]
 
     del train, test, eeg
-    train_row, trainer = train_path(torch, card)
+    t0 = time.perf_counter()
+    train, test = make_synthetic_retrieval_data(
+        n_classes=1654, n_test_classes=200, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    train_row, trainer = train_path(torch, card, train, test, data_s)
     grad_check(torch, trainer)
+    del trainer
 
     # launches on the main paths: the serving requests, the training epoch
-    # and the evaluation (each counted from 0). The seeded mask draw is a
-    # device function of the seeded forward and the backward, not a launch.
+    # and the evaluation, the fused-head joint run and the CLI (each counted
+    # from 0). The seeded mask draws are device functions of the seeded
+    # forwards and the backwards, not launches.
     main_path = {k: sum(r["launches"][k] for r in serve_rows)
                  + train_row["launches_train"][k]
                  + train_row["launches_eval"][k]
                  for k in _build.LAUNCHES}
+    fused_joint_path(torch, card, train, test, train_row["step_ms_p50"],
+                     main_path)
+    del train, test
+    cli_path(torch, main_path)
+
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",
-                 "tsconv_fwd", "tsconv_bwd", "projection_fwd"):
+                 "tsconv_fwd", "tsconv_bwd", "projection_fwd",
+                 "projection_fwd_seed", "projection_bwd"):
         k = kernels[(name, "bfloat16")]
         if not main_path[name]:
             raise RuntimeError(f"{name} was not launched on the main path")

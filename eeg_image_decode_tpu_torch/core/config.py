@@ -98,9 +98,9 @@ class ATMSConfig:
 class ContrastiveTrainConfig:
     """Contrastive retrieval training (ref ``Retrieval/ATMS_retrieval.py:516-586``).
 
-    The JAX config's ``ckpt_every_epochs``, ``host_dtype`` and
-    ``data_axis`` belong to the checkpointer and the streaming and mesh
-    modes, which are not ported yet (ROADMAP.md). Its ``encoder``,
+    The JAX config's ``host_dtype`` and ``data_axis`` belong to the
+    streaming and mesh modes, which are not ported yet (ROADMAP.md). Its
+    ``encoder``,
     ``compute_dtype`` and ``logit_scale_init`` belong to the model here:
     the trainer takes a ``build_encoder`` model, named by its first
     argument, computing in its ``dtype=`` (``torch.bfloat16`` for the JAX
@@ -118,3 +118,6 @@ class ContrastiveTrainConfig:
     recon_alpha: float = 0.90
     seed: int = 0
     eval_ks: tuple[int, ...] = (2, 4, 10, 50, 100, 200)
+    #: with a checkpointer: save every this many epochs (ref ``:381``), and
+    #: always after the last
+    ckpt_every_epochs: int = 5

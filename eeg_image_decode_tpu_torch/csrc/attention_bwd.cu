@@ -94,14 +94,6 @@ struct BwdArgs {
   Dropout drop;
 };
 
-// d/du of common.cuh::gelu_tanh (the JAX kernel's _gelu_tanh_and_grad)
-__device__ __forceinline__ float gelu_tanh_grad(float u) {
-  const float c = 0.7978845608028654f, a = 0.044715f;
-  const float t = tanhf(c * (u + a * u * u * u));
-  return 0.5f * (1.0f + t) +
-         0.5f * u * (1.0f - t * t) * c * (1.0f + 3.0f * a * u * u);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     attention_bwd_rows_kernel(const BwdArgs p) {

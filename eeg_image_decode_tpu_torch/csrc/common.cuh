@@ -61,6 +61,14 @@ __device__ __forceinline__ float gelu_tanh(float u) {
   return 0.5f * u * (1.0f + tanhf(c * (u + 0.044715f * u * u * u)));
 }
 
+// d/du of gelu_tanh (the JAX kernels' _gelu_tanh_and_grad)
+__device__ __forceinline__ float gelu_tanh_grad(float u) {
+  const float c = 0.7978845608028654f, a = 0.044715f;
+  const float t = tanhf(c * (u + a * u * u * u));
+  return 0.5f * (1.0f + t) +
+         0.5f * u * (1.0f - t * t) * c * (1.0f + 3.0f * a * u * u);
+}
+
 // acc(i, n) = sum_k A[i*lda + k] * B(k, n) for i < M, n < N, then epi(i, n, acc).
 // B(k, n) = col_ptr(n)[k * bsk]; col_ptr is evaluated once per output column.
 template <int TM, int TN, typename TA, typename TB, typename ColPtr,

@@ -1,10 +1,11 @@
-// Dropout keep-masks drawn inside the attention kernels: a Philox-4x32-10
-// counter generator (Salmon et al., SC'11, with Random123's constants).
+// Dropout keep-masks drawn inside the kernels: a Philox-4x32-10 counter
+// generator (Salmon et al., SC'11, with Random123's constants).
 //
-// Replaces the TPU kernel's eeg_image_decode_tpu/ops/attention.py::
-// _draw_keep_masks, which re-seeds the TPU hardware PRNG per mask with
-// (seed, grid position, salt). Here every mask element is a pure function
-// of (seed, global sample index, site, element index):
+// Replaces the TPU kernels' in-kernel draws, eeg_image_decode_tpu/ops/
+// attention.py::_draw_keep_masks and ops/projection.py::_draw_keep_mask,
+// which re-seed the TPU hardware PRNG per mask with (seed, grid position,
+// salt). Here every mask element is a pure function of (seed, global sample
+// index, site, element index):
 //
 //   key     = (seed, sample)
 //   counter = (element / 4, site, 0, 0)   -> four 32-bit words
@@ -12,11 +13,13 @@
 //   keep    = bits < thresh,  thresh = uint32(keep_prob * 0xFFFFFFFF)
 //
 // Sites: 0 m_attn (H, L, L), 1 m_res (L, D), 2 m_ffn1 (L, FF), 3 m_ffn2
-// (L, D), each indexed row-major within one sample. Because the key is the
-// sample and not the block, the forward and the backward kernel may tile
-// the batch differently and still draw the same masks, and padding cannot
-// shift them. ops/attention.py::draw_keep_masks is the same generator in
-// int64 tensor arithmetic, and the two agree bit for bit.
+// (L, D) of the attention layer, and 4 the projection head's residual
+// branch (d_out), each indexed row-major within one sample. Because the key
+// is the sample and not the block, the forward and the backward kernel may
+// tile the batch differently and still draw the same masks, and padding
+// cannot shift them. ops/philox.py is the same generator in int64 tensor
+// arithmetic (ops/attention.py::draw_keep_masks, ops/projection.py::
+// draw_keep_mask), and the two agree bit for bit.
 //
 // Cost: ten rounds of two 32x32->64 multiplies and a few xors per four
 // elements; one draw per element used (the other three words are not
@@ -58,6 +61,9 @@ __host__ __device__ __forceinline__ uint32_t keep_bits(uint32_t seed,
     default: return r.w;
   }
 }
+
+// the projection head's site id (0-3 are the attention layer's)
+constexpr int kSiteProjection = 4;
 
 constexpr int kDropNone = 0;
 constexpr int kDropMasks = 1;

@@ -12,7 +12,10 @@ retrieval rises above chance, validating the full pipeline end-to-end.
 from __future__ import annotations
 
 import math
+import os
+import pickle
 
+import numpy as np
 import torch
 
 from eeg_image_decode_tpu_torch.data.things_eeg import EEGRetrievalData
@@ -111,3 +114,81 @@ def make_synthetic_retrieval_data(
         images_per_class=1,
     )
     return train, test
+
+
+def write_synthetic_things_tree(
+    root: str,
+    subjects: tuple[str, ...] = ("sub-01", "sub-02"),
+    *,
+    n_classes: int = 20,
+    n_test_classes: int = 10,
+    train_reps: int = 4,
+    test_reps: int = 4,
+    seed: int = 20200220,
+) -> str:
+    """Write a THINGS-EEG-shaped tree under ``root`` and return the path of
+    its CLIP feature file: what ``cli train-retrieval`` and ``evaluate``
+    read, at any size, from a numpy seed.
+
+    Per subject, ``<root>/<sub>/preprocessed_eeg_{training,test}.npy``: the
+    pickled dict of the reference's preprocessing output (``preprocessed_
+    eeg_data`` (conditions, reps, C, T), ``ch_names``, ``times`` with the 50
+    pre-stimulus samples the loader skips). ``<root>/features.npz`` holds
+    ``img_features`` (n_classes · images_per_class, D), ``text_features``
+    and the disjoint test concepts' ``img_features_test`` /
+    ``text_features_test``. Epochs are 63 × 250 and features 1024 wide,
+    what the CLI's full-width model takes; a train class has 10 images,
+    the count the loader reads the EEG layout at (``train_reps`` is free:
+    ``--train-reps``). The EEG is the recipe of
+    :func:`make_synthetic_retrieval_data`: a rank-16 class signature shared
+    by the subjects, a per-subject gain, and unit noise."""
+    images_per_class, n_channels, n_timepoints, clip_dim = 10, 63, 250, 1024
+    rng = np.random.default_rng(seed)
+
+    def unit(a):
+        return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+    n_all = n_classes + n_test_classes  # test concepts are disjoint
+    anchors = unit(rng.normal(size=(n_all, clip_dim)))
+    img = unit(anchors[:n_classes, None, :] + 0.1 * rng.normal(
+        size=(n_classes, images_per_class, clip_dim)))
+    feats = {
+        "img_features": img.reshape(-1, clip_dim),
+        "text_features": unit(anchors[:n_classes] + 0.05 * rng.normal(
+            size=(n_classes, clip_dim))),
+        "img_features_test": unit(anchors[n_classes:] + 0.1 * rng.normal(
+            size=(n_test_classes, clip_dim))),
+        "text_features_test": unit(anchors[n_classes:] + 0.05 * rng.normal(
+            size=(n_test_classes, clip_dim))),
+    }
+    rank = 16
+    latent = rng.normal(size=(n_all, rank))
+    mix = rng.normal(size=(rank, n_channels * n_timepoints)) / math.sqrt(rank)
+    times = np.concatenate([
+        np.linspace(-0.2, 0.0, 50, endpoint=False),
+        np.linspace(0.0, 1.0, n_timepoints)])
+
+    def epochs(classes, reps, gain, noise):
+        signal = (latent[classes] @ mix).reshape(
+            len(classes), 1, n_channels, n_timepoints)
+        return (gain * signal + noise * rng.normal(
+            size=(len(classes), reps, n_channels, n_timepoints))
+        ).astype(np.float32)
+
+    for i, sub in enumerate(subjects):
+        gain = 1.0 + 0.1 * i
+        train_cls = np.repeat(np.arange(n_classes), images_per_class)
+        test_cls = np.arange(n_classes, n_all)
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for name, data in (
+                ("preprocessed_eeg_training.npy",
+                 epochs(train_cls, train_reps, gain, 1.0)),
+                ("preprocessed_eeg_test.npy",
+                 epochs(test_cls, test_reps, gain, 0.5))):
+            with open(os.path.join(root, sub, name), "wb") as f:
+                pickle.dump({"preprocessed_eeg_data": data,
+                             "ch_names": [f"ch{c}" for c in range(n_channels)],
+                             "times": times}, f, protocol=4)
+    path = os.path.join(root, "features.npz")
+    np.savez(path, **{k: v.astype(np.float32) for k, v in feats.items()})
+    return path

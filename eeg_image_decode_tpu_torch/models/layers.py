@@ -186,9 +186,13 @@ class ProjectionHead(nn.Module):
     ``Proj_eeg``, ``Retrieval/ATMS_retrieval.py:157-167``), fp32 out.
 
     ``fused=True`` runs ``ops/projection.py::fused_projection_head`` (the
-    kernel on CUDA: tanh GELU, |Δ| ≲ 1e-3 from the default), in eval mode
-    only: its dropout modes and backward kernel are not ported yet
-    (ROADMAP.md). ``False`` and ``'auto'`` keep the exact-erf head with the
+    kernels on CUDA, their plain versions on the CPU: tanh GELU, |Δ| ≲ 1e-3
+    from the default) whenever no ``dropout_mask`` is pinned: in eval mode
+    without dropout, in train mode with the head's int32 seed drawn from
+    ``generator`` on x's device (seed mode: the mask is drawn inside the
+    forward and the backward kernel). With a pinned ``dropout_mask`` the
+    head takes the exact-erf chain even under ``fused=True``, as the JAX
+    module does. ``False`` and ``'auto'`` keep the exact-erf head with the
     fast-variance LayerNorm, as the JAX package's ``'auto'`` does."""
 
     def __init__(self, d_in: int, proj_dim: int = 1024,
@@ -205,17 +209,17 @@ class ProjectionHead(nn.Module):
                 train: bool = False, dropout_mask=None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1).to(dtype)
-        if self.use_kernel:
-            if train:
-                raise NotImplementedError(
-                    "training with fused_projection=True needs the head's "
-                    "dropout modes and backward kernel, not ported yet "
-                    "(ROADMAP.md)")
+        if self.use_kernel and dropout_mask is None:
+            seed, p = None, 0.0
+            if train and self.dropout > 0.0:
+                p = self.dropout
+                seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                                     device=x.device, dtype=torch.int32)
             return fused_projection_head(x, {
                 "wi": self.in_proj.kernel, "bi": self.in_proj.bias,
                 "wr": self.res_proj.kernel, "br": self.res_proj.bias,
                 "ln_s": self.ln.scale, "ln_b": self.ln.bias,
-            })
+            }, None, p, seed)
         a = self.in_proj(x)
         h = self.res_proj(F.gelu(a, approximate="none"))
         h = dropout(h, self.dropout, train=train, mask=dropout_mask,

@@ -39,8 +39,8 @@ class ContrastiveModel(nn.Module):
 @torch.no_grad()
 def init_random(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights in place, drawn on the CPU from one
-    ``torch.Generator`` in parameter order: dense and conv kernels
-    N(0, 1/fan_in), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²), subject
+    ``torch.Generator`` in parameter order: dense, conv and per-subject
+    value kernels N(0, 1/fan_in), biases N(0, 0.02²), norm scales 1 + N(0, 0.1²), subject
     tokens N(0, 1), BN running means N(0, 0.1²) and variances U(0.5, 1.5).
     Every term of the forward is non-trivial, which a smoke run wants."""
     g = torch.Generator().manual_seed(seed)
@@ -50,6 +50,8 @@ def init_random(model: nn.Module, seed: int) -> nn.Module:
             v = torch.randn(p.shape, generator=g)
         elif leaf in ("kernel", "temporal_conv_kernel"):
             v = torch.randn(p.shape, generator=g) / math.sqrt(p.shape[0])
+        elif leaf == "subject_value_w":  # (subjects, d_in, d_out) kernels
+            v = torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1])
         elif leaf == "scale":
             v = 1.0 + 0.1 * torch.randn(p.shape, generator=g)
         elif leaf == "logit_scale":

@@ -42,18 +42,29 @@ class ChannelTokenEmbedding(nn.Module):
     ``Embed.py:124-162``): a Dense over time shared by all channels, plus the
     positional code over the C channel rows, then the subject token at
     position 0, then one dropout over the whole token sequence, the subject
-    token included (``Embed.py:162``)."""
+    token included (``Embed.py:162``).
+
+    ``joint_train=True`` (ref ``Embed.py:127-130,142-144``) replaces the
+    shared Dense by per-subject value embeddings ``subject_value_w``
+    (num_subjects, seq_len, d_model) and ``subject_value_b`` (num_subjects,
+    d_model): one gather of the rows' weights by their clipped subject ids
+    and one batched product, accumulated in fp32 and rounded once to the
+    working dtype. No ``value_embedding`` parameter exists in this mode."""
 
     def __init__(self, n_channels: int = 63, seq_len: int = 250,
                  d_model: int = 250, num_subjects: int = 10,
                  joint_train: bool = False, dropout: float = 0.25):
         super().__init__()
         self.dropout = dropout
+        self.joint_train = joint_train
+        self.num_subjects = num_subjects
         if joint_train:
-            raise NotImplementedError(
-                "joint_train (per-subject value embeddings) is not ported "
-                "yet; see ROADMAP.md")
-        self.value_embedding = Dense(seq_len, d_model)
+            self.subject_value_w = nn.Parameter(
+                torch.zeros(num_subjects, seq_len, d_model))
+            self.subject_value_b = nn.Parameter(
+                torch.zeros(num_subjects, d_model))
+        else:
+            self.value_embedding = Dense(seq_len, d_model)
         self.subject_token = SubjectToken(num_subjects, d_model)
         self.register_buffer(
             "pe", torch.from_numpy(
@@ -63,7 +74,16 @@ class ChannelTokenEmbedding(nn.Module):
     def forward(self, x: torch.Tensor, subject_ids: torch.Tensor | None,
                 dtype: torch.dtype, *, train: bool = False, dropout_mask=None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.value_embedding(x.to(dtype))
+        x = x.to(dtype)
+        if self.joint_train:
+            if subject_ids is None:
+                raise ValueError("joint_train requires subject_ids")
+            ids = subject_ids.clamp(0, self.num_subjects - 1).long()
+            # torch.bmm accumulates in fp32 and rounds once to dtype
+            x = torch.bmm(x, self.subject_value_w[ids].to(dtype)) \
+                + self.subject_value_b[ids][:, None, :].to(dtype)
+        else:
+            x = self.value_embedding(x)
         if x.shape[1] != self.pe.shape[0]:
             raise ValueError(f"expected {self.pe.shape[0]} channels, "
                              f"got {x.shape[1]}")

@@ -42,7 +42,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES: dict[str, int] = {
     "attention_fwd": 0, "attention_fwd_masks": 0, "attention_fwd_seed": 0,
     "attention_bwd": 0, "tsconv_fwd": 0, "tsconv_bwd": 0,
-    "projection_fwd": 0,
+    "projection_fwd": 0, "projection_fwd_masks": 0, "projection_fwd_seed": 0,
+    "projection_bwd": 0,
 }
 
 _P = ctypes.c_void_p
@@ -69,8 +70,16 @@ _SIGNATURES = {
     # dtype, x, g, w, dx, dw, ws, rows, T, M, F, P, stride, stream
     "eid_tsconv_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P], _I),
-    # dtype, x, w[6], out, B, Din, Dout, stream
-    "eid_projection_fwd": ([_I, _P, _P, _P, _I, _I, _I, _P], _I),
+    # dtype, x, w[6], out, B, Din, Dout, drop mode, mask, seed (device),
+    # thresh, keep value, stream
+    "eid_projection_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _U, _F,
+                            _P], _I),
+    # dtype, B, Din, Dout → workspace bytes
+    "eid_projection_bwd_workspace": ([_I, _I, _I, _I], _LL),
+    # dtype, x, g (fp32), w[6], wi^T, wr^T, dx, out[3], ws, B, Din, Dout,
+    # drop mode, mask, seed (device), thresh, keep value, stream
+    "eid_projection_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _P, _P, _U, _F, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -25,7 +25,8 @@ Dropout, three modes (as in the JAX kernel):
 - ``masks``: explicit pre-scaled keep-masks, cast to x's dtype;
 - ``dropout_p`` + ``seed``: the masks are drawn inside both kernels by a
   Philox-4x32-10 counter generator (``csrc/philox.cuh``;
-  :func:`draw_keep_masks` is the same generator in int64 tensor arithmetic).
+  :func:`draw_keep_masks` is the same generator in int64 tensor arithmetic,
+  ``ops/philox.py``).
   Each mask element is a pure function of (seed, global sample index, site,
   element index): key (seed, sample), counter (element // 4, site, 0, 0),
   word element % 4. Keep iff ``bits < uint32(keep · 0xFFFFFFFF)``, value
@@ -44,58 +45,16 @@ import torch
 import torch.nn.functional as F
 
 from eeg_image_decode_tpu_torch.ops import _build
+from eeg_image_decode_tpu_torch.ops.philox import (  # noqa: F401 (re-exported)
+    keep_mask,
+    keep_rule,
+    philox4x32_10,
+)
 
 PARAM_ORDER = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo",
                "ln1_s", "ln1_b", "w1", "b1", "w2", "b2", "ln2_s", "ln2_b")
 MASK_ORDER = ("m_attn", "m_res", "m_ffn1", "m_ffn2")
 _MODES = {"none": 0, "masks": 1, "seed": 2}
-
-# ——— Philox-4x32-10 (Salmon et al., SC'11; Random123's constants) ———
-
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_U32 = 0xFFFFFFFF
-
-
-def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) 32-bit words of a·b for a constant a and int64 b < 2³²,
-    without overflowing int64: a = a_hi·2¹⁶ + a_lo."""
-    p_lo = b * (a & 0xFFFF)
-    p_hi = b * (a >> 16)
-    t = p_lo + ((p_hi & 0xFFFF) << 16)
-    return (p_hi >> 16) + (t >> 32), t & _U32
-
-
-def philox4x32_10(counter, key) -> tuple[torch.Tensor, ...]:
-    """Philox-4x32-10 on int64 tensors holding uint32 values: four counter
-    words and two key words (tensors or ints, broadcast) → four words."""
-    c0, c1, c2, c3 = counter
-    k0, k1 = key
-    for r in range(10):
-        if r:
-            k0 = (k0 + _PHILOX_W[0]) & _U32
-            k1 = (k1 + _PHILOX_W[1]) & _U32
-        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
-        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
-
-
-def keep_rule(dropout_p: float) -> tuple[int, float]:
-    """(threshold, value): keep iff bits < threshold, as the JAX kernel's
-    ``np.uint32(int(keep * 0xFFFFFFFF))``; a kept element is ``1/keep``."""
-    keep = 1.0 - dropout_p
-    return int(keep * 0xFFFFFFFF), float(np.float32(1.0 / keep))
-
-
-def _site_bits(seed: int, rows: torch.Tensor, site: int, n: int) -> torch.Tensor:
-    """(len(rows), n) uint32 draws (as int64) of one site."""
-    groups = torch.arange((n + 3) // 4, dtype=torch.int64, device=rows.device)
-    c0 = groups[None, :].expand(len(rows), -1)
-    zero = torch.zeros_like(c0)
-    words = philox4x32_10((c0, zero + site, zero, zero),
-                          (seed & _U32, rows[:, None]))
-    return torch.stack(words, dim=-1).reshape(len(rows), -1)[:, :n]
 
 
 def draw_keep_masks(seed, batch: int, n_heads: int, length: int, d_model: int,
@@ -104,8 +63,6 @@ def draw_keep_masks(seed, batch: int, n_heads: int, length: int, d_model: int,
     """The four fp32 keep-masks (values 0 or 1/keep) that the seed-mode
     kernels draw for samples ``row0 … row0+batch−1``: the plain version of
     ``csrc/philox.cuh``."""
-    seed = int(seed)
-    thresh, value = keep_rule(dropout_p)
     rows = torch.arange(row0, row0 + batch, dtype=torch.int64, device=device)
     shapes = {"m_attn": (n_heads, length, length),
               "m_res": (length, d_model),
@@ -113,10 +70,8 @@ def draw_keep_masks(seed, batch: int, n_heads: int, length: int, d_model: int,
               "m_ffn2": (length, d_model)}
     out = {}
     for site, (name, shape) in enumerate(shapes.items()):
-        bits = _site_bits(seed, rows, site, math.prod(shape))
-        out[name] = torch.where(
-            bits < thresh, torch.tensor(value, device=device),
-            torch.tensor(0.0, device=device)).reshape(batch, *shape)
+        out[name] = keep_mask(seed, rows, site, math.prod(shape),
+                              dropout_p).reshape(batch, *shape)
     return out
 
 

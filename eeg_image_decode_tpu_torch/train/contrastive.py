@@ -17,10 +17,18 @@
 - **Train-time probe**: 1654-way class accuracy against one image feature
   per class (``ATMS_retrieval.py:202,241-250``).
 
+- **Checkpoints and resume.** With a ``checkpointer``
+  (``core/checkpoint.py``) the full train state is saved every
+  ``ckpt_every_epochs`` epochs and after the last; ``resume()`` restores it
+  and the completed rows of ``results.csv``. Each epoch's permutation and
+  generator derive from (seed, epoch), so a resumed run reproduces the
+  uninterrupted one.
+
 On the card a step runs the attention layer's forward and backward kernels
-(seed-mode dropout drawn in the kernels) and the tsconv kernels; there is no
-fallback. The mesh, ``streaming``, ``shard_samples``, the checkpointer and
-``resume`` are not ported yet (ROADMAP.md).
+(seed-mode dropout drawn in the kernels), the tsconv kernels and, under
+``ATMSConfig(fused_projection=True)``, the projection head's; there is no
+fallback. The mesh, ``streaming`` and ``shard_samples`` are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -204,15 +212,20 @@ class ContrastiveTrainer:
     ``device`` (default: the CUDA card, raising without one;
     ``device="cpu"`` runs the plain versions on the CPU). ``train_data`` and
     ``test_data``: :class:`EEGRetrievalData` with numpy arrays or tensors
-    already on the device."""
+    already on the device. ``checkpointer``: a
+    ``core/checkpoint.py::Checkpointer``; see :meth:`fit` and
+    :meth:`resume`."""
 
     def __init__(self, model: torch.nn.Module, cfg: ContrastiveTrainConfig,
                  train_data: EEGRetrievalData, test_data: EEGRetrievalData,
-                 *, output_dir: str | None = None, device=None):
+                 *, output_dir: str | None = None, checkpointer=None,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.output_dir = output_dir
+        self.checkpointer = checkpointer
+        self.train_host = train_data
         self.data = DeviceData.from_host(train_data, self.device)
         test = DeviceData.from_host(test_data, self.device)
         self.test_eeg = test.eeg
@@ -223,8 +236,36 @@ class ContrastiveTrainer:
         self.epoch_fn = make_epoch_fn(cfg)
         self.eval_fn = make_eval_features_fn(self.model)
         self.history: list[dict] = []
+        self.start_epoch = 0
         #: per-step losses (and CUDA-event times) of the last epoch
         self.last_steps: dict = {}
+
+    def resume(self, step: int | None = None) -> int:
+        """Restore the full train state (parameters, BatchNorm statistics,
+        optimizer state, step) from the checkpointer and reload the
+        completed rows of ``results.csv``, so ``fit()`` continues with the
+        next epoch. Returns the epoch training continues from."""
+        if self.checkpointer is None:
+            raise ValueError("resume needs a checkpointer")
+        step = self.checkpointer.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoints under {self.checkpointer.directory}")
+        self.checkpointer.restore(step, self.state)
+        self.start_epoch = int(step)  # save key = completed epoch count
+        if self.output_dir:
+            path = os.path.join(self.output_dir, "results.csv")
+            if os.path.exists(path):
+                with open(path, newline="") as f:
+                    rows = list(csv.DictReader(f))
+                self.history = [
+                    {k: (int(v) if k == "epoch" else float(v))
+                     for k, v in row.items() if v != ""}
+                    for row in rows
+                    if row.get("epoch", "") != ""
+                    and int(row["epoch"]) < self.start_epoch
+                ]
+        return self.start_epoch
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -254,14 +295,18 @@ class ContrastiveTrainer:
         return {k: float(v) for k, v in out.items()}
 
     def fit(self, epochs: int | None = None, log_fn=print) -> list[dict]:
+        """Epochs ``start_epoch … epochs−1``: train, evaluate, append the
+        row, save a checkpoint every ``ckpt_every_epochs`` epochs (and after
+        the last), rewrite ``results.csv``."""
         epochs = epochs or self.cfg.epochs
-        for epoch in range(epochs):
+        for epoch in range(self.start_epoch, epochs):
             train_metrics = self.train_epoch(epoch)
             if not math.isfinite(train_metrics["loss"]):
-                # the reference's finite-loss guard (models/util.py:92-94)
+                # abort before the checkpointer persists a poisoned state
+                # (the reference's finite-loss guard, models/util.py:92-94)
                 raise FloatingPointError(
                     f"non-finite training loss {train_metrics['loss']} at "
-                    f"epoch {epoch}")
+                    f"epoch {epoch}; the last checkpoint is still clean")
             eval_metrics = self.evaluate(epoch)
             row = {"epoch": epoch, **train_metrics, **eval_metrics}
             self.history.append(row)
@@ -272,8 +317,14 @@ class ContrastiveTrainer:
                        f"train_acc={train_metrics['train_acc']:.4f} "
                        f"test_top1={k200:.4f} "
                        f"({train_metrics['samples_per_s']:.0f} samples/s)")
+            if (self.checkpointer is not None
+                    and (epoch + 1) % self.cfg.ckpt_every_epochs == 0):
+                self.checkpointer.save(epoch + 1, self.state)
             if self.output_dir:
-                self._write_csv()
+                self._write_csv()  # kept current so a killed run can resume
+        if (self.checkpointer is not None and epochs > self.start_epoch
+                and self.checkpointer.latest_step() != epochs):
+            self.checkpointer.save(epochs, self.state)  # final state
         return self.history
 
     def extract_features(self, eeg, subject_ids,
@@ -289,9 +340,30 @@ class ContrastiveTrainer:
             chunks.append(f.cpu().numpy())
         return np.concatenate(chunks, axis=0)
 
+    def export_features(self, path: str) -> str:
+        """Save train and test EEG features with the aligned CLIP targets as
+        one ``.npz``: the artifact the diffusion-prior trainer consumes (the
+        reference's ``ATM_S_eeg_features_sub-08{,_test}.pt`` pair)."""
+        def host(a):
+            return (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
+
+        train_feats = self.extract_features(self.data.eeg,
+                                            self.data.subject_ids)
+        test_feats = self.extract_features(self.test_eeg,
+                                           self.test_subject_ids)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(
+            path, eeg_features=train_feats, eeg_features_test=test_feats,
+            img_features=host(self.train_host.img_features)[
+                host(self.train_host.img_idx)],
+            labels_test=host(self.test_labels))
+        return path
+
     def _write_csv(self) -> None:
         os.makedirs(self.output_dir, exist_ok=True)
         path = os.path.join(self.output_dir, "results.csv")
+        if not self.history:
+            return
         keys = sorted({k for row in self.history for k in row})
         with open(path, "w", newline="") as f:
             w = csv.DictWriter(f, fieldnames=keys)

@@ -13,6 +13,11 @@ live here and nowhere else:
 - ``spatial_conv/kernel`` (C, 1, F, G) HWIO → (C·F, G), c-major rows;
 - ``proj_conv/kernel`` (1, 1, F, E) → (F, E).
 
+A joint-training model (``ATMSConfig(joint_train=True)``) has
+``embedding/subject_value_w`` (subjects, T, d_model) and
+``embedding/subject_value_b`` in place of ``embedding/value_embedding``, in
+both packages under the same names and layouts.
+
 ``save_flat_npz`` / ``load_flat_npz`` store the same tree in one ``.npz``
 with ``/``-joined keys (``params/encoder/embedding/…``): the weight file of
 the CLI's ``serve --weights``.

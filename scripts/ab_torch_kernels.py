@@ -9,7 +9,9 @@ lists). The roots run in the order given, each in its own process, which
 builds that checkout's kernels and times the attention, tsconv and
 projection kernels at the serving shapes of ``chip_smoke.py`` (B 256, full
 ATM-S width, bf16 and fp32; CUDA events, warm, median of 50 launches)
-beside their max |Δ| from the plain version, then, where the checkout has
+beside their max |Δ| from the plain version and a SHA-256 of the output's
+bytes (two checkouts whose digests agree compute that kernel bit for bit
+alike: the inputs come from one seed), then, where the checkout has
 them, the training kernels at B 1024 (``chip_smoke.check_training_kernels``:
 its checks and rows, median of 25). Compare two versions only within one
 run: interleave them, as above. Prints one JSON line per (root, kernel,
@@ -23,7 +25,7 @@ import subprocess
 import sys
 
 _CHILD = r"""
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
@@ -34,9 +36,14 @@ _build.lib()
 for name, (_, _, make) in cs.kernel_cases(torch).items():
     for dt in (torch.bfloat16, torch.float32):
         kern, plain, _, _, _ = make(dt)
-        err = (kern().float() - plain().float()).abs().max().item()
+        out = kern()
+        err = (out.float() - plain().float()).abs().max().item()
+        digest = hashlib.sha256(
+            out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+        ).hexdigest()[:16]
         print(json.dumps({"root": sys.argv[1], "name": name,
                           "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                          "sha256": digest,
                           "ms": cs.cuda_ms(torch, kern, 50)}), flush=True)
 if hasattr(cs, "check_training_kernels"):
     print(json.dumps({"root": sys.argv[1], "training_kernels": True}),

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one training step goes in the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_train.py [--steps 10]
+    python3 scripts/profile_torch_train.py [--steps 10] \\
+        [--fused-projection] [--joint]
 
-Builds ATM-S at full width (bf16, seeded random weights, dropout on) and one
-subject's synthetic split on the CUDA card (66,160 × 63 × 250), runs the
+Builds ATM-S at full width (bf16, seeded random weights, dropout on;
+``--fused-projection``: the head through its CUDA kernels; ``--joint``:
+per-subject value embeddings, the rows given seeded subject ids over 0..9)
+and one subject's synthetic split on the CUDA card (66,160 × 63 × 250), runs the
 trainer's epoch function (``train/contrastive.py::make_epoch_fn``) at batch
 1024 and:
 
@@ -33,7 +36,8 @@ SEED = 20200220
 #: substrings of the port's kernel names (csrc/*.cu)
 OWN = ("attention_fwd_kernel", "attention_bwd_rows_kernel",
        "atb_partial_kernel", "sum_rows_kernel", "tsconv_fwd_kernel",
-       "tsconv_bwd_kernel", "projection_fwd_kernel")
+       "tsconv_bwd_kernel", "projection_fwd_kernel",
+       "projection_bwd_rows_kernel")
 
 
 def emit(obj) -> None:
@@ -51,6 +55,8 @@ def group(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--fused-projection", action="store_true")
+    ap.add_argument("--joint", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -78,7 +84,14 @@ def main() -> int:
     train, _ = make_synthetic_retrieval_data(n_classes=1654,
                                              n_test_classes=200, seed=SEED,
                                              device="cuda")
-    model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
+    if args.joint:
+        train.subject_ids = torch.randint(
+            0, 10, (train.n,), device="cuda", dtype=torch.int32,
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 30))
+    acfg = ATMSConfig(
+        fused_projection=True if args.fused_projection else "auto",
+        joint_train=args.joint)
+    model = build_encoder("atms", config=acfg, dtype=torch.bfloat16,
                           device="cuda", seed=SEED)
     data = DeviceData.from_host(train, "cuda")
     state = create_train_state(model, cfg)
@@ -91,6 +104,7 @@ def main() -> int:
     epoch_fn(state, data, perm[:3], gen)  # warm-up
     out = epoch_fn(state, data, perm[3:3 + n], gen)
     emit({"phase": "steps", "card": torch.cuda.get_device_name(0),
+          "fused_projection": args.fused_projection, "joint": args.joint,
           "batch": cfg.batch_size, "steps": n,
           "step_ms_p50": float(np.median(out["step_ms"])),
           "step_ms": out["step_ms"]})

@@ -98,21 +98,24 @@ def test_full_width_atms_matches_jax(tmp_path):
 
 
 def test_unported_encoders_and_training_raise():
-    """What is not ported yet raises: other encoders, joint-train subject
-    embeddings, and training through the fused projection head (its dropout
-    modes and backward kernel). Training the default model runs."""
+    """What is not ported yet raises: other encoders. Joint-train subject
+    embeddings and training through the fused projection head (its dropout
+    modes and backward) are ported and run, as training the default model
+    does."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_encoder("nice", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_encoder("atms", config=ATMSConfig(**SMALL, joint_train=True),
-                      device="cpu")
     x, sids = torch.zeros(2, 8, 100), torch.zeros(2, dtype=torch.int32)
+    model = build_encoder("atms", config=ATMSConfig(**SMALL, joint_train=True),
+                          device="cpu")
+    assert model.encoder.embedding.subject_value_w.shape == (3, 100, 32)
+    assert model(x, sids)[0].shape == (2, 16)
     model = build_encoder("atms", config=ATMSConfig(**SMALL,
                                                     fused_projection=True),
                           device="cpu")
-    model.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model(x, sids)
+    feats, _ = model.train()(x, sids)
+    feats.sum().backward()
+    assert feats.shape == (2, 16)
+    assert model.encoder.proj_eeg.in_proj.kernel.grad is not None
     model = build_encoder("atms", config=ATMSConfig(**SMALL), device="cpu")
     feats, _ = model.train()(x, sids)
     assert feats.shape == (2, 16)

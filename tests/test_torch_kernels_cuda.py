@@ -18,7 +18,10 @@ from eeg_image_decode_tpu_torch.ops.attention import (
     fused_attention_layer,
 )
 from eeg_image_decode_tpu_torch.ops.projection import (
+    PARAM_ORDER as PROJ_PARAMS,
+    draw_keep_mask,
     fused_projection_head,
+    projection_head_backward_reference,
     projection_head_reference,
 )
 from eeg_image_decode_tpu_torch.ops.tsconv import (
@@ -274,4 +277,108 @@ def test_tsconv_bwd_kernel_on_card(cuda, dtype, rows, t, k, f, pool, stride):
                               ("w_tilde", got[1], again[1], dw)):
         assert torch.equal(a, a2), f"{name}: two runs differ"
         err = _rel_err(a, want.to(a.dtype))
+        assert err <= BWD_TOL[dtype], (name, err)
+
+
+# ——— the projection head's dropout modes and its backward ———
+
+# (B, d_in, d_out): ragged widths and a batch that is no multiple of the 4
+# rows per block, and the full ATM-S head at an odd batch
+PROJ_SHAPES = [(5, 48, 32), (9, 1440, 1024), (70, 150, 100)]
+
+
+def _proj_case(rng, cuda, dtype, b, d_in, d_out):
+    x = torch.from_numpy(rng.normal(size=(b, d_in)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(b, d_out)).astype(np.float32))
+    params = {k: v.to(cuda, dtype).requires_grad_() for k, v in
+              _t(projection_params(rng, d_in, d_out)).items()}
+    return x.to(cuda, dtype).requires_grad_(), params, g.to(cuda)
+
+
+def _proj_mask(rng, b, d_out, p):
+    return torch.from_numpy(((rng.random((b, d_out)) >= p) / (1.0 - p))
+                            .astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.5, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d_in,d_out", PROJ_SHAPES)
+def test_projection_fwd_masks_kernel_on_card(cuda, dtype, b, d_in, d_out,
+                                             p_drop):
+    rng = np.random.default_rng(12)
+    x, params, _ = _proj_case(rng, cuda, dtype, b, d_in, d_out)
+    mask = _proj_mask(rng, b, d_out, p_drop).to(cuda, dtype)
+    with torch.no_grad():
+        got = fused_projection_head(x, params, mask)
+        want = projection_head_reference(x, params, mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= CUDA_TOL[dtype], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_drop", [0.5, 0.25])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d_in,d_out", PROJ_SHAPES)
+def test_projection_fwd_seed_kernel_on_card(cuda, dtype, b, d_in, d_out,
+                                            p_drop):
+    """The seed-mode forward equals the mask-mode forward fed the plain
+    Philox draw bit for bit wherever the mask's value survives the cast to
+    x's dtype (fp32 always; bf16 at p = 0.5, where 1/keep = 2), and the
+    plain head within tolerance; there the backward is bit-equal too."""
+    rng = np.random.default_rng(13)
+    seed = 424243
+    x, params, g = _proj_case(rng, cuda, dtype, b, d_in, d_out)
+    seed_t = torch.tensor([seed], dtype=torch.int32, device=cuda)
+    plain = draw_keep_mask(seed, b, d_out, p_drop, device=cuda)
+    got = fused_projection_head(x, params, None, p_drop, seed_t)
+    via_mask = fused_projection_head(x, params, plain)
+    with torch.no_grad():
+        want = projection_head_reference(x, params, plain)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= CUDA_TOL[dtype], err
+    if dtype == torch.float32 or p_drop == 0.5:
+        assert torch.equal(got, via_mask)
+        inputs = [x, *[params[k] for k in PROJ_PARAMS]]
+        for name, a, w in zip(("x",) + PROJ_PARAMS,
+                              torch.autograd.grad(got, inputs, g),
+                              torch.autograd.grad(via_mask, inputs, g)):
+            assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "mask", "seed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d_in,d_out", PROJ_SHAPES)
+def test_projection_bwd_kernel_on_card(cuda, dtype, b, d_in, d_out, mode):
+    """dx and the six parameter gradients (in x's dtype, as a step gets
+    them) against the plain backward, and two runs bit-identical."""
+    rng = np.random.default_rng(14)
+    x, params, g = _proj_case(rng, cuda, dtype, b, d_in, d_out)
+    args, plain_mask = (), None
+    if mode == "mask":
+        plain_mask = _proj_mask(rng, b, d_out, 0.25).to(cuda, dtype)
+        args = (plain_mask,)
+    elif mode == "seed":
+        args = (None, 0.25, 77)
+        plain_mask = draw_keep_mask(77, b, d_out, 0.25, device=cuda)
+
+    def kernel_grads():
+        out = fused_projection_head(x, params, *args)
+        return torch.autograd.grad(out, [x, *[params[k] for k in PROJ_PARAMS]],
+                                   g)
+
+    got = kernel_grads()
+    again = kernel_grads()
+    with torch.no_grad():
+        dx, grads = projection_head_backward_reference(x, params, g,
+                                                       plain_mask)
+    torch.cuda.synchronize()
+    want = [dx] + [grads[k] for k in PROJ_PARAMS]
+    for name, a, a2, w in zip(("x",) + PROJ_PARAMS, got, again, want):
+        assert torch.equal(a, a2), f"{name}: two runs differ"
+        assert a.dtype == dtype and torch.isfinite(a.float()).all(), name
+        err = _rel_err(a, w.to(dtype))
         assert err <= BWD_TOL[dtype], (name, err)

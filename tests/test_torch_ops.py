@@ -109,16 +109,21 @@ def test_cpu_wrappers_launch_no_kernel():
 
 
 def test_package_imports_without_jax():
-    """The port imports no JAX, flax, optax or JAX-package module."""
+    """The port imports no JAX, flax, optax, orbax or JAX-package module."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
+        "import eeg_image_decode_tpu_torch.core.checkpoint\n"
+        "import eeg_image_decode_tpu_torch.data.features\n"
+        "import eeg_image_decode_tpu_torch.data.things_eeg\n"
+        "import eeg_image_decode_tpu_torch.ops.philox\n"
         "import eeg_image_decode_tpu_torch.data.synthetic\n"
         "import eeg_image_decode_tpu_torch.losses\n"
         "import eeg_image_decode_tpu_torch.train.contrastive\n"
         "import eeg_image_decode_tpu_torch.train.evaluator\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'eeg_image_decode_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

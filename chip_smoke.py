@@ -5,7 +5,10 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
     python3 chip_smoke.py
 
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
-   versions, and the build of every CUDA kernel from ``csrc/`` with its time.
+   versions, the build of every CUDA kernel from ``csrc/`` with its time,
+   and how many tensor-core instructions (HMMA/HGMMA) ``cuobjdump -sass``
+   finds in the bfloat16 kernels of the tsconv backward and the projection
+   backward: none is a failure.
 2. Each kernel against its plain PyTorch version on the same inputs, in
    bfloat16 and float32, with the tolerance stated: the three forward
    kernels at the serving shapes (B = 256), and the training kernels at the
@@ -13,9 +16,14 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    mask mode and in seed mode (the seed-mode forward must equal the
    mask-mode forward fed the plain Philox draw ``draw_keep_masks``, bit for
    bit, and in fp32 so must the backward), the attention backward (dx and
-   all 16 gradients) and the tsconv backward (dx and dw̃), each backward
+   all 16 gradients) and the tsconv backward (dx and dw̃; also once,
+   untimed, at 37 rows and T 253, no multiples of its tiles), each backward
    through ``torch.autograd.grad`` as a training step runs it, twice, bit
-   for bit. Per kernel: its time, the plain version's, a library
+   for bit. The tsconv and projection backward rows name the design their
+   dtype took (``mma_bf16`` on the tensor cores, ``fma_fp32`` in full
+   float32) and, in bfloat16, the first version's time and the device time
+   of the op and of its library yardstick from a ``torch.profiler`` trace
+   (the event times of such short ops are mostly the host's). Per kernel: its time, the plain version's, a library
    yardstick's where one PyTorch call computes the same function (CUDA
    events, warm, median of 25 launches), and its bound, the least time the
    card could take for the same work (bytes over 3.35 TB/s or operations
@@ -136,6 +144,25 @@ def cuda_ms(torch, fn, reps: int = REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time per call: the sum of the kernels' durations in a
+    ``torch.profiler`` trace of ``reps`` warm calls. Unlike :func:`cuda_ms`
+    it leaves out the host's time to reach the first launch, which for a
+    sub-millisecond op through ``torch.autograd.grad`` is most of the event
+    time and moves with the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / reps
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -348,6 +375,13 @@ TOL_REASON = {
 PROJ_FWD_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
 P_DROP_PROJ = 0.5
 D_IN, D_OUT = 1440, 1024
+#: kernel names (substrings) that must hold HMMA/HGMMA instructions
+TENSOR_CORE_KERNELS = ("tsconv_bwd_mma_kernel", "projection_bwd_a_kernel",
+                       "projection_bwd_r_kernel", "projection_bwd_da_kernel",
+                       "projection_bwd_out_kernel")
+#: bfloat16 times of the first versions of the two redesigned backward
+#: kernels (fp32 FMA products; PERF.md, H100 80GB HBM3 at 700 W, B 1024)
+FIRST_VERSION_MS = {"tsconv_bwd": 4.718, "projection_bwd": 1.757}
 #: why a kernel has no library yardstick
 NO_LIBRARY = {
     "attention_fwd_masks": "none: no one PyTorch call computes the layer",
@@ -411,6 +445,41 @@ def scaled_errors(torch, got: dict, want: dict) -> dict:
     return out
 
 
+def tsconv_bwd_ragged_check(torch, dtype, tol: float) -> dict:
+    """The tsconv backward once at a small ragged shape, untimed: T 253 (no
+    multiple of the stride: the trailing samples get dx = 0) and 37 rows (no
+    multiple of the kernel's 32-row tile), against the plain version."""
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        fold_pool_into_kernel,
+        out_positions,
+        tsconv_pool_backward_reference,
+        tsconv_pool_fused,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    rows, T, K, Fn, pool, stride = 37, 253, 25, 40, 51, 5
+    w = fold_pool_into_kernel(
+        torch.randn(K, Fn, generator=g, device="cuda") * K ** -0.5,
+        pool).to(dtype).requires_grad_()
+    P = out_positions(T, w.shape[0], stride)
+    x = torch.randn(1, rows, T, generator=g, device="cuda").to(dtype)
+    x.requires_grad_()
+    gout = torch.randn(1, rows, P, Fn, generator=g, device="cuda").to(dtype)
+    dx, dw = torch.autograd.grad(tsconv_pool_fused(x, w, stride), [x, w],
+                                 gout)
+    dx_p, dw_p = tsconv_pool_backward_reference(x.detach(), w.detach(), gout,
+                                                stride)
+    torch.cuda.synchronize()
+    errs = scaled_errors(torch, {"x": dx, "w_tilde": dw},
+                         {"x": dx_p, "w_tilde": dw_p})
+    tail_zero = not dx[..., (P - 1) * stride + w.shape[0]:].any().item()
+    if not (max(errs.values()) <= tol and tail_zero):
+        raise RuntimeError(f"tsconv_bwd {dtype}, 37 rows, T 253: errors "
+                           f"{errs}, trailing dx zero {tail_zero}")
+    return {"rows": rows, "T": T, "scaled_err": errs,
+            "trailing_dx_zero": tail_zero}
+
+
 def check_training_kernels(torch) -> dict:
     from eeg_image_decode_tpu_torch.ops.attention import (
         MASK_ORDER,
@@ -421,6 +490,7 @@ def check_training_kernels(torch) -> dict:
         fused_attention_layer,
     )
     from eeg_image_decode_tpu_torch.ops.tsconv import (
+        backward_design as tsconv_backward_design,
         fold_pool_into_kernel,
         out_positions,
         tsconv_pool_backward_reference,
@@ -592,6 +662,19 @@ def check_training_kernels(torch) -> dict:
         err = max((a1.float() - ap).abs().max().item(),
                   (b1.float() - bp).abs().max().item())
         rows_n = B * C
+        design = tsconv_backward_design(dtype)
+        if design != ("mma_bf16" if dtype == torch.bfloat16 else "fma_fp32"):
+            raise RuntimeError(f"tsconv_bwd {dname} took design {design}")
+        extra = {"design": design,
+                 "ragged_case": tsconv_bwd_ragged_check(torch, dtype, tol)}
+        if dtype == torch.bfloat16:
+            extra["first_version_ms"] = FIRST_VERSION_MS["tsconv_bwd"]
+            extra["device_ms"] = device_ms(torch, kern_ts)
+            extra["library_device_ms"] = device_ms(
+                torch, lambda: (torch.matmul(g2d, e.T),
+                                torch.matmul(x2.T, g2d)))
+        if a1.dtype != dtype:
+            raise RuntimeError(f"tsconv_bwd {dname}: dx arrived as {a1.dtype}")
         record("tsconv_bwd", dname, "eeg_image_decode_tpu/ops/tsconv.py:130",
                "eeg_image_decode_tpu_torch/csrc/tsconv_bwd.cu", kern_ts,
                lambda: tsconv_pool_backward_reference(xt, w_tilde, gt_out,
@@ -600,7 +683,7 @@ def check_training_kernels(torch) -> dict:
                2 * 2 * rows_n * P * M * Fn,
                (2 * xt.numel() + gt_out.numel() + 2 * w_tilde.numel()) * sz,
                err, tol, max_scaled_err=max(errs.values()), scaled_err=errs,
-               bit_identical_rerun=repeat)
+               bit_identical_rerun=repeat, **extra)
         if not (repeat and max(errs.values()) <= tol):
             raise RuntimeError(f"tsconv_bwd {dname}: rerun bit-equal "
                                f"{repeat}, errors {errs}")
@@ -615,6 +698,7 @@ def check_projection_training_kernels(torch, dtype, record) -> None:
 
     from eeg_image_decode_tpu_torch.ops.projection import (
         PARAM_ORDER,
+        backward_design,
         draw_keep_mask,
         fused_projection_head,
         projection_head_backward_reference,
@@ -723,6 +807,14 @@ def check_projection_training_kernels(torch, dtype, record) -> None:
     err = max((got[k].float() - want[k].float()).abs().max().item()
               for k in want)
     tol = BWD_TOL[dname]
+    design = backward_design(dtype)
+    if design != ("mma_bf16" if dtype == torch.bfloat16 else "fma_fp32"):
+        raise RuntimeError(f"projection_bwd {dname} took design {design}")
+    extra = {"design": design}
+    if dtype == torch.bfloat16:
+        extra["first_version_ms"] = FIRST_VERSION_MS["projection_bwd"]
+        extra["device_ms"] = device_ms(torch, kern_bwd)
+        extra["library_device_ms"] = device_ms(torch, lib_bwd)
     record("projection_bwd", dname,
            "eeg_image_decode_tpu/ops/projection.py:128",
            "eeg_image_decode_tpu_torch/csrc/projection_bwd.cu", kern_bwd,
@@ -731,7 +823,7 @@ def check_projection_training_kernels(torch, dtype, record) -> None:
            (2 * x.numel() + 2 * n_par) * sz + gout.numel() * 4, err, tol,
            library_desc=lib_desc, max_scaled_err=max(errs.values()),
            scaled_err=errs, bit_identical_rerun=repeat,
-           equals_mask_mode_on_plain_draw=equals_mask)
+           equals_mask_mode_on_plain_draw=equals_mask, **extra)
     if not (repeat and finite and max(errs.values()) <= tol
             and (equals_mask or dtype != torch.float32)):
         raise RuntimeError(f"projection_bwd {dname}: rerun bit-equal "
@@ -1362,6 +1454,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("ptxas:", line.strip(), flush=True)
 
+    # the two bfloat16 backward designs must run on the tensor cores
+    tensor_core = _build.count_sass(("HMMA", "HGMMA"), TENSOR_CORE_KERNELS)
+    emit({"phase": "setup", "check": "cuobjdump -sass: HMMA/HGMMA "
+          "instructions in the bfloat16 backward kernels",
+          "tensor_core_instructions": tensor_core})
+    if not all(tensor_core.values()):
+        raise RuntimeError(f"a bfloat16 backward kernel holds no tensor-core "
+                           f"instruction: {tensor_core}")
+
     kernels = check_kernels(torch)
     kernels.update(check_training_kernels(torch))
 
@@ -1414,6 +1515,7 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            **{key: k[key] for key in ("design", "device_ms") if key in k},
         })
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,14 +5,16 @@
 // as the JAX kernel it replaces. `rnd<T>(v)` is that rounding: it takes a
 // float to T's precision and back (the identity for float32).
 //
-// `gemm_rows` is the one product routine: a warp-cooperative FMA loop over
-// an A operand in shared memory and a B operand anywhere (global weights or
+// `gemm_rows` is the FMA product routine: a warp-cooperative loop over an A
+// operand in shared memory and a B operand anywhere (global weights or
 // shared-memory activations), with fp32 accumulators in registers. Each warp
 // owns a TM-row by (32*TN)-column output tile; all lanes of a warp read the
 // same A element (a shared-memory broadcast) and neighbouring B columns
-// (coalesced). Shapes need no padding: the ATM-S widths (250, 248, 62) are
-// not multiples of 16, which a tensor-core (mma/wgmma) version would have to
-// pad and mask.
+// (coalesced). Shapes need no padding, and float32 operands keep full
+// float32 products. The bfloat16 tensor-core products live in mma_tile.cuh,
+// which zero-fills ragged edges in shared memory and masks them on store (the
+// tsconv and projection backward use it; the attention kernels, whose widths
+// 250, 248 and 62 are no multiples of 16 bytes, still use gemm_rows).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -21,37 +21,56 @@
 // or redrawn by philox.cuh, site 4, keyed (seed, global row), value 1/keep in
 // fp32 (mode 2): the bits of the forward, under any tiling.
 //
-// Design (two passes, no float atomics: a rerun is bit-equal). The TPU kernel
-// sums the six parameter gradients over a sequential grid; blocks here run in
-// no order.
+// Two designs, chosen by dtype in the launcher (eid_projection_bwd_design
+// names the one a dtype takes):
+//
+// bfloat16, "mma_bf16": the six products on the tensor cores
+// (mma_tile.cuh::gemm_tile: 64 x 128 output tiles, the operand slices staged
+// once per tile through a cp.async ring, fp32 accumulators). LayerNorm needs
+// a whole row of r and d_g a whole row of d_z, so one block cannot own a
+// narrow column tile of the whole chain: the chain is un-fused into five
+// launches with fused epilogues,
+//   1. a = x Wi + bi            -> a (fp32), gdt = rnd(gelu(a))
+//   2. z = (gdt Wr + br) * m    -> r = a + z (fp32); m read, or redrawn per
+//                                  (seed, row, column), whatever the tiling
+//   3. rows: LayerNorm statistics, d_r (fp32, over r in place), rnd(d_z), and
+//      per block of 8 rows the column sums of dln_s, dln_b, dbr
+//   4. d_a = d_r + (d_z Wr^T) g'(a) -> d_a (fp32, over d_r in place), rnd(d_a)
+//   5. dx = d_a Wi^T, dWr = gdt^T d_z, dWi = x^T d_a: three products' tiles
+//      in one grid (504 tiles at B 1024)
+//   6. the four vector gradients: 16 chunk sums of the per-block vectors
+//      and of d_a (dbi), then reduce.cuh::sum_rows over the chunks
+// all in a fixed order. a, r, d_r, d_a cross kernels in fp32; gdt, d_z,
+// d_a for the products in bf16, exactly where the TPU kernel rounds. The
+// intermediates (2-4 MB each) live in L2. Each dW tile sums all B rows in one
+// block in a fixed order: no split-K partials, no second pass, no atomics, a
+// rerun is bit-equal. Wr^T and Wi^T are never materialised: ldmatrix reads
+// Wr and Wi as the K-major B operand of d_z Wr^T and d_a Wi^T, and x and gdt
+// through ldmatrix.trans as the A operand of the dW products. Rows past B
+// and widths that are no multiple of the tile are zero-filled in shared
+// memory and masked on store; leading dimensions that are no multiple of 16
+// bytes (150, 100) take mma_tile.cuh's guarded loads.
+//
+// float32, "fma_fp32": the tensor cores would round fp32 operands to TF32, so
+// fp32 keeps full-fp32 FMA products, the first version of this file:
 // 1. projection_bwd_rows_kernel: 4 rows per block, 512 threads, the four
 //    products that lead to dx as warp-tiled FMA loops (common.cuh::gemm_rows)
-//    over shared-memory rows. Rows past B are guarded, never padded. It
-//    writes dx, the rounded operands gdt, d_z, d_a (3 x B x d_out in the
-//    working type, 6 MB in bf16 at B 1024) and, per block, the column sums of
-//    its rows for the four vector gradients (fp32).
+//    over shared-memory rows. It writes dx, the operands gdt, d_z, d_a and,
+//    per block, the column sums of its rows for the four vector gradients.
 // 2. reduce.cuh: dWr = gdt^T d_z and dWi = x^T d_a over the B rows, as
-//    ceil(B / 512) split-K chunks (at most 8) summed in order: at B 1024 the
-//    23 x 16 output tiles of dWi already fill the card, so two chunks, 12 MB
-//    of partials. The per-block vector sums are added in a fixed order.
+//    ceil(B / 512) split-K chunks (at most 8) summed in order, and the
+//    per-block vector sums added in a fixed order.
+//    This path is handed Wr^T and Wi^T as contiguous copies, made by the
+//    wrapper, so the lanes of a warp read neighbouring addresses.
 //
-// Transposed weights: d_g and dx contract over the second axis of Wr and Wi.
-// The launcher is handed Wr^T and Wi^T as contiguous copies, made once per
-// backward by the wrapper (5 MB read and written in bf16, ~0.01 ms), so the
-// lanes of a warp read neighbouring addresses as in the forward products.
-//
-// Shared memory per block (4 rows, d_in 1440, d_out 1024): x (4 x 1440) and
-// gdt, d_z, d_a (4 x 1024 each) in the working type, and three fp32 buffers
-// of 4 x 1024 (a -> r -> d_r; g' -> d_a; the mask factor): 83 KB in bf16,
-// 118 KB in fp32.
-//
-// Bound on the H100 (B 1024): recompute 5.2 GFLOP, dWr and d_g 2.1 each, dWi
-// and dx 3.0 each: 15.5 GFLOP, 0.016 ms at the bf16 tensor-core peak (0.23 ms
-// in fp32), against ~25 MB of traffic (0.0075 ms): bound by operations. This
-// version is far above it: fp32 FMA products with the weights streamed from
-// L2 by each of the 256 blocks.
+// Bound on the H100 (B 1024, d_in 1440, d_out 1024): recompute 5.2 GFLOP,
+// dWr and d_g 2.1 each, dWi and dx 3.0 each: 15.5 GFLOP, 0.016 ms at the bf16
+// tensor-core peak (0.23 ms in fp32), against ~25 MB of traffic (0.0075 ms):
+// bound by operations. What is left above the bound in bf16 is the launch
+// chain (nine short launches) and mma.sync's rate below wgmma's.
 
 #include "common.cuh"
+#include "mma_tile.cuh"
 #include "philox.cuh"
 #include "reduce.cuh"
 
@@ -248,19 +267,227 @@ __global__ void __launch_bounds__(kThreads)
       [&](int i, int n, float acc) { dx[(long)i * Din + n] = from_f<T>(acc); });
 }
 
+// ——— the bfloat16 chain on the tensor cores ———
+
+using mma::bf16;
+
+constexpr int kRowsP = 8;  // rows per block of the row pass
+
+struct ChainArgs {
+  const bf16* x;
+  const float* g;
+  const bf16 *wi, *bi, *wr, *br, *ln_s;
+  bf16* dx;
+  bf16 *gdt, *dz, *da;  // (B, Dout), the rounded operands
+  float* a32;           // (B, Dout): a
+  float* r32;           // (B, Dout): r, then d_r, then d_a
+  float* vpart;         // (row blocks, 3, Dout): dbr dln_s dln_b
+  float *d_wi, *d_wr;
+  int B, Din, Dout;
+  int mode;
+  const bf16* mask;
+  const int* seed;
+  uint32_t thresh;
+  float inv_keep;
+};
+
+__device__ __forceinline__ float mask_factor(const ChainArgs& p, uint32_t seed,
+                                             int row, int col) {
+  if (p.mode == kDropMasks) return to_f(p.mask[(long)row * p.Dout + col]);
+  if (p.mode == kDropSeed)
+    return keep_bits(seed, (uint32_t)row, kSiteProjection, (uint32_t)col) <
+                   p.thresh
+               ? p.inv_keep
+               : 0.f;
+  return 1.f;
+}
+
+__device__ __forceinline__ void tile_origin(int tile, int n_cols, int& m0,
+                                            int& n0) {
+  const int col_tiles = (n_cols + mma::kBN - 1) / mma::kBN;
+  m0 = (tile / col_tiles) * mma::kBM;
+  n0 = (tile % col_tiles) * mma::kBN;
+}
+
+inline int n_tiles(int rows, int cols) {
+  return ((rows + mma::kBM - 1) / mma::kBM) *
+         ((cols + mma::kBN - 1) / mma::kBN);
+}
+
+// 1. a = x Wi + bi; gdt = rnd(gelu(a))
+__global__ void __launch_bounds__(mma::kThreads)
+    projection_bwd_a_kernel(const ChainArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int m0, n0;
+  tile_origin(blockIdx.x, p.Dout, m0, n0);
+  mma::gemm_tile<true, false>(
+      p.x, p.Din, p.wi, p.Dout, p.B, p.Dout, p.Din, m0, n0, smem,
+      [&](int r, int c, float acc) {
+        const float a = acc + to_f(p.bi[c]);
+        const long e = (long)r * p.Dout + c;
+        p.a32[e] = a;
+        p.gdt[e] = __float2bfloat16(gelu_tanh(a));
+      });
+}
+
+// 2. r = a + (gdt Wr + br) * m
+__global__ void __launch_bounds__(mma::kThreads)
+    projection_bwd_r_kernel(const ChainArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int m0, n0;
+  tile_origin(blockIdx.x, p.Dout, m0, n0);
+  const uint32_t seed = p.mode == kDropSeed ? (uint32_t)*p.seed : 0u;
+  const bool drop = p.mode != kDropNone;
+  mma::gemm_tile<true, false>(
+      p.gdt, p.Dout, p.wr, p.Dout, p.B, p.Dout, p.Dout, m0, n0, smem,
+      [&](int r, int c, float acc) {
+        float z = acc + to_f(p.br[c]);
+        if (drop) z = z * mask_factor(p, seed, r, c);
+        const long e = (long)r * p.Dout + c;
+        p.r32[e] = p.a32[e] + z;
+      });
+}
+
+// 3. per block of kRowsP rows: LayerNorm statistics and the two row means of
+// its backward (one warp per row), then d_r over r in place, rnd(d_z), and
+// the block's column sums of dbr, dln_s, dln_b in row order
+__global__ void __launch_bounds__(256)
+    projection_bwd_ln_kernel(const ChainArgs p) {
+  __shared__ float stats[kRowsP][4];  // mu inv m1 m2
+  const int Dout = p.Dout;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * kRowsP;
+  const int nr = min(kRowsP, p.B - r0);
+  const uint32_t seed = p.mode == kDropSeed ? (uint32_t)*p.seed : 0u;
+  const bool drop = p.mode != kDropNone;
+  if (warp < nr) {
+    const float* row = p.r32 + (long)(r0 + warp) * Dout;
+    const float* go = p.g + (long)(r0 + warp) * Dout;
+    float mu, inv;
+    row_mean_inv(row, Dout, 1e-6f, mu, inv);
+    float s1 = 0.f, s2 = 0.f;
+    for (int n = lane; n < Dout; n += 32) {
+      const float gxh = go[n] * to_f(p.ln_s[n]);
+      s1 += gxh;
+      s2 += gxh * ((row[n] - mu) * inv);
+    }
+    s1 = warp_sum(s1) / (float)Dout;
+    s2 = warp_sum(s2) / (float)Dout;
+    if (lane == 0) {
+      stats[warp][0] = mu;
+      stats[warp][1] = inv;
+      stats[warp][2] = s1;
+      stats[warp][3] = s2;
+    }
+  }
+  __syncthreads();
+  float* vp = p.vpart + (long)blockIdx.x * 3 * Dout;
+  for (int n = tid; n < Dout; n += blockDim.x) {
+    const float s = to_f(p.ln_s[n]);
+    float d_lns = 0.f, d_lnb = 0.f, d_br = 0.f;
+    for (int i = 0; i < nr; ++i) {
+      const long e = (long)(r0 + i) * Dout + n;
+      const float mu = stats[i][0], inv = stats[i][1];
+      const float go = p.g[e];
+      const float xhat = (p.r32[e] - mu) * inv;
+      d_lns += go * xhat;
+      d_lnb += go;
+      const float gxh = go * s;
+      const float d_r = (gxh - stats[i][2] - xhat * stats[i][3]) * inv;
+      const float d_z = drop ? d_r * mask_factor(p, seed, r0 + i, n) : d_r;
+      d_br += d_z;
+      p.r32[e] = d_r;
+      p.dz[e] = __float2bfloat16(d_z);
+    }
+    vp[n] = d_br;
+    vp[Dout + n] = d_lns;
+    vp[2 * Dout + n] = d_lnb;
+  }
+}
+
+// 4. d_a = d_r + (d_z Wr^T) * g'(a), over d_r in place, and rnd(d_a)
+__global__ void __launch_bounds__(mma::kThreads)
+    projection_bwd_da_kernel(const ChainArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int m0, n0;
+  tile_origin(blockIdx.x, p.Dout, m0, n0);
+  // B(k, n) = Wr[n][k]: Wr as it lies is the K-major operand
+  mma::gemm_tile<true, true>(
+      p.dz, p.Dout, p.wr, p.Dout, p.B, p.Dout, p.Dout, m0, n0, smem,
+      [&](int r, int c, float acc) {
+        const long e = (long)r * p.Dout + c;
+        const float d_a = p.r32[e] + acc * gelu_tanh_grad(p.a32[e]);
+        p.r32[e] = d_a;
+        p.da[e] = __float2bfloat16(d_a);
+      });
+}
+
+// 5. the tiles of dx = d_a Wi^T, then of dWr = gdt^T d_z, then of dWi = x^T
+// d_a, in one grid
+__global__ void __launch_bounds__(mma::kThreads, 4)  // 64 registers
+    projection_bwd_out_kernel(const ChainArgs p, int dx_tiles, int wr_tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int tile = blockIdx.x, m0, n0;
+  if (tile < dx_tiles) {
+    tile_origin(tile, p.Din, m0, n0);
+    mma::gemm_tile<true, true>(
+        p.da, p.Dout, p.wi, p.Dout, p.B, p.Din, p.Dout, m0, n0, smem,
+        [&](int r, int c, float acc) {
+          p.dx[(long)r * p.Din + c] = __float2bfloat16(acc);
+        });
+    return;
+  }
+  tile -= dx_tiles;
+  if (tile < wr_tiles) {
+    tile_origin(tile, p.Dout, m0, n0);
+    mma::gemm_tile<false, false>(
+        p.gdt, p.Dout, p.dz, p.Dout, p.Dout, p.Dout, p.B, m0, n0, smem,
+        [&](int r, int c, float acc) {
+          p.d_wr[(long)r * p.Dout + c] = acc;
+        });
+    return;
+  }
+  tile -= wr_tiles;
+  tile_origin(tile, p.Dout, m0, n0);
+  mma::gemm_tile<false, false>(
+      p.x, p.Din, p.da, p.Dout, p.Din, p.Dout, p.B, m0, n0, smem,
+      [&](int r, int c, float acc) { p.d_wi[(long)r * p.Dout + c] = acc; });
+}
+
+// 6. the first pass of the four vector gradients: chunk c's in-order sums,
+// out[c] = [dbi dbr dln_s dln_b]. dbi sums the fp32 d_a over chunk c of the
+// B rows; the other three sum the row blocks' vectors over chunk c of the
+// blocks.
+__global__ void projection_bwd_vec_kernel(const ChainArgs p, int blocks,
+                                          float* __restrict__ out) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= kNVec * p.Dout) return;
+  const bool bias = j < p.Dout;
+  const float* in = bias ? p.r32 + j : p.vpart + (j - p.Dout);
+  const long pitch = bias ? p.Dout : 3L * p.Dout;
+  const long rows = bias ? p.B : blocks;
+  const long per = (rows + kVecChunks - 1) / kVecChunks;
+  const long r0 = blockIdx.y * per, r1 = min(rows, r0 + per);
+  float s = 0.f;
+  for (long r = r0; r < r1; ++r) s += in[r * pitch];
+  out[(long)blockIdx.y * kNVec * p.Dout + j] = s;
+}
+
 // ——— workspace layout (shared by the size query and the launch) ———
 
 struct Layout {
   int blocks, chunks;
-  size_t gdt, dz, da, vpart, vtmp, part, total;
+  size_t gdt, dz, da, a32, r32, vpart, vtmp, part, total;
 };
 
 size_t align256(size_t n) { return (n + 255) & ~size_t(255); }
 
 Layout layout(int dtype, long B, int Din, int Dout) {
-  const size_t sz = dtype == kBF16 ? 2 : 4;
+  const bool tc = dtype == kBF16;
+  const size_t sz = tc ? 2 : 4;
   Layout l;
-  l.blocks = (int)((B + kRows - 1) / kRows);
+  const int rows = tc ? kRowsP : kRows;
+  l.blocks = (int)((B + rows - 1) / rows);
   const long c = (B + 511) / 512;
   l.chunks = (int)(c < 1 ? 1 : (c > kMaxChunks ? kMaxChunks : c));
   size_t o = 0;
@@ -273,10 +500,13 @@ Layout layout(int dtype, long B, int Din, int Dout) {
   l.gdt = take(act);
   l.dz = take(act);
   l.da = take(act);
+  l.a32 = take(tc ? (size_t)B * Dout * 4 : 0);
+  l.r32 = take(tc ? (size_t)B * Dout * 4 : 0);
   l.vpart = take((size_t)l.blocks * kNVec * Dout * 4);
   l.vtmp = take((size_t)kVecChunks * kNVec * Dout * 4);
+  // split-K partials of the fp32 path's dW products; the bf16 path has none
   const size_t big = (size_t)(Din > Dout ? Din : Dout) * Dout;
-  l.part = take((size_t)l.chunks * big * 4);
+  l.part = take(tc ? 0 : (size_t)l.chunks * big * 4);
   l.total = o;
   return l;
 }
@@ -308,13 +538,50 @@ int launch(const Layout& l, Args a, unsigned char* ws, float* const* out,
   return (int)e;
 }
 
+#define EID_LAUNCHED()                        \
+  do {                                        \
+    const cudaError_t e_ = cudaGetLastError(); \
+    if (e_ != cudaSuccess) return (int)e_;    \
+  } while (0)
+
+int launch_chain(const Layout& l, const ChainArgs& p, unsigned char* ws,
+                 float* vec_out, cudaStream_t s) {
+  const int act_tiles = n_tiles(p.B, p.Dout);
+  const int dx_tiles = n_tiles(p.B, p.Din);
+  const int wr_tiles = n_tiles(p.Dout, p.Dout);
+  const int wi_tiles = n_tiles(p.Din, p.Dout);
+  const int smem = mma::kSmemBytes;
+  projection_bwd_a_kernel<<<act_tiles, mma::kThreads, smem, s>>>(p);
+  EID_LAUNCHED();
+  projection_bwd_r_kernel<<<act_tiles, mma::kThreads, smem, s>>>(p);
+  EID_LAUNCHED();
+  projection_bwd_ln_kernel<<<l.blocks, 256, 0, s>>>(p);
+  EID_LAUNCHED();
+  projection_bwd_da_kernel<<<act_tiles, mma::kThreads, smem, s>>>(p);
+  EID_LAUNCHED();
+  projection_bwd_out_kernel<<<dx_tiles + wr_tiles + wi_tiles, mma::kThreads,
+                              smem, s>>>(p, dx_tiles, wr_tiles);
+  EID_LAUNCHED();
+  // dbi | dbr | dln_s | dln_b in two fixed-order passes
+  float* vtmp = reinterpret_cast<float*>(ws + l.vtmp);
+  dim3 grid((unsigned)((kNVec * p.Dout + 255) / 256), kVecChunks);
+  projection_bwd_vec_kernel<<<grid, 256, 0, s>>>(p, l.blocks, vtmp);
+  EID_LAUNCHED();
+  return (int)sum_rows(vtmp, kVecChunks, (long)kNVec * p.Dout, 1, vec_out, s);
+}
+
 bool supported(int dtype, int Din, int Dout) {
-  if (!(dtype == kBF16 || dtype == kF32) || Din <= 0 || Dout <= 0)
-    return false;
-  return smem_layout(Din, Dout, dtype == kBF16 ? 2 : 4).total <= kMaxSmem;
+  if (Din <= 0 || Dout <= 0) return false;
+  if (dtype == kBF16) return true;  // tiles guard every edge
+  return dtype == kF32 && smem_layout(Din, Dout, 4).total <= kMaxSmem;
 }
 
 }  // namespace
+
+// Which design a dtype takes: "mma_bf16" (tensor cores) or "fma_fp32".
+extern "C" const char* eid_projection_bwd_design(int dtype) {
+  return dtype == kBF16 ? "mma_bf16" : "fma_fp32";
+}
 
 // Bytes of device workspace eid_projection_bwd needs, or -1 for shapes it
 // does not take.
@@ -326,10 +593,10 @@ extern "C" long long eid_projection_bwd_workspace(int dtype, int B, int Din,
 
 // x, dx: (B, Din) in dtype; g: (B, Dout) float32; w: the six parameters in
 // dtype (as eid_projection_fwd); wi_t (Dout, Din) and wr_t (Dout, Dout): the
-// transposed weights, contiguous in dtype; out (fp32): dWi (Din, Dout), dWr
-// (Dout, Dout) and the vector [dbi dbr dln_s dln_b]; ws:
-// eid_projection_bwd_workspace bytes. Dropout arguments as
-// eid_projection_fwd's.
+// transposed weights, contiguous, read by the float32 design only (null for
+// bfloat16); out (fp32): dWi (Din, Dout), dWr (Dout, Dout) and the vector
+// [dbi dbr dln_s dln_b]; ws: eid_projection_bwd_workspace bytes. Dropout
+// arguments as eid_projection_fwd's.
 extern "C" int eid_projection_bwd(int dtype, const void* x, const float* g,
                                   const void* const* w, const void* wi_t,
                                   const void* wr_t, void* dx,
@@ -345,6 +612,37 @@ extern "C" int eid_projection_bwd(int dtype, const void* x, const float* g,
     return (int)cudaErrorInvalidValue;
   const Layout l = layout(dtype, B, Din, Dout);
   unsigned char* base = static_cast<unsigned char*>(ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    auto W = [&](int i) { return static_cast<const bf16*>(w[i]); };
+    ChainArgs p;
+    p.x = static_cast<const bf16*>(x);
+    p.g = g;
+    p.wi = W(0);
+    p.bi = W(1);
+    p.wr = W(2);
+    p.br = W(3);
+    p.ln_s = W(4);
+    p.dx = static_cast<bf16*>(dx);
+    p.gdt = reinterpret_cast<bf16*>(base + l.gdt);
+    p.dz = reinterpret_cast<bf16*>(base + l.dz);
+    p.da = reinterpret_cast<bf16*>(base + l.da);
+    p.a32 = reinterpret_cast<float*>(base + l.a32);
+    p.r32 = reinterpret_cast<float*>(base + l.r32);
+    p.vpart = reinterpret_cast<float*>(base + l.vpart);
+    p.d_wi = out[0];
+    p.d_wr = out[1];
+    p.B = B;
+    p.Din = Din;
+    p.Dout = Dout;
+    p.mode = drop_mode;
+    p.mask = static_cast<const bf16*>(mask);
+    p.seed = seed;
+    p.thresh = thresh;
+    p.inv_keep = inv_keep;
+    return launch_chain(l, p, base, out[2], s);
+  }
+  if (wi_t == nullptr || wr_t == nullptr) return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
   a.g = g;
@@ -364,8 +662,5 @@ extern "C" int eid_projection_bwd(int dtype, const void* x, const float* g,
   a.seed = seed;
   a.thresh = thresh;
   a.inv_keep = inv_keep;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_layout(Din, Dout, dtype == kBF16 ? 2 : 4).total;
-  if (dtype == kBF16) return launch<__nv_bfloat16>(l, a, base, out, smem, s);
-  return launch<float>(l, a, base, out, smem, s);
+  return launch<float>(l, a, base, out, smem_layout(Din, Dout, 4).total, s);
 }

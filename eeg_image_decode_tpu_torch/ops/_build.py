@@ -65,8 +65,12 @@ _SIGNATURES = {
                            _I, _I, _I, _P, _P, _U, _F, _P], _I),
     # dtype, x, w, out, rows, T, M, F, P, stride, stream
     "eid_tsconv_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
-    # rows, M, F → workspace bytes
-    "eid_tsconv_bwd_workspace": ([_I, _I, _I], _LL),
+    # dtype, rows, T, M, F, P, stride → workspace bytes, or -1 for shapes
+    # the dtype's design does not take
+    "eid_tsconv_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
+    # dtype → the design it takes ("mma_bf16" or "fma_fp32")
+    "eid_tsconv_bwd_design": ([_I], ctypes.c_char_p),
+    "eid_projection_bwd_design": ([_I], ctypes.c_char_p),
     # dtype, x, g, w, dx, dw, ws, rows, T, M, F, P, stride, stream
     "eid_tsconv_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P], _I),
@@ -76,8 +80,9 @@ _SIGNATURES = {
                             _P], _I),
     # dtype, B, Din, Dout → workspace bytes
     "eid_projection_bwd_workspace": ([_I, _I, _I, _I], _LL),
-    # dtype, x, g (fp32), w[6], wi^T, wr^T, dx, out[3], ws, B, Din, Dout,
-    # drop mode, mask, seed (device), thresh, keep value, stream
+    # dtype, x, g (fp32), w[6], wi^T, wr^T (null for bfloat16), dx, out[3],
+    # ws, B, Din, Dout, drop mode, mask, seed (device), thresh, keep value,
+    # stream
     "eid_projection_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _P, _P, _U, _F, _P], _I),
 }
@@ -150,6 +155,33 @@ def build() -> Path:
         so.with_suffix(".log").write_text("\n".join(logs))
         os.replace(tmp_so, so)  # atomic: a concurrent loader sees all or none
     return so
+
+
+def count_sass(opcodes: tuple[str, ...],
+               kernels: tuple[str, ...]) -> dict[str, int]:
+    """How many SASS instructions whose opcode starts with one of
+    ``opcodes`` (e.g. ``("HMMA", "HGMMA")``, the tensor cores') the built
+    library holds in the kernels whose names contain each of ``kernels``,
+    read from ``cuobjdump -sass`` (it ships with the toolkit beside
+    ``nvcc``)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build())], check=True,
+                          capture_output=True, text=True).stdout
+    counts = dict.fromkeys(kernels, 0)
+    inside: list[str] = []
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            inside = [k for k in kernels if k in line]
+        elif inside and line.startswith("/*"):
+            # "/*0040*/   HMMA.16816.F32.BF16 R4, ... ;" (maybe predicated)
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if words and words[0].startswith(opcodes):
+                for k in inside:
+                    counts[k] += 1
+    return counts
 
 
 def lib() -> ctypes.CDLL:

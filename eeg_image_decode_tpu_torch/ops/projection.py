@@ -10,7 +10,8 @@ with ``a`` kept in fp32, tanh GELU and a biased-variance fp32 LayerNorm
 tensor its forward is ``csrc/projection_fwd.cu`` and its backward
 ``csrc/projection_bwd.cu`` (recompute on chip, dx in x's dtype, fp32
 parameter gradients reduced in a fixed order, so two runs agree bit for
-bit). For a CPU tensor it runs the plain versions:
+bit; in bfloat16 its six products run on the tensor cores, in float32 as
+full-fp32 FMA loops). For a CPU tensor it runs the plain versions:
 ``projection_head_reference`` and ``projection_head_backward_reference``,
 which follows the rounding points of the JAX backward kernel line by line.
 
@@ -232,27 +233,50 @@ def _backward(x, p, g, drop: _Dropout):
         raise ValueError(f"projection_bwd: shapes (d_in {d_in}, d_out "
                          f"{d_out}) do not fit the kernel")
     ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
-    f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    d_wi = torch.empty((d_in, d_out), **f32)
-    d_wr = torch.empty((d_out, d_out), **f32)
-    d_vec = torch.empty((4 * d_out,), **f32)
-    # transposed copies of the two weights, for the products with Wᵀ
-    wi_t = p["wi"].t().contiguous()
-    wr_t = p["wr"].t().contiguous()
+    grads = _FlatGrads(
+        torch.empty(d_in * d_out + d_out * d_out + 4 * d_out,
+                    dtype=torch.float32, device=x.device), d_in, d_out)
+    # the float32 design reads contiguous transposed copies of the two
+    # weights; the bfloat16 design reads Wi and Wr as they lie
+    transposed = ([p["wi"].t().contiguous(), p["wr"].t().contiguous()]
+                  if x.dtype == torch.float32 else [])
+    wt_ptrs = [t.data_ptr() for t in transposed] or [0, 0]
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
-    outs = _build.pointer_array([d_wi, d_wr, d_vec])
+    # dWi, dWr and the vector [dbi dbr dln_s dln_b], which starts at dbi
+    outs = _build.pointer_array([grads["wi"], grads["wr"], grads["bi"]])
     mode, mask_ptr, seed_ptr, thresh, value = drop.c_args(x)
     rc = lib.eid_projection_bwd(
-        code, x.data_ptr(), g.data_ptr(), weights, wi_t.data_ptr(),
-        wr_t.data_ptr(), dx.data_ptr(), outs, ws.data_ptr(), B, d_in, d_out,
+        code, x.data_ptr(), g.data_ptr(), weights, *wt_ptrs,
+        dx.data_ptr(), outs, ws.data_ptr(), B, d_in, d_out,
         mode, mask_ptr, seed_ptr, thresh, value, _build.stream_of(x))
     _build.check(rc, "projection_bwd")
     _build.LAUNCHES["projection_bwd"] += 1
-    grads = {"wi": d_wi, "wr": d_wr}
-    for i, k in enumerate(("bi", "br", "ln_s", "ln_b")):
-        grads[k] = d_vec[i * d_out:(i + 1) * d_out]
     return dx, grads
+
+
+class _FlatGrads(dict):
+    """The six fp32 gradients as views of the launcher's one output buffer,
+    dWi | dWr | dbi dbr dln_s dln_b, so that one launch casts them all."""
+
+    def __init__(self, flat: torch.Tensor, d_in: int, d_out: int):
+        n_wi, n_wr = d_in * d_out, d_out * d_out
+        super().__init__(wi=flat[:n_wi].view(d_in, d_out),
+                         wr=flat[n_wi:n_wi + n_wr].view(d_out, d_out))
+        vec = flat[n_wi + n_wr:]
+        for i, k in enumerate(("bi", "br", "ln_s", "ln_b")):
+            self[k] = vec[i * d_out:(i + 1) * d_out]
+        self.flat, self.dims = flat, (d_in, d_out)
+
+    def to(self, dtype: torch.dtype) -> "_FlatGrads":
+        return _FlatGrads(self.flat.to(dtype), *self.dims)
+
+
+def backward_design(dtype: torch.dtype) -> str:
+    """The design the backward launcher takes for ``dtype``: ``"mma_bf16"``
+    (tensor cores) or ``"fma_fp32"`` (full-fp32 FMA products)."""
+    return _build.lib().eid_projection_bwd_design(
+        _build.DTYPE_CODES[dtype]).decode()
 
 
 class _ProjectionHead(torch.autograd.Function):
@@ -269,6 +293,8 @@ class _ProjectionHead(torch.autograd.Function):
         dx, grads = _backward(x, p, g, ctx.drop)
         # each gradient in the dtype of the parameter passed in (x's dtype),
         # as the JAX launcher returns them
+        if isinstance(grads, _FlatGrads):
+            grads = grads.to(x.dtype)
         return (dx, None,
                 *[grads[k].to(p[k].dtype).contiguous() for k in PARAM_ORDER])
 

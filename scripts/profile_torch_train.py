@@ -36,8 +36,7 @@ SEED = 20200220
 #: substrings of the port's kernel names (csrc/*.cu)
 OWN = ("attention_fwd_kernel", "attention_bwd_rows_kernel",
        "atb_partial_kernel", "sum_rows_kernel", "tsconv_fwd_kernel",
-       "tsconv_bwd_kernel", "projection_fwd_kernel",
-       "projection_bwd_rows_kernel")
+       "tsconv_bwd_", "projection_fwd_kernel", "projection_bwd_")
 
 
 def emit(obj) -> None:

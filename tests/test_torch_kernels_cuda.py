@@ -245,17 +245,27 @@ def test_attention_bwd_kernel_on_card(cuda, dtype, d, heads, ff, length,
         assert err <= BWD_TOL[dtype], (name, err)
 
 
+# (rows, T, conv taps, filters, pool, stride): a small ragged shape; ATM-S
+# width at 315 rows (no multiple of the 32-row tile); T 253 (no multiple of
+# the stride: the trailing samples get dx = 0); one position only (T 77);
+# 37 rows (two row tiles, the second of 5 rows)
+TSCONV_BWD_SHAPES = [
+    (3 * 8, 100, 9, 6, 16, 4), (5 * 63, 250, 25, 40, 51, 5),
+    (2 * 63, 253, 25, 40, 51, 5), (2 * 63, 77, 25, 40, 51, 5),
+    (37, 250, 25, 40, 51, 5)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,t,k,f,pool,stride", [
-    (3 * 8, 100, 9, 6, 16, 4), (5 * 63, 250, 25, 40, 51, 5)])
+@pytest.mark.parametrize("rows,t,k,f,pool,stride", TSCONV_BWD_SHAPES)
 def test_tsconv_bwd_kernel_on_card(cuda, dtype, rows, t, k, f, pool, stride):
     from eeg_image_decode_tpu_torch.ops.tsconv import (
+        _backward,
         tsconv_pool_backward_reference,
     )
 
     rng = np.random.default_rng(11)
-    c = 8 if rows % 63 else 63
+    c = 63 if rows % 63 == 0 else (8 if rows % 8 == 0 else rows)
     x = torch.from_numpy(rng.normal(size=(rows // c, c, t)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(k, f)) / np.sqrt(k)).astype(np.float32))
     w_tilde = fold_pool_into_kernel(w, pool).to(cuda, dtype).requires_grad_()
@@ -272,7 +282,13 @@ def test_tsconv_bwd_kernel_on_card(cuda, dtype, rows, t, k, f, pool, stride):
     again = kernel_grads()
     with torch.no_grad():
         dx, dw = tsconv_pool_backward_reference(x, w_tilde, gout, stride)
+        # the kernel itself hands dx over in x's dtype and dw~ in fp32
+        dx_k, dw_k = _backward(x.detach(), w_tilde.detach(), gout, stride)
     torch.cuda.synchronize()
+    assert dx_k.dtype == dtype and dw_k.dtype == torch.float32
+    assert torch.equal(dx_k, got[0])
+    tail = n_pos * stride - stride + w_tilde.shape[0]   # past the last window
+    assert not got[0][..., tail:].any()
     for name, a, a2, want in (("x", got[0], again[0], dx),
                               ("w_tilde", got[1], again[1], dw)):
         assert torch.equal(a, a2), f"{name}: two runs differ"
@@ -282,8 +298,9 @@ def test_tsconv_bwd_kernel_on_card(cuda, dtype, rows, t, k, f, pool, stride):
 
 # ——— the projection head's dropout modes and its backward ———
 
-# (B, d_in, d_out): ragged widths and a batch that is no multiple of the 4
-# rows per block, and the full ATM-S head at an odd batch
+# (B, d_in, d_out): ragged widths (no multiple of the 16-byte copies or of
+# the mma tile) and batches that are no multiple of the rows per block, and
+# the full ATM-S head at an odd batch
 PROJ_SHAPES = [(5, 48, 32), (9, 1440, 1024), (70, 150, 100)]
 
 
@@ -348,10 +365,15 @@ def test_projection_fwd_seed_kernel_on_card(cuda, dtype, b, d_in, d_out,
             assert torch.equal(a, w), name
 
 
+# the backward also at the training batch and at B 130 (full width: three
+# 64-row tiles of the bfloat16 design, the last of two rows)
+PROJ_BWD_SHAPES = PROJ_SHAPES + [(1024, 1440, 1024), (130, 1440, 1024)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["none", "mask", "seed"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,d_in,d_out", PROJ_SHAPES)
+@pytest.mark.parametrize("b,d_in,d_out", PROJ_BWD_SHAPES)
 def test_projection_bwd_kernel_on_card(cuda, dtype, b, d_in, d_out, mode):
     """dx and the six parameter gradients (in x's dtype, as a step gets
     them) against the plain backward, and two runs bit-identical."""

@@ -7,27 +7,30 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, the build of every CUDA kernel from ``csrc/`` with its time,
    and how many tensor-core instructions (HMMA/HGMMA) ``cuobjdump -sass``
-   finds in the bfloat16 kernels of the tsconv backward and the projection
-   backward: none is a failure.
+   finds in the bfloat16 kernels of the tsconv forward and backward and of
+   the projection head's chain and backward: none is a failure.
 2. Each kernel against its plain PyTorch version on the same inputs, in
-   bfloat16 and float32, with the tolerance stated: the three forward
-   kernels at the serving shapes (B = 256), and the training kernels at the
-   training shapes (B = 1024, full ATM-S width): the attention forward in
-   mask mode and in seed mode (the seed-mode forward must equal the
-   mask-mode forward fed the plain Philox draw ``draw_keep_masks``, bit for
-   bit, and in fp32 so must the backward), the attention backward (dx and
-   all 16 gradients) and the tsconv backward (dx and dw̃; also once,
-   untimed, at 37 rows and T 253, no multiples of its tiles), each backward
-   through ``torch.autograd.grad`` as a training step runs it, twice, bit
-   for bit. The tsconv and projection backward rows name the design their
-   dtype took (``mma_bf16`` on the tensor cores, ``fma_fp32`` in full
-   float32) and, in bfloat16, the first version's time and the device time
-   of the op and of its library yardstick from a ``torch.profiler`` trace
-   (the event times of such short ops are mostly the host's). Per kernel: its time, the plain version's, a library
-   yardstick's where one PyTorch call computes the same function (CUDA
-   events, warm, median of 25 launches), and its bound, the least time the
-   card could take for the same work (bytes over 3.35 TB/s or operations
-   over the dtype's peak, whichever is larger).
+   bfloat16 and float32, with the tolerance stated, and run twice, bit for
+   bit: the three forward kernels at the serving shapes (B = 256; the tsconv
+   and projection forwards also once, untimed, at ragged shapes: tsconv at
+   37 rows and T 253 and at one position, the head at B 1 and B 37 in its
+   three modes), and the training kernels at the training shapes (B = 1024,
+   full ATM-S width): the attention forward in mask mode and in seed mode
+   (the seed-mode forward must equal the mask-mode forward fed the plain
+   Philox draw ``draw_keep_masks``, bit for bit, and in fp32 so must the
+   backward), the attention backward (dx and all 16 gradients), the tsconv
+   backward (dx and dw̃; also once, untimed, at 37 rows and T 253, no
+   multiples of its tiles) and the tsconv forward, each backward through
+   ``torch.autograd.grad`` as a training step runs it. The tsconv and
+   projection rows, forward and backward, name the design their dtype took
+   (``mma_bf16`` on the tensor cores, ``fma_fp32`` in full float32) and, in
+   bfloat16, the first version's time and the device time of the op and of
+   its library yardstick from a ``torch.profiler`` trace (the event times of
+   such short ops are mostly the host's). Per kernel: its time, the plain
+   version's, a library yardstick's where one PyTorch call computes the
+   same function (CUDA events, warm, median of 25 launches), and its bound,
+   the least time the card could take for the same work (bytes over 3.35
+   TB/s or operations over the dtype's peak, whichever is larger).
 3. The serving path at full width (``ATMSConfig()``, bf16, max_batch 256,
    seeded random weights, a 200 × 1024 L2-normalised gallery): the port's
    ``EEGDecodeServer`` on a free port answers ``/v1/retrieve`` requests of 1,
@@ -309,33 +312,120 @@ TOLERANCE = {
 }
 
 
+def forward_design(torch, name: str, dtype) -> str:
+    """The design the forward launcher of ``name`` took for ``dtype``; the
+    bfloat16 forwards of tsconv and the projection head must be on the
+    tensor cores, their float32 forwards on the FMA code."""
+    from eeg_image_decode_tpu_torch.ops import projection, tsconv
+
+    op = tsconv if name.startswith("tsconv") else projection
+    design = op.forward_design(dtype)
+    if design != ("mma_bf16" if dtype == torch.bfloat16 else "fma_fp32"):
+        raise RuntimeError(f"{name} {dtype} took design {design}")
+    return design
+
+
+def forward_ragged_check(torch, dtype) -> dict:
+    """The tsconv and projection forwards once at small ragged shapes,
+    untimed, against their plain versions: tsconv at 37 rows (a short
+    second tile) and T 253, and at one position (T 77); the head at B 1 and
+    B 37 (no multiple of the 64-row tile) in its three modes."""
+    from eeg_image_decode_tpu_torch.ops.projection import (
+        draw_keep_mask,
+        fused_projection_head,
+        projection_head_reference,
+    )
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        fold_pool_into_kernel,
+        tsconv_pool_fused,
+        tsconv_pool_reference,
+    )
+
+    dname = str(dtype).split(".")[-1]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale + shift
+
+    out = {}
+    w = fold_pool_into_kernel(randn(25, 40, scale=0.2), 51).to(dtype)
+    tol = TOLERANCE[("tsconv_fwd", dname)]
+    for rows, t in ((37, 253), (7, 77)):
+        x = randn(1, rows, t).to(dtype)
+        err = (tsconv_pool_fused(x, w, 5).float()
+               - tsconv_pool_reference(x, w, 5).float()).abs().max().item()
+        out[f"tsconv_fwd_rows{rows}_T{t}"] = err
+        if not err <= tol:
+            raise RuntimeError(f"tsconv_fwd {dname}, {rows} rows, T {t}: "
+                               f"{err} > {tol}")
+    p = {"wi": randn(D_IN, D_OUT, scale=D_IN ** -0.5),
+         "bi": randn(D_OUT, scale=0.1),
+         "wr": randn(D_OUT, D_OUT, scale=D_OUT ** -0.5),
+         "br": randn(D_OUT, scale=0.1),
+         "ln_s": randn(D_OUT, scale=0.1, shift=1.0),
+         "ln_b": randn(D_OUT, scale=0.1)}
+    p = {k: v.to(dtype) for k, v in p.items()}
+    for b in (1, 37):
+        x = randn(b, D_IN).to(dtype)
+        mask = ((torch.rand(b, D_OUT, generator=g, device="cuda") >= 0.5)
+                .float() * 2.0).to(dtype)
+        drawn = draw_keep_mask(7, b, D_OUT, 0.5, device="cuda")
+        for mode, args, plain_mask in (("none", (), None),
+                                       ("mask", (mask,), mask),
+                                       ("seed", (None, 0.5, 7), drawn)):
+            tol = (TOLERANCE[("projection_fwd", dname)] if mode == "none"
+                   else PROJ_FWD_TOL[dname])
+            with torch.no_grad():
+                err = (fused_projection_head(x, p, *args)
+                       - projection_head_reference(x, p, plain_mask)
+                       ).abs().max().item()
+            out[f"projection_fwd_{mode}_B{b}"] = err
+            if not err <= tol:
+                raise RuntimeError(f"projection_fwd {mode} {dname}, B {b}: "
+                                   f"{err} > {tol}")
+    return out
+
+
 def check_kernels(torch) -> dict:
     rows = {}
     for name, (replaces, source, make) in kernel_cases(torch).items():
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             kern, plain, library, flops, nbytes = make(dtype)
-            got = kern()
+            got, again = kern(), kern()
             want = plain()
             torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise RuntimeError(f"{name} {dname}: non-finite output")
+            if not (torch.isfinite(got).all() and torch.equal(got, again)):
+                raise RuntimeError(f"{name} {dname}: non-finite output, or "
+                                   "a rerun that differs")
             err = (got.float() - want.float()).abs().max().item()
             tol = TOLERANCE[(name, dname)]
             b_ms, b_by = bound(flops, nbytes, dname)
+            extra = {}
+            if name in FIRST_VERSION_MS:  # the two redesigned forwards
+                extra["design"] = forward_design(torch, name, dtype)
+                if dtype == torch.bfloat16:
+                    extra["first_version_ms"] = FIRST_VERSION_MS[name]
+                    extra["device_ms"] = device_ms(torch, kern)
+                    extra["library_device_ms"] = device_ms(torch, library)
             row = {
                 "phase": "kernel", "name": name, "dtype": dname,
                 "shape_batch": BATCH, "max_abs_err": err, "tolerance": tol,
                 "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
                 "library_ms": cuda_ms(torch, library) if library else None,
                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-                "bytes": nbytes,
+                "bytes": nbytes, **extra,
             }
             emit(row)
             if not err <= tol:
                 raise RuntimeError(f"{name} {dname}: |kernel - plain| = {err}"
                                    f" > {tol}")
             rows[(name, dname)] = dict(row, replaces=replaces, source=source)
+        if name == "projection_fwd":
+            for dtype in (torch.bfloat16, torch.float32):
+                emit({"phase": "kernel", "check": "forward ragged shapes",
+                      "dtype": str(dtype).split(".")[-1],
+                      "max_abs_err": forward_ragged_check(torch, dtype)})
     return rows
 
 
@@ -363,6 +453,8 @@ TOL_REASON = {
                      "softmax backward",
     "tsconv_bwd": "share of each output's largest |plain|: fp32 sums of "
                   "bf16 products, order only",
+    "tsconv_fwd": "one rounding to bf16 of fp32 sums of exact products: 2 "
+                  "ulps of an output < 2",
     "projection_fwd_masks": "only g is rounded to bf16 and the output is "
                             "fp32: the no-dropout head's 4e-3, twice, since "
                             "a kept z is doubled",
@@ -375,13 +467,24 @@ TOL_REASON = {
 PROJ_FWD_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
 P_DROP_PROJ = 0.5
 D_IN, D_OUT = 1440, 1024
-#: kernel names (substrings) that must hold HMMA/HGMMA instructions
-TENSOR_CORE_KERNELS = ("tsconv_bwd_mma_kernel", "projection_bwd_a_kernel",
-                       "projection_bwd_r_kernel", "projection_bwd_da_kernel",
+#: kernel names (substrings) that must hold HMMA/HGMMA instructions: the
+#: bfloat16 designs of the tsconv forward and backward, the projection
+#: head's chain (its forward's launches 1-2, which its backward recomputes)
+#: and the backward's own products
+TENSOR_CORE_KERNELS = ("tsconv_fwd_mma_kernel", "tsconv_bwd_mma_kernel",
+                       "projection_chain_a_kernel",
+                       "projection_chain_r_kernel", "projection_bwd_da_kernel",
                        "projection_bwd_out_kernel")
-#: bfloat16 times of the first versions of the two redesigned backward
-#: kernels (fp32 FMA products; PERF.md, H100 80GB HBM3 at 700 W, B 1024)
-FIRST_VERSION_MS = {"tsconv_bwd": 4.718, "projection_bwd": 1.757}
+#: bfloat16 event times of the first versions of the four redesigned kernels
+#: (fp32 FMA products; PERF.md, H100 80GB HBM3 at 700 W): the backward ops
+#: and the forwards in dropout mode at B 1024, the forwards without dropout
+#: at B 256. The tsconv forward's first version at B 1024 was never timed
+#: in this script and is not in this tree; scripts/ab_torch_kernels.py
+#: times it beside the redesign.
+FIRST_VERSION_MS = {"tsconv_bwd": 4.718, "projection_bwd": 1.757,
+                    "tsconv_fwd": 0.265, "projection_fwd": 0.373,
+                    "projection_fwd_masks": 0.718,
+                    "projection_fwd_seed": 0.647}
 #: why a kernel has no library yardstick
 NO_LIBRARY = {
     "attention_fwd_masks": "none: no one PyTorch call computes the layer",
@@ -495,6 +598,7 @@ def check_training_kernels(torch) -> dict:
         out_positions,
         tsconv_pool_backward_reference,
         tsconv_pool_fused,
+        tsconv_pool_reference,
     )
 
     B = TRAIN_BATCH
@@ -502,7 +606,7 @@ def check_training_kernels(torch) -> dict:
 
     def record(name, dname, replaces, source, kern, plain, library, flops,
                nbytes, err, tol, library_desc="dense g2 @ E^T + x2^T @ g2",
-               **extra):
+               key=None, **extra):
         b_ms, b_by = bound(flops, nbytes, dname)
         reason = TOL_REASON["float32" if dname == "float32" else name]
         row = {"phase": "kernel", "name": name, "dtype": dname,
@@ -514,7 +618,8 @@ def check_training_kernels(torch) -> dict:
                "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
                "bytes": nbytes, **extra}
         emit(row)
-        rows[(name, dname)] = dict(row, replaces=replaces, source=source)
+        rows[(key or name, dname)] = dict(row, replaces=replaces,
+                                          source=source)
         return row
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -687,6 +792,36 @@ def check_training_kernels(torch) -> dict:
         if not (repeat and max(errs.values()) <= tol):
             raise RuntimeError(f"tsconv_bwd {dname}: rerun bit-equal "
                                f"{repeat}, errors {errs}")
+
+        # tsconv forward at the training shape (64,512 rows)
+        def kern_ts_fwd():
+            return tsconv_pool_fused(xt, w_tilde, stride)
+
+        got, again = kern_ts_fwd(), kern_ts_fwd()
+        want = tsconv_pool_reference(xt, w_tilde, stride)
+        torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
+        err = (got.float() - want.float()).abs().max().item()
+        tol_f = TOLERANCE[("tsconv_fwd", dname)]
+        extra = {"design": forward_design(torch, "tsconv_fwd", dtype)}
+        if dtype == torch.bfloat16:
+            extra["first_version_ms"] = None
+            extra["first_version_note"] = (
+                "the first version's bf16 kernel is not in this tree: "
+                "scripts/ab_torch_kernels.py times it against this one")
+            extra["device_ms"] = device_ms(torch, kern_ts_fwd)
+            extra["library_device_ms"] = device_ms(
+                torch, lambda: torch.matmul(x2, e))
+        record("tsconv_fwd", dname, "eeg_image_decode_tpu/ops/tsconv.py:84",
+               "eeg_image_decode_tpu_torch/csrc/tsconv_fwd.cu", kern_ts_fwd,
+               lambda: tsconv_pool_reference(xt, w_tilde, stride),
+               lambda: torch.matmul(x2, e), 2 * rows_n * P * M * Fn,
+               (xt.numel() + w_tilde.numel() + rows_n * P * Fn) * sz, err,
+               tol_f, library_desc="dense x2 @ E (the JAX TPU default)",
+               key="tsconv_fwd_train", bit_identical_rerun=repeat, **extra)
+        if not (repeat and err <= tol_f):
+            raise RuntimeError(f"tsconv_fwd {dname}, B {B}: rerun bit-equal "
+                               f"{repeat}, |Δ| {err}")
         check_projection_training_kernels(torch, dtype, record)
     return rows
 
@@ -739,19 +874,38 @@ def check_projection_training_kernels(torch, dtype, record) -> None:
         z = F.dropout(z, P_DROP_PROJ, training=True)
         return F.layer_norm(a + z, (D_OUT,), pp["ln_s"], pp["ln_b"], 1e-6)
 
+    def fwd_extra(name, kern):
+        """The design, and in bf16 the first version's time and the device
+        times of the kernel and of the library chain."""
+        out = {"design": forward_design(torch, name, dtype)}
+        if dtype == torch.bfloat16:
+            out["first_version_ms"] = FIRST_VERSION_MS[name]
+            out["device_ms"] = device_ms(torch, kern)
+            out["library_device_ms"] = device_ms(torch, lambda: library(x, p))
+        return out
+
+    def kern_masks():
+        return fused_projection_head(x, p, mask)
+
+    def kern_seed():
+        return fused_projection_head(x, p, None, P_DROP_PROJ, seed_t)
+
     # forward, mask mode
     with torch.no_grad():
-        got = fused_projection_head(x, p, mask)
+        got, again = kern_masks(), kern_masks()
         want = projection_head_reference(x, p, mask)
         torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
         err = (got - want).abs().max().item()
         record("projection_fwd_masks", dname, replaces_fwd, source_fwd,
-               lambda: fused_projection_head(x, p, mask),
-               lambda: projection_head_reference(x, p, mask),
+               kern_masks, lambda: projection_head_reference(x, p, mask),
                lambda: library(x, p), flops, fwd_bytes + mask.numel() * sz,
-               err, tol_fwd, library_desc=lib_desc)
-        if not (err <= tol_fwd and torch.isfinite(got).all()):
-            raise RuntimeError(f"projection_fwd_masks {dname}: {err}")
+               err, tol_fwd, library_desc=lib_desc,
+               bit_identical_rerun=repeat,
+               **fwd_extra("projection_fwd_masks", kern_masks))
+        if not (repeat and err <= tol_fwd and torch.isfinite(got).all()):
+            raise RuntimeError(f"projection_fwd_masks {dname}: rerun "
+                               f"bit-equal {repeat}, |Δ| {err}")
 
         # forward, seed mode: bit-equal to mask mode fed the plain draw
         seed = (SEED + 1) % (2**31 - 1)
@@ -760,21 +914,24 @@ def check_projection_training_kernels(torch, dtype, record) -> None:
         kept = float((drawn > 0).float().mean())
         if abs(kept - (1 - P_DROP_PROJ)) > 0.005:
             raise RuntimeError(f"kept fraction {kept} off 0.5 ± 0.005")
-        got = fused_projection_head(x, p, None, P_DROP_PROJ, seed_t)
+        got, again = kern_seed(), kern_seed()
         via_mask = fused_projection_head(x, p, drawn)
         want = projection_head_reference(x, p, drawn)
         torch.cuda.synchronize()
         same = torch.equal(got, via_mask)
+        repeat = torch.equal(got, again)
         err = (got - want).abs().max().item()
         record("projection_fwd_seed", dname, replaces_fwd, source_fwd,
-               lambda: fused_projection_head(x, p, None, P_DROP_PROJ, seed_t),
+               kern_seed,
                lambda: projection_head_reference(x, p, drawn),
                lambda: library(x, p), flops, fwd_bytes, err, tol_fwd,
                library_desc=lib_desc, equals_mask_mode_on_plain_draw=same,
-               kept_fraction=kept)
-        if not (same and err <= tol_fwd):
+               kept_fraction=kept, bit_identical_rerun=repeat,
+               **fwd_extra("projection_fwd_seed", kern_seed))
+        if not (same and repeat and err <= tol_fwd):
             raise RuntimeError(f"projection_fwd_seed {dname}: bit-equal to "
-                               f"mask mode {same}, |Δ| {err}")
+                               f"mask mode {same}, rerun bit-equal {repeat}, "
+                               f"|Δ| {err}")
 
     # backward, seed mode (the training path's), through autograd as a step
     # runs it: dx and the six gradients, in the parameters' dtype
@@ -1451,17 +1608,19 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "library": so.name})
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "properties for" in line
+                or line.startswith("==")):
             print("ptxas:", line.strip(), flush=True)
 
-    # the two bfloat16 backward designs must run on the tensor cores
+    # the bfloat16 designs of tsconv and the projection head must run on
+    # the tensor cores
     tensor_core = _build.count_sass(("HMMA", "HGMMA"), TENSOR_CORE_KERNELS)
     emit({"phase": "setup", "check": "cuobjdump -sass: HMMA/HGMMA "
-          "instructions in the bfloat16 backward kernels",
+          "instructions in the bfloat16 tsconv and projection kernels",
           "tensor_core_instructions": tensor_core})
     if not all(tensor_core.values()):
-        raise RuntimeError(f"a bfloat16 backward kernel holds no tensor-core "
-                           f"instruction: {tensor_core}")
+        raise RuntimeError(f"a bfloat16 tsconv or projection kernel holds no "
+                           f"tensor-core instruction: {tensor_core}")
 
     kernels = check_kernels(torch)
     kernels.update(check_training_kernels(torch))

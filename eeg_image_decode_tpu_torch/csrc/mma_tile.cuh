@@ -1,7 +1,7 @@
 // bf16 tensor-core tile code shared by the redesigned kernels: the PTX
 // wrappers (cp.async, ldmatrix, mma.sync.m16n8k16 with fp32 accumulators)
-// and `gemm_tile`, one 64 x 128 output tile of C = A B per 256-thread block
-// with an epilogue functor.
+// and `gemm_tile`, one 64 x BN (128 or 64) output tile of C = A B per
+// 256-thread block with an epilogue functor.
 //
 // A bf16 x bf16 product is exact in fp32, so a tensor-core product with fp32
 // accumulators is the arithmetic of the FMA kernels in another order. fp32
@@ -15,10 +15,12 @@
 // they are stored, without a transposed copy. BK = 32 slices of both
 // operands go through a three-stage cp.async ring in shared memory (45 KB),
 // so the loads of slice k+2 overlap the products of slice k. Eight warps as
-// 2 x 4, each a 32 x 32 block of the tile: per 16-deep step two ldmatrix.x4
-// for A, two for B and eight mma. One block owns a whole output tile and
-// sums over all of K in a fixed order: no split-K partials, no atomics, a
-// rerun is bit-equal.
+// 2 x 4, each a 32 x (BN / 4) block of the tile: per 16-deep step two
+// ldmatrix.x4 for A, BN / 64 for B and BN / 16 mma. One block owns a whole
+// output tile and sums over all of K in a fixed order: no split-K partials,
+// no atomics, a rerun is bit-equal. An output element's sum runs over the
+// same k steps in the same order whatever BN is, so the two widths give the
+// same bits; BN = 64 puts twice the blocks on a short M.
 //
 // Edges. Rows and columns past M, N and K are zero-filled in shared memory
 // and masked in the epilogue; the caller pads nothing. The 16-byte cp.async
@@ -216,23 +218,26 @@ struct SliceLoader {
   }
 };
 
-// The tile of C = A B at (m0, n0): epi(row, col, sum) for every element of
-// it inside M x N. A: M x K, B: K x N, in the layouts the flags name; smem:
-// kSmemBytes, 16-byte aligned. All 256 threads of the block call it.
-template <bool A_KMAJOR, bool B_KMAJOR, typename Epi>
+// The tile of C = A B at (m0, n0), kBM x BN: epi(row, col, sum) for every
+// element of it inside M x N. A: M x K, B: K x N, in the layouts the flags
+// name; smem: kSmemBytes, 16-byte aligned. All 256 threads of the block
+// call it.
+template <bool A_KMAJOR, bool B_KMAJOR, int BN = kBN, typename Epi>
 __device__ __forceinline__ void gemm_tile(const bf16* A, long lda,
                                           const bf16* B, long ldb, int M,
                                           int N, int K, int m0, int n0,
                                           unsigned char* smem, Epi epi) {
+  static_assert(BN == 128 || BN == 64, "BN: 128 or 64 columns");
+  constexpr int kNJ = BN / 32;  // 8-column blocks of a warp
   constexpr int kPA = (A_KMAJOR ? kBK : kBM) + kPad;
-  constexpr int kPB = (B_KMAJOR ? kBK : kBN) + kPad;
+  constexpr int kPB = (B_KMAJOR ? kBK : BN) + kPad;
   bf16* base = reinterpret_cast<bf16*>(smem);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 32;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * (BN / 4);
   const int nk = (K + kBK - 1) / kBK;
 
   SliceLoader<kBM, A_KMAJOR> la;
-  SliceLoader<kBN, B_KMAJOR> lb;
+  SliceLoader<BN, B_KMAJOR> lb;
   la.init(A, lda, m0, M, K);
   lb.init(B, ldb, n0, N, K);
   auto load = [&](int kt) {
@@ -259,11 +264,11 @@ __device__ __forceinline__ void gemm_tile(const bf16* A, long lda,
                            (lane >> 4) * 8));
   const uint32_t smem0 = smem_u32(base);
 
-  float acc[2][4][4];
+  float acc[2][kNJ][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
@@ -283,7 +288,7 @@ __device__ __forceinline__ void gemm_tile(const bf16* A, long lda,
     stage = stage + 1 == kStages ? 0 : stage + 1;
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4], b[2][4];
+      uint32_t a[2][4], b[kNJ / 2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if (A_KMAJOR)
@@ -292,7 +297,7 @@ __device__ __forceinline__ void gemm_tile(const bf16* A, long lda,
           ldsm_x4_trans(a[i], st + a_lane + 2 * (kk * kPA + i * 16));
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
+      for (int j = 0; j < kNJ / 2; ++j) {
         if (B_KMAJOR)
           ldsm_x4(b[j], st + b_lane + 2 * (j * 16 * kPB + kk));
         else
@@ -301,7 +306,7 @@ __device__ __forceinline__ void gemm_tile(const bf16* A, long lda,
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kNJ; ++j)
           mma_bf16(acc[i][j], a[i], b[j >> 1][(j & 1) * 2],
                    b[j >> 1][(j & 1) * 2 + 1]);
     }
@@ -312,7 +317,7 @@ __device__ __forceinline__ void gemm_tile(const bf16* A, long lda,
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < kNJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = m0 + wm + i * 16 + g + (e >> 1) * 8;

@@ -29,7 +29,8 @@
 // once per tile through a cp.async ring, fp32 accumulators). LayerNorm needs
 // a whole row of r and d_g a whole row of d_z, so one block cannot own a
 // narrow column tile of the whole chain: the chain is un-fused into five
-// launches with fused epilogues,
+// launches with fused epilogues, the first two the forward's own
+// (projection_chain.cuh, launched by projection_fwd.cu's launch_chain_fwd),
 //   1. a = x Wi + bi            -> a (fp32), gdt = rnd(gelu(a))
 //   2. z = (gdt Wr + br) * m    -> r = a + z (fp32); m read, or redrawn per
 //                                  (seed, row, column), whatever the tiling
@@ -72,6 +73,7 @@
 #include "common.cuh"
 #include "mma_tile.cuh"
 #include "philox.cuh"
+#include "projection_chain.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -270,83 +272,22 @@ __global__ void __launch_bounds__(kThreads)
 // ——— the bfloat16 chain on the tensor cores ———
 
 using mma::bf16;
+using proj::mask_factor;
+using proj::n_tiles;
+using proj::tile_origin;
 
 constexpr int kRowsP = 8;  // rows per block of the row pass
 
-struct ChainArgs {
-  const bf16* x;
+// The forward chain's operands (r32 holds r, then d_r, then d_a) and the
+// backward's own
+struct ChainArgs : proj::ChainFwd {
   const float* g;
-  const bf16 *wi, *bi, *wr, *br, *ln_s;
+  const bf16* ln_s;
   bf16* dx;
-  bf16 *gdt, *dz, *da;  // (B, Dout), the rounded operands
-  float* a32;           // (B, Dout): a
-  float* r32;           // (B, Dout): r, then d_r, then d_a
-  float* vpart;         // (row blocks, 3, Dout): dbr dln_s dln_b
+  bf16 *dz, *da;  // (B, Dout), the rounded operands
+  float* vpart;   // (row blocks, 3, Dout): dbr dln_s dln_b
   float *d_wi, *d_wr;
-  int B, Din, Dout;
-  int mode;
-  const bf16* mask;
-  const int* seed;
-  uint32_t thresh;
-  float inv_keep;
 };
-
-__device__ __forceinline__ float mask_factor(const ChainArgs& p, uint32_t seed,
-                                             int row, int col) {
-  if (p.mode == kDropMasks) return to_f(p.mask[(long)row * p.Dout + col]);
-  if (p.mode == kDropSeed)
-    return keep_bits(seed, (uint32_t)row, kSiteProjection, (uint32_t)col) <
-                   p.thresh
-               ? p.inv_keep
-               : 0.f;
-  return 1.f;
-}
-
-__device__ __forceinline__ void tile_origin(int tile, int n_cols, int& m0,
-                                            int& n0) {
-  const int col_tiles = (n_cols + mma::kBN - 1) / mma::kBN;
-  m0 = (tile / col_tiles) * mma::kBM;
-  n0 = (tile % col_tiles) * mma::kBN;
-}
-
-inline int n_tiles(int rows, int cols) {
-  return ((rows + mma::kBM - 1) / mma::kBM) *
-         ((cols + mma::kBN - 1) / mma::kBN);
-}
-
-// 1. a = x Wi + bi; gdt = rnd(gelu(a))
-__global__ void __launch_bounds__(mma::kThreads)
-    projection_bwd_a_kernel(const ChainArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int m0, n0;
-  tile_origin(blockIdx.x, p.Dout, m0, n0);
-  mma::gemm_tile<true, false>(
-      p.x, p.Din, p.wi, p.Dout, p.B, p.Dout, p.Din, m0, n0, smem,
-      [&](int r, int c, float acc) {
-        const float a = acc + to_f(p.bi[c]);
-        const long e = (long)r * p.Dout + c;
-        p.a32[e] = a;
-        p.gdt[e] = __float2bfloat16(gelu_tanh(a));
-      });
-}
-
-// 2. r = a + (gdt Wr + br) * m
-__global__ void __launch_bounds__(mma::kThreads)
-    projection_bwd_r_kernel(const ChainArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int m0, n0;
-  tile_origin(blockIdx.x, p.Dout, m0, n0);
-  const uint32_t seed = p.mode == kDropSeed ? (uint32_t)*p.seed : 0u;
-  const bool drop = p.mode != kDropNone;
-  mma::gemm_tile<true, false>(
-      p.gdt, p.Dout, p.wr, p.Dout, p.B, p.Dout, p.Dout, m0, n0, smem,
-      [&](int r, int c, float acc) {
-        float z = acc + to_f(p.br[c]);
-        if (drop) z = z * mask_factor(p, seed, r, c);
-        const long e = (long)r * p.Dout + c;
-        p.r32[e] = p.a32[e] + z;
-      });
-}
 
 // 3. per block of kRowsP rows: LayerNorm statistics and the two row means of
 // its backward (one warp per row), then d_r over r in place, rnd(d_z), and
@@ -551,10 +492,8 @@ int launch_chain(const Layout& l, const ChainArgs& p, unsigned char* ws,
   const int wr_tiles = n_tiles(p.Dout, p.Dout);
   const int wi_tiles = n_tiles(p.Din, p.Dout);
   const int smem = mma::kSmemBytes;
-  projection_bwd_a_kernel<<<act_tiles, mma::kThreads, smem, s>>>(p);
-  EID_LAUNCHED();
-  projection_bwd_r_kernel<<<act_tiles, mma::kThreads, smem, s>>>(p);
-  EID_LAUNCHED();
+  const int rc = proj::launch_chain_fwd(p, s);  // a, gdt, r
+  if (rc != 0) return rc;
   projection_bwd_ln_kernel<<<l.blocks, 256, 0, s>>>(p);
   EID_LAUNCHED();
   projection_bwd_da_kernel<<<act_tiles, mma::kThreads, smem, s>>>(p);

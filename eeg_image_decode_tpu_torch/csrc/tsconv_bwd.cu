@@ -49,7 +49,7 @@
 //   atomics: a rerun is bit-equal.
 // - x rows are only 4-byte aligned (500 bytes), so x goes through registers
 //   (4-byte loads started before the products, transposed 2-byte stores after
-//   them), not cp.async.
+//   them), not cp.async: tsconv_tile.cuh, shared with the forward.
 // What bounds it (H100, measured by switching parts off): the loads alone
 // run at 2.0 TB/s (0.125 ms), and the dx warps' loop, not the tensor cores
 // (mma.sync reaches 570 TFLOP/s from four warps with ten accumulators each,
@@ -80,6 +80,7 @@
 #include "common.cuh"
 #include "mma_tile.cuh"
 #include "reduce.cuh"
+#include "tsconv_tile.cuh"
 
 namespace {
 
@@ -204,10 +205,11 @@ __global__ void __launch_bounds__(kThreads)
 using mma::bf16;
 
 constexpr int kDxWarps = 4, kDwWarps = 4;  // the block's two halves
-constexpr int kTileRows = 32;  // rows of x and g per tile
-constexpr int kXp = kTileRows + 8;  // pitch of xT[t][r]
-constexpr int kXRegs = 16;     // 4-byte x loads per thread and tile
-constexpr int kMaxT = 2 * kXRegs * kThreads / kTileRows;  // 256 samples
+using tsconv::kMaxT;      // 256 samples
+using tsconv::kTileRows;  // rows of x and g per tile
+using tsconv::kXp;        // pitch of xT[t][r]
+using tsconv::kXRegs;
+static_assert(tsconv::kThreads == kThreads, "one block size");
 constexpr int kQTile = 8;      // q per dx tile
 constexpr int kMaxMT = 5;      // 16-tap tiles of dw~ (M <= 80)
 constexpr int kMaxFT = 5;      // 8-filter tiles (F <= 40)
@@ -246,16 +248,6 @@ __host__ __device__ inline MmaSmem mma_smem(int M, int Fp, int Tx, int Gp,
   return l;
 }
 
-// pair i of a thread's x loads: row r of the tile and sample pair tp. Eight
-// rows by four pairs per warp: 16-byte runs of x, and transposed stores that
-// fall on different banks.
-__device__ __forceinline__ void x_item(int i, int& r, int& tp) {
-  const int idx = i * kThreads + threadIdx.x;
-  const int rest = idx >> 5;
-  r = (rest & 3) * 8 + (idx & 7);
-  tp = (rest >> 2) * 4 + ((idx >> 3) & 3);
-}
-
 // All the block's threads meet here. bar.sync counts arrivals at barrier 0
 // wherever they come from, so the two halves of the block may wait at
 // different places of the code.
@@ -286,7 +278,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int Dt = (M + s - 1) / s;
   const int NQ = ((Tn + s - 1) / s + kQTile - 1) / kQTile;
   const int MT = EXACT ? kMaxMT : (M + 15) / 16, FT = EXACT ? NF : Fp / 8;
-  const int PR = (Tn + 1) / 2;
 
   // zeros once: the pad columns of g, the rows of xT past T
   for (size_t i = tid; i < l.total / 4; i += kThreads)
@@ -321,36 +312,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   };
   auto load_x = [&](int tile, uint32_t (&xr)[kXRegs]) {
-    const int r0 = tile * kTileRows;
-    const int nr = min(kTileRows, p.rows - r0);
-#pragma unroll
-    for (int i = 0; i < kXRegs; ++i) {
-      int r, tp;
-      x_item(i, r, tp);
-      const bool ok = r < nr && tp < PR;
-      const bf16* src = p.x + (long)(r0 + r) * Tn + 2 * tp;
-      uint32_t v = 0u;
-      if (ok && p.x_pair) {
-        v = *reinterpret_cast<const uint32_t*>(src);
-      } else if (ok) {
-        v = __bfloat16_as_ushort(src[0]);
-        if (2 * tp + 1 < Tn)
-          v |= (uint32_t)__bfloat16_as_ushort(src[1]) << 16;
-      }
-      xr[i] = v;
-    }
+    tsconv::load_x(xr, p.x, p.rows, Tn, tile * kTileRows, p.x_pair);
   };
   auto store_x = [&](const uint32_t (&xr)[kXRegs]) {
-#pragma unroll
-    for (int i = 0; i < kXRegs; ++i) {
-      int r, tp;
-      x_item(i, r, tp);
-      if (tp < PR) {
-        xT[(2 * tp) * kXp + r] = __ushort_as_bfloat16(xr[i] & 0xffffu);
-        if (2 * tp + 1 < Tn)
-          xT[(2 * tp + 1) * kXp + r] = __ushort_as_bfloat16(xr[i] >> 16);
-      }
-    }
+    tsconv::store_x(xr, xT, Tn);
   };
 
   // One tile after another: the next tile's g goes into the other stage and

@@ -65,19 +65,27 @@ _SIGNATURES = {
                            _I, _I, _I, _P, _P, _U, _F, _P], _I),
     # dtype, x, w, out, rows, T, M, F, P, stride, stream
     "eid_tsconv_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    # dtype, rows, T, M, F, P, stride → 1 if the dtype's design takes the
+    # shape, else 0
+    "eid_tsconv_fwd_takes": ([_I, _I, _I, _I, _I, _I, _I], _I),
     # dtype, rows, T, M, F, P, stride → workspace bytes, or -1 for shapes
     # the dtype's design does not take
     "eid_tsconv_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
     # dtype → the design it takes ("mma_bf16" or "fma_fp32")
+    "eid_tsconv_fwd_design": ([_I], ctypes.c_char_p),
     "eid_tsconv_bwd_design": ([_I], ctypes.c_char_p),
+    "eid_projection_fwd_design": ([_I], ctypes.c_char_p),
     "eid_projection_bwd_design": ([_I], ctypes.c_char_p),
     # dtype, x, g, w, dx, dw, ws, rows, T, M, F, P, stride, stream
     "eid_tsconv_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P], _I),
-    # dtype, x, w[6], out, B, Din, Dout, drop mode, mask, seed (device),
-    # thresh, keep value, stream
-    "eid_projection_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _U, _F,
-                            _P], _I),
+    # dtype, B, Din, Dout → workspace bytes, or -1 for shapes the dtype's
+    # design does not take
+    "eid_projection_fwd_workspace": ([_I, _I, _I, _I], _LL),
+    # dtype, x, w[6], out, ws, B, Din, Dout, drop mode, mask, seed
+    # (device), thresh, keep value, stream
+    "eid_projection_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _U,
+                            _F, _P], _I),
     # dtype, B, Din, Dout → workspace bytes
     "eid_projection_bwd_workspace": ([_I, _I, _I, _I], _LL),
     # dtype, x, g (fp32), w[6], wi^T, wr^T (null for bfloat16), dx, out[3],

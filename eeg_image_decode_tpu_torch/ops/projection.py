@@ -10,8 +10,11 @@ with ``a`` kept in fp32, tanh GELU and a biased-variance fp32 LayerNorm
 tensor its forward is ``csrc/projection_fwd.cu`` and its backward
 ``csrc/projection_bwd.cu`` (recompute on chip, dx in x's dtype, fp32
 parameter gradients reduced in a fixed order, so two runs agree bit for
-bit; in bfloat16 its six products run on the tensor cores, in float32 as
-full-fp32 FMA loops). For a CPU tensor it runs the plain versions:
+bit). In bfloat16 both run their products on the tensor cores and share
+the forward chain of ``csrc/projection_chain.cuh`` (a and gdt, then r, then
+the forward's LayerNorm row pass; :func:`projection_head_forward_chain` is
+that arithmetic in plain PyTorch, for the CPU tests); in float32 they are
+full-fp32 FMA loops. For a CPU tensor it runs the plain versions:
 ``projection_head_reference`` and ``projection_head_backward_reference``,
 which follows the rounding points of the JAX backward kernel line by line.
 
@@ -80,6 +83,29 @@ def projection_head_reference(x: torch.Tensor, params: dict,
     var = r.var(-1, keepdim=True, correction=0)
     xhat = (r - mu) * torch.rsqrt(var + 1e-6)
     return xhat * params["ln_s"].float() + params["ln_b"].float()
+
+
+def projection_head_forward_chain(x: torch.Tensor, params: dict,
+                                  mask: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
+    """The forward the way the bfloat16 kernels run it, launch by launch,
+    in plain PyTorch: (1) ``a = x Wi + bi`` in fp32 and ``gdt =
+    rnd(gelu_tanh(a))``; (2) ``r = a + (gdt Wr + br)·m`` in fp32; (3) the
+    row pass: the mean, then the biased variance about it, eps 1e-6, then
+    ``(r − mu)·inv·ln_s + ln_b``. Products of x-dtype operands, fp32 sums.
+    For the CPU tests; the wrapper's plain version is
+    :func:`projection_head_reference`."""
+    dt = x.dtype
+    p = {k: params[k].to(dt).float() for k in PARAM_ORDER}
+    a = x.float() @ p["wi"] + p["bi"]                           # launch 1
+    gdt = F.gelu(a, approximate="tanh").to(dt)
+    z = gdt.float() @ p["wr"] + p["br"]                         # launch 2
+    if mask is not None:  # as given: x's dtype in mask mode, fp32 in seed mode
+        z = z * mask.float()
+    r = a + z
+    mu = r.mean(-1, keepdim=True)                               # launch 3
+    var = (r - mu).square().mean(-1, keepdim=True)
+    return (r - mu) * torch.rsqrt(var + 1e-6) * p["ln_s"] + p["ln_b"]
 
 
 def projection_head_backward_reference(
@@ -201,13 +227,21 @@ def _forward(x, p, drop: _Dropout) -> torch.Tensor:
         raise ValueError(f"fused_projection_head: no kernel for {x.device}")
     B, d_in, d_out = _check_shapes(x, p, drop.mask)
     _cuda_args("fused_projection_head", x, p, drop)
+    code = _build.DTYPE_CODES[x.dtype]
+    lib = _build.lib()
+    ws_bytes = lib.eid_projection_fwd_workspace(code, B, d_in, d_out)
+    if ws_bytes < 0:
+        raise ValueError(f"projection_fwd ({forward_design(x.dtype)}): "
+                         f"shapes (d_in {d_in}, d_out {d_out}) do not fit "
+                         "the kernel")
+    # the bfloat16 design's a (fp32) and gdt between its launches
+    ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
     out = torch.empty((B, d_out), dtype=torch.float32, device=x.device)
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
     mode, mask_ptr, seed_ptr, thresh, value = drop.c_args(x)
-    rc = _build.lib().eid_projection_fwd(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), weights, out.data_ptr(),
-        B, d_in, d_out, mode, mask_ptr, seed_ptr, thresh, value,
-        _build.stream_of(x))
+    rc = lib.eid_projection_fwd(
+        code, x.data_ptr(), weights, out.data_ptr(), ws.data_ptr(), B, d_in,
+        d_out, mode, mask_ptr, seed_ptr, thresh, value, _build.stream_of(x))
     name = _LAUNCH_NAMES[drop.mode]
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
@@ -270,6 +304,13 @@ class _FlatGrads(dict):
 
     def to(self, dtype: torch.dtype) -> "_FlatGrads":
         return _FlatGrads(self.flat.to(dtype), *self.dims)
+
+
+def forward_design(dtype: torch.dtype) -> str:
+    """The design the forward launcher takes for ``dtype``: ``"mma_bf16"``
+    (tensor cores) or ``"fma_fp32"`` (full-fp32 FMA products)."""
+    return _build.lib().eid_projection_fwd_design(
+        _build.DTYPE_CODES[dtype]).decode()
 
 
 def backward_design(dtype: torch.dtype) -> str:

@@ -14,10 +14,11 @@ it launches ``csrc/tsconv_fwd.cu`` forward and ``csrc/tsconv_bwd.cu``
 backward; for a CPU tensor it runs the plain versions,
 ``tsconv_pool_reference`` (a strided unfold and one matmul) and
 ``tsconv_pool_backward_reference``. ``fold_pool_into_kernel`` stays plain
-PyTorch, so autograd carries dw̃ back to the 25-tap kernel. The backward
-kernel runs on the tensor cores in bfloat16 and as full-fp32 FMA loops in
-float32; ``tsconv_pool_backward_tiled`` is the bfloat16 design's tiling and
-index math in plain PyTorch, for the CPU tests.
+PyTorch, so autograd carries dw̃ back to the 25-tap kernel. Both kernels
+run on the tensor cores in bfloat16 and as full-fp32 FMA loops in float32;
+``tsconv_pool_forward_tiled`` and ``tsconv_pool_backward_tiled`` are the
+bfloat16 designs' tiling and index math in plain PyTorch, for the CPU
+tests.
 """
 
 from __future__ import annotations
@@ -76,12 +77,43 @@ def tsconv_pool_backward_reference(x: torch.Tensor, w_tilde: torch.Tensor,
     return dx.reshape(b, c, t), dw
 
 
-# ——— the index math of the bfloat16 backward kernel, in plain PyTorch ———
+# ——— the index math of the bfloat16 kernels, in plain PyTorch ———
 
-#: rows of x and g per tile, samples-per-stride groups (q) per dx tile, and
-#: zero rows (in strides) on either side of the tap table: kTileRows, kQTile
-#: and kTapPad of ``csrc/tsconv_bwd.cu``
+#: rows of x and g per tile (kTileRows of ``csrc/tsconv_tile.cuh``), and, of
+#: the backward (``csrc/tsconv_bwd.cu``), samples-per-stride groups (q) per
+#: dx tile and zero rows (in strides) on either side of the tap table
 ROW_TILE, Q_TILE, TAP_PAD = 32, 8, 9
+
+
+def tsconv_pool_forward_tiled(x: torch.Tensor, w_tilde: torch.Tensor,
+                              stride: int = 5) -> torch.Tensor:
+    """The forward the way ``csrc/tsconv_fwd.cu`` runs it in bfloat16, tile
+    by tile, in plain PyTorch: rows in tiles of ROW_TILE (a short last tile
+    zero-filled), x transposed per tile (``xT[t][r]``) with zero rows past
+    T, the taps padded to a multiple of 16 with zero rows of w̃, and per
+    position one product of the window ``xT[p·s : p·s + taps16]ᵀ`` with the
+    padded w̃; operands in x's dtype, fp32 sums, one rounding to x's dtype.
+    Returns (B, C, P, F) in x's dtype, as the kernel does."""
+    b, c, t = x.shape
+    m, f = w_tilde.shape
+    rows = b * c
+    n_pos = out_positions(t, m, stride)
+    taps16 = -(-m // 16) * 16
+    w_pad = torch.zeros((taps16, f), dtype=torch.float32, device=x.device)
+    w_pad[:m] = w_tilde.to(x.dtype).float()
+    x2 = x.reshape(rows, t).float()
+    x_t = torch.zeros((max(t, (n_pos - 1) * stride + taps16), ROW_TILE),
+                      dtype=torch.float32, device=x.device)
+    out = torch.empty((rows, n_pos * f), dtype=x.dtype, device=x.device)
+    for r0 in range(0, rows, ROW_TILE):
+        nr = min(ROW_TILE, rows - r0)
+        x_t.zero_()
+        x_t[:t, :nr] = x2[r0:r0 + nr].T
+        for p in range(n_pos):
+            window = x_t[p * stride:p * stride + taps16].T     # (32, taps16)
+            out[r0:r0 + nr, p * f:(p + 1) * f] = (window @ w_pad)[:nr].to(
+                x.dtype)
+    return out.reshape(b, c, n_pos, f)
 
 
 def pad_filters(f: int) -> int:
@@ -182,13 +214,28 @@ def _forward(x: torch.Tensor, w_tilde: torch.Tensor,
     if n_pos <= 0:
         raise ValueError(f"{m} taps do not fit in {t} samples")
     _build.check_cuda_args("tsconv_pool_fused", x, {"w_tilde": w_tilde})
+    lib = _build.lib()
+    code = _build.DTYPE_CODES[x.dtype]
+    if not lib.eid_tsconv_fwd_takes(code, b * c, t, m, f, n_pos, stride):
+        raise ValueError(
+            f"tsconv_fwd ({forward_design(x.dtype)}): shape not taken: T {t}, "
+            f"{m} taps, {f} filters, stride {stride} (bfloat16 takes stride "
+            "<= 8, T <= 256, taps <= 80, filters <= 40, and two 32-row "
+            "output tiles within the card's shared memory)")
     out = torch.empty((b, c, n_pos, f), dtype=x.dtype, device=x.device)
-    rc = _build.lib().eid_tsconv_fwd(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), w_tilde.data_ptr(),
-        out.data_ptr(), b * c, t, m, f, n_pos, stride, _build.stream_of(x))
+    rc = lib.eid_tsconv_fwd(
+        code, x.data_ptr(), w_tilde.data_ptr(), out.data_ptr(), b * c, t, m,
+        f, n_pos, stride, _build.stream_of(x))
     _build.check(rc, "tsconv_fwd")
     _build.LAUNCHES["tsconv_fwd"] += 1
     return out
+
+
+def forward_design(dtype: torch.dtype) -> str:
+    """The design the forward launcher takes for ``dtype``: ``"mma_bf16"``
+    (tensor cores) or ``"fma_fp32"`` (full-fp32 FMA products)."""
+    return _build.lib().eid_tsconv_fwd_design(
+        _build.DTYPE_CODES[dtype]).decode()
 
 
 def backward_design(dtype: torch.dtype) -> str:

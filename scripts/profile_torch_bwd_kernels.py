@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the two redesigned backward ops goes, launch by launch.
+"""Where the time of the tensor-core ops goes, launch by launch.
 
     python3 scripts/profile_torch_bwd_kernels.py [--reps 20] [--dtype bfloat16]
 
@@ -7,7 +7,9 @@ Runs the tsconv stage-1 backward (64,512 rows, T 250, 75 taps, 40 filters,
 stride 5) and the projection head's backward (B 1024, 1440 -> 1024 -> 1024,
 seed-mode dropout) of the PyTorch/CUDA port at the training shapes of
 ``chip_smoke.py``, each through ``torch.autograd.grad`` as a training step
-runs it, and for each prints one JSON line:
+runs it, then the two forwards: tsconv at B 1024 and B 256 (16,128 rows),
+the head in seed mode at B 1024 and without dropout at B 256 and B 8 (the
+serving buckets' largest and smallest). For each it prints one JSON line:
 
 - ``event_ms``: CUDA-event time per call (warm, median of ``--reps``), what
   ``chip_smoke.py`` reports as the kernel's time;
@@ -159,6 +161,22 @@ def main() -> int:
     measure(torch, "projection_bwd",
             lambda: torch.autograd.grad(outh, inputs, gh, retain_graph=True),
             args.reps, args.host_profile)
+    del outh
+
+    with torch.no_grad():
+        for rows in (B, 256):
+            xt = randn(rows, C, T).to(dtype)
+            measure(torch, f"tsconv_fwd_b{rows}",
+                    lambda: tsconv_pool_fused(xt, w, stride), args.reps,
+                    args.host_profile)
+        measure(torch, "projection_fwd_seed_b1024",
+                lambda: fused_projection_head(xh, p, None, 0.5, seed),
+                args.reps, args.host_profile)
+        for b in (256, 8):
+            xs = xh[:b].contiguous()
+            measure(torch, f"projection_fwd_b{b}",
+                    lambda: fused_projection_head(xs, p), args.reps,
+                    args.host_profile)
     return 0
 
 

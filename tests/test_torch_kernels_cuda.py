@@ -404,3 +404,86 @@ def test_projection_bwd_kernel_on_card(cuda, dtype, b, d_in, d_out, mode):
         assert a.dtype == dtype and torch.isfinite(a.float()).all(), name
         err = _rel_err(a, w.to(dtype))
         assert err <= BWD_TOL[dtype], (name, err)
+
+
+# ——— the bfloat16 forwards on the tensor cores (design "mma_bf16") ———
+
+# (rows, T): 37 rows (a short second tile) at T 253 (no multiple of the
+# stride); one position (T 77); the training batch, B 1024 x 63 channels
+TSCONV_FWD_MMA_SHAPES = [(37, 253), (2 * 63, 77), (1024 * 63, 250)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,t", TSCONV_FWD_MMA_SHAPES)
+def test_tsconv_fwd_mma_kernel_on_card(cuda, rows, t):
+    """Against the plain stage 1 within 2^-6 of the largest output (one
+    rounding of fp32 sums of exact products, as ``chip_smoke.py`` holds it),
+    and a rerun bit-equal."""
+    rng = np.random.default_rng(15)
+    w = torch.from_numpy((rng.normal(size=(25, 40)) / 5.0).astype(np.float32))
+    w_tilde = fold_pool_into_kernel(w, 51).to(cuda, torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(1, rows, t)).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16)
+    got = tsconv_pool_fused(x, w_tilde, 5)
+    again = tsconv_pool_fused(x, w_tilde, 5)
+    want = tsconv_pool_reference(x, w_tilde, 5)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = _rel_err(got, want)
+    assert err <= 2.0 ** -6, err
+
+
+# the serving buckets' batches (1, 8), no multiple of the 64-row tile (37,
+# 130: B <= 256 takes 64-column tiles, above it 128) and the training batch
+PROJ_FWD_MMA_BATCHES = [1, 8, 37, 130, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "mask", "seed"])
+@pytest.mark.parametrize("b", PROJ_FWD_MMA_BATCHES)
+def test_projection_fwd_mma_kernel_on_card(cuda, b, mode):
+    """The full ATM-S head in bf16 against the plain head (4e-3, or 8e-3
+    with dropout, as ``chip_smoke.py`` holds it), a rerun bit-equal, and seed
+    mode bit-equal to mask mode fed the plain draw (p = 0.5: 1/keep = 2 is a
+    bf16 number)."""
+    rng = np.random.default_rng(16)
+    x, params, _ = _proj_case(rng, cuda, torch.bfloat16, b, 1440, 1024)
+    x = x.detach()
+    params = {k: v.detach() for k, v in params.items()}
+    args, plain_mask = (), None
+    if mode == "mask":
+        plain_mask = _proj_mask(rng, b, 1024, 0.5).to(cuda, torch.bfloat16)
+        args = (plain_mask,)
+    elif mode == "seed":
+        args = (None, 0.5, 31)
+        plain_mask = draw_keep_mask(31, b, 1024, 0.5, device=cuda)
+    got = fused_projection_head(x, params, *args)
+    again = fused_projection_head(x, params, *args)
+    want = projection_head_reference(x, params, plain_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if mode == "seed":
+        assert torch.equal(got, fused_projection_head(x, params, plain_mask))
+    err = (got - want).abs().max().item()
+    assert err <= (4e-3 if mode == "none" else 8e-3), err
+
+
+@pytest.mark.cuda
+def test_forward_designs_by_dtype(cuda):
+    from eeg_image_decode_tpu_torch.ops import projection, tsconv
+
+    for op in (projection, tsconv):
+        assert op.forward_design(torch.bfloat16) == "mma_bf16"
+        assert op.forward_design(torch.float32) == "fma_fp32"
+
+
+@pytest.mark.cuda
+def test_tsconv_fwd_mma_refuses_shapes_past_its_limits(cuda):
+    """T 300 is past the 256 samples a tile stages: the bf16 design raises
+    with its name; fp32 takes the shape."""
+    w_tilde = torch.zeros(75, 40, device=cuda)
+    x = torch.zeros(1, 2, 300, device=cuda)
+    assert tsconv_pool_fused(x, w_tilde, 5).shape == (1, 2, 46, 40)
+    with pytest.raises(ValueError, match="mma_bf16"):
+        tsconv_pool_fused(x.bfloat16(), w_tilde.bfloat16(), 5)

@@ -7,7 +7,8 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
 1. The card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, the build of every CUDA kernel from ``csrc/`` with its time,
    and how many tensor-core instructions (HMMA/HGMMA) ``cuobjdump -sass``
-   finds in the bfloat16 kernels of the tsconv forward and backward and of
+   finds in the bfloat16 kernels of the attention forward, backward (its
+   rows kernel and its dW products), the tsconv forward and backward and
    the projection head's chain and backward: none is a failure.
 2. Each kernel against its plain PyTorch version on the same inputs, in
    bfloat16 and float32, with the tolerance stated, and run twice, bit for
@@ -21,16 +22,18 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    backward), the attention backward (dx and all 16 gradients), the tsconv
    backward (dx and dw̃; also once, untimed, at 37 rows and T 253, no
    multiples of its tiles) and the tsconv forward, each backward through
-   ``torch.autograd.grad`` as a training step runs it. The tsconv and
-   projection rows, forward and backward, name the design their dtype took
-   (``mma_bf16`` on the tensor cores, ``fma_fp32`` in full float32) and, in
-   bfloat16, the first version's time and the device time of the op and of
-   its library yardstick from a ``torch.profiler`` trace (the event times of
-   such short ops are mostly the host's). Per kernel: its time, the plain
-   version's, a library yardstick's where one PyTorch call computes the
-   same function (CUDA events, warm, median of 25 launches), and its bound,
-   the least time the card could take for the same work (bytes over 3.35
-   TB/s or operations over the dtype's peak, whichever is larger).
+   ``torch.autograd.grad`` as a training step runs it; every backward twice,
+   bit for bit. Every row names the design its dtype took (``mma_bf16`` on
+   the tensor cores, ``fma_fp32`` in full float32) and, in bfloat16, the
+   first version's time and the device time of the op and of its library
+   yardstick, or of its plain version where no library call computes the
+   function (the attention layer), from a ``torch.profiler`` trace (the
+   event times of short ops are mostly the host's). Per kernel: its time,
+   the plain version's, a library yardstick's where one PyTorch call
+   computes the same function (CUDA events, warm, median of 25 launches),
+   and its bound, the least time the card could take for the same work
+   (bytes over 3.35 TB/s or operations over the dtype's peak, whichever is
+   larger).
 3. The serving path at full width (``ATMSConfig()``, bf16, max_batch 256,
    seeded random weights, a 200 × 1024 L2-normalised gallery): the port's
    ``EEGDecodeServer`` on a free port answers ``/v1/retrieve`` requests of 1,
@@ -312,14 +315,15 @@ TOLERANCE = {
 }
 
 
-def forward_design(torch, name: str, dtype) -> str:
-    """The design the forward launcher of ``name`` took for ``dtype``; the
-    bfloat16 forwards of tsconv and the projection head must be on the
-    tensor cores, their float32 forwards on the FMA code."""
-    from eeg_image_decode_tpu_torch.ops import projection, tsconv
+def forward_design(torch, name: str, dtype, backward: bool = False) -> str:
+    """The design the forward (or backward) launcher of ``name`` took for
+    ``dtype``: every bfloat16 kernel must be on the tensor cores, every
+    float32 one on the FMA code."""
+    from eeg_image_decode_tpu_torch.ops import attention, projection, tsconv
 
-    op = tsconv if name.startswith("tsconv") else projection
-    design = op.forward_design(dtype)
+    op = {"tsconv": tsconv, "projection": projection,
+          "attention": attention}[name.split("_")[0]]
+    design = (op.backward_design if backward else op.forward_design)(dtype)
     if design != ("mma_bf16" if dtype == torch.bfloat16 else "fma_fp32"):
         raise RuntimeError(f"{name} {dtype} took design {design}")
     return design
@@ -401,13 +405,14 @@ def check_kernels(torch) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             tol = TOLERANCE[(name, dname)]
             b_ms, b_by = bound(flops, nbytes, dname)
-            extra = {}
-            if name in FIRST_VERSION_MS:  # the two redesigned forwards
-                extra["design"] = forward_design(torch, name, dtype)
-                if dtype == torch.bfloat16:
-                    extra["first_version_ms"] = FIRST_VERSION_MS[name]
-                    extra["device_ms"] = device_ms(torch, kern)
+            extra = {"design": forward_design(torch, name, dtype)}
+            if dtype == torch.bfloat16:
+                extra["first_version_ms"] = FIRST_VERSION_MS[name]
+                extra["device_ms"] = device_ms(torch, kern)
+                if library:
                     extra["library_device_ms"] = device_ms(torch, library)
+                else:
+                    extra["plain_device_ms"] = device_ms(torch, plain)
             row = {
                 "phase": "kernel", "name": name, "dtype": dname,
                 "shape_batch": BATCH, "max_abs_err": err, "tolerance": tol,
@@ -468,23 +473,30 @@ PROJ_FWD_TOL = {"bfloat16": 8e-3, "float32": 1e-4}
 P_DROP_PROJ = 0.5
 D_IN, D_OUT = 1440, 1024
 #: kernel names (substrings) that must hold HMMA/HGMMA instructions: the
-#: bfloat16 designs of the tsconv forward and backward, the projection
-#: head's chain (its forward's launches 1-2, which its backward recomputes)
-#: and the backward's own products
-TENSOR_CORE_KERNELS = ("tsconv_fwd_mma_kernel", "tsconv_bwd_mma_kernel",
+#: bfloat16 designs of the attention forward (all three dropout modes are
+#: one kernel), the attention backward's rows kernel and its dW products,
+#: the tsconv forward and backward, the projection head's chain (its
+#: forward's launches 1-2, which its backward recomputes) and the
+#: backward's own products
+TENSOR_CORE_KERNELS = ("attention_fwd_mma_kernel",
+                       "attention_bwd_mma_rows_kernel",
+                       "attention_dw_mma_kernel",
+                       "tsconv_fwd_mma_kernel", "tsconv_bwd_mma_kernel",
                        "projection_chain_a_kernel",
                        "projection_chain_r_kernel", "projection_bwd_da_kernel",
                        "projection_bwd_out_kernel")
-#: bfloat16 event times of the first versions of the four redesigned kernels
-#: (fp32 FMA products; PERF.md, H100 80GB HBM3 at 700 W): the backward ops
-#: and the forwards in dropout mode at B 1024, the forwards without dropout
-#: at B 256. The tsconv forward's first version at B 1024 was never timed
-#: in this script and is not in this tree; scripts/ab_torch_kernels.py
-#: times it beside the redesign.
+#: bfloat16 event times of the first versions of the seven redesigned
+#: kernels (fp32 FMA products; PERF.md, H100 80GB HBM3 at 700 W): the
+#: backward ops and the forwards in dropout mode at B 1024, the forwards
+#: without dropout at B 256. The tsconv forward's first version at B 1024
+#: was never timed in this script and is not in this tree;
+#: scripts/ab_torch_kernels.py times it beside the redesign.
 FIRST_VERSION_MS = {"tsconv_bwd": 4.718, "projection_bwd": 1.757,
                     "tsconv_fwd": 0.265, "projection_fwd": 0.373,
                     "projection_fwd_masks": 0.718,
-                    "projection_fwd_seed": 0.647}
+                    "projection_fwd_seed": 0.647,
+                    "attention_fwd": 1.609, "attention_fwd_seed": 5.472,
+                    "attention_fwd_masks": 5.864, "attention_bwd": 21.679}
 #: why a kernel has no library yardstick
 NO_LIBRARY = {
     "attention_fwd_masks": "none: no one PyTorch call computes the layer",
@@ -638,20 +650,38 @@ def check_training_kernels(torch) -> dict:
         n_mask = sum(m.numel() for m in masks.values())
         tol_fwd = DROPOUT_FWD_TOL[dname]
 
+        def attn_extra(name, kern, plain, backward=False):
+            """The design and, in bf16, the first version's time and the
+            device times of the kernel and of its plain version."""
+            out = {"design": forward_design(torch, name, dtype, backward)}
+            if dtype == torch.bfloat16:
+                out.update(first_version_ms=FIRST_VERSION_MS[name],
+                           device_ms=device_ms(torch, kern),
+                           plain_device_ms=device_ms(torch, plain))
+            return out
+
         # forward, mask mode
-        got = fused_attention_layer(x, p, HEADS, masks=masks)
-        want = attention_layer_reference(x, p, HEADS, masks=masks)
+        def kern_masks():
+            return fused_attention_layer(x, p, HEADS, masks=masks)
+
+        def plain_masks():
+            return attention_layer_reference(x, p, HEADS, masks=masks)
+
+        got, again = kern_masks(), kern_masks()
+        want = plain_masks()
         torch.cuda.synchronize()
+        repeat = torch.equal(got, again)
         err = (got.float() - want.float()).abs().max().item()
         record("attention_fwd_masks", dname,
                "eeg_image_decode_tpu/ops/attention.py:136",
                "eeg_image_decode_tpu_torch/csrc/attention_fwd.cu",
-               lambda: fused_attention_layer(x, p, HEADS, masks=masks),
-               lambda: attention_layer_reference(x, p, HEADS, masks=masks),
-               None, flops, (2 * x.numel() + n_par + n_mask) * sz, err,
-               tol_fwd)
-        if not err <= tol_fwd:
-            raise RuntimeError(f"attention_fwd_masks {dname}: {err}")
+               kern_masks, plain_masks, None, flops,
+               (2 * x.numel() + n_par + n_mask) * sz, err, tol_fwd,
+               bit_identical_rerun=repeat,
+               **attn_extra("attention_fwd_masks", kern_masks, plain_masks))
+        if not (repeat and err <= tol_fwd):
+            raise RuntimeError(f"attention_fwd_masks {dname}: rerun "
+                               f"bit-equal {repeat}, |Δ| {err}")
 
         # forward, seed mode: bit-equal to mask mode fed the plain draw
         seed = SEED % (2**31 - 1)
@@ -662,21 +692,26 @@ def check_training_kernels(torch) -> dict:
         bad = {k: v for k, v in kept.items() if abs(v - 0.75) > 0.005}
         if bad:
             raise RuntimeError(f"kept fractions off 0.75 ± 0.005: {bad}")
-        got = fused_attention_layer(x, p, HEADS, dropout_p=P_DROP,
-                                    seed=seed_t)
+        def kern_seed():
+            return fused_attention_layer(x, p, HEADS, dropout_p=P_DROP,
+                                         seed=seed_t)
+
+        def plain_seed():
+            return attention_layer_reference(x, p, HEADS, masks=drawn)
+
+        got = kern_seed()
         via_masks = fused_attention_layer(x, p, HEADS, masks=drawn)
-        want = attention_layer_reference(x, p, HEADS, masks=drawn)
+        want = plain_seed()
         torch.cuda.synchronize()
         same = torch.equal(got, via_masks)
         err = (got.float() - want.float()).abs().max().item()
         record("attention_fwd_seed", dname,
                "eeg_image_decode_tpu/ops/attention.py:136",
                "eeg_image_decode_tpu_torch/csrc/attention_fwd.cu",
-               lambda: fused_attention_layer(x, p, HEADS, dropout_p=P_DROP,
-                                             seed=seed_t),
-               lambda: attention_layer_reference(x, p, HEADS, masks=drawn),
-               None, flops, (2 * x.numel() + n_par) * sz, err, tol_fwd,
-               equals_mask_mode_on_plain_draw=same, kept_fraction=kept)
+               kern_seed, plain_seed, None, flops,
+               (2 * x.numel() + n_par) * sz, err, tol_fwd,
+               equals_mask_mode_on_plain_draw=same, kept_fraction=kept,
+               **attn_extra("attention_fwd_seed", kern_seed, plain_seed))
         if not (same and err <= tol_fwd):
             raise RuntimeError(f"attention_fwd_seed {dname}: bit-equal to "
                                f"mask mode {same}, |Δ| {err}")
@@ -715,13 +750,18 @@ def check_training_kernels(torch) -> dict:
         err = max((got[k].float() - want[k].float()).abs().max().item()
                   for k in want)
         tol = BWD_TOL[dname]
+
+        def plain_bwd():
+            return attention_layer_backward_reference(x, p, gout, HEADS,
+                                                      masks=drawn)
+
+        extra.update(attn_extra("attention_bwd", kern_bwd, plain_bwd,
+                                backward=True))
         record("attention_bwd", dname,
                "eeg_image_decode_tpu/ops/attention.py:368",
                "eeg_image_decode_tpu_torch/csrc/attention_bwd.cu",
-               kern_bwd,
-               lambda: attention_layer_backward_reference(x, p, gout, HEADS,
-                                                          masks=drawn),
-               None, 3 * flops, (3 * x.numel() + 2 * n_par) * sz,
+               kern_bwd, plain_bwd, None, 3 * flops,
+               (3 * x.numel() + 2 * n_par) * sz,
                err, tol, max_scaled_err=max(errs.values()),
                scaled_err=errs, bit_identical_rerun=repeat, **extra)
         if not (repeat and finite and max(errs.values()) <= tol
@@ -1612,15 +1652,14 @@ def main() -> int:
                 or line.startswith("==")):
             print("ptxas:", line.strip(), flush=True)
 
-    # the bfloat16 designs of tsconv and the projection head must run on
-    # the tensor cores
+    # the bfloat16 designs of every kernel must run on the tensor cores
     tensor_core = _build.count_sass(("HMMA", "HGMMA"), TENSOR_CORE_KERNELS)
     emit({"phase": "setup", "check": "cuobjdump -sass: HMMA/HGMMA "
-          "instructions in the bfloat16 tsconv and projection kernels",
-          "tensor_core_instructions": tensor_core})
+          "instructions in the bfloat16 attention, tsconv and projection "
+          "kernels", "tensor_core_instructions": tensor_core})
     if not all(tensor_core.values()):
-        raise RuntimeError(f"a bfloat16 tsconv or projection kernel holds no "
-                           f"tensor-core instruction: {tensor_core}")
+        raise RuntimeError(f"a bfloat16 kernel holds no tensor-core "
+                           f"instruction: {tensor_core}")
 
     kernels = check_kernels(torch)
     kernels.update(check_training_kernels(torch))
@@ -1674,7 +1713,8 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            **{key: k[key] for key in ("design", "device_ms") if key in k},
+            **{key: k[key] for key in ("design", "device_ms",
+                                       "plain_device_ms") if key in k},
         })
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,7 +9,8 @@ Ported: ``serve``, ``train-retrieval``, ``train-recon`` and ``evaluate``.
         --resume-dir runs/contrast/atms/sub-01/<run> ...
     python -m eeg_image_decode_tpu_torch.cli evaluate \\
         --run-dir runs/contrast/atms/sub-01/<run> ...
-    python -m eeg_image_decode_tpu_torch.cli serve --weights flat.npz \\
+    python -m eeg_image_decode_tpu_torch.cli serve \\
+        --run-dir runs/contrast/atms/sub-01/<run> [--joint] \\
         --features gallery.npz [--dtype bfloat16] [--max-batch 256] \\
         [--fused-projection] [--exact-gelu] [--host 127.0.0.1 --port 8080]
 
@@ -22,9 +23,10 @@ and, for the 200 test concepts, ``img_features_test``/``text_features_test``
 ``ckpt/<epoch>/``; ``--resume-dir`` continues such a run from its latest
 checkpoint and ``evaluate`` rescores one without retraining.
 
-``serve``'s ``--weights`` is the JAX ATM-S variable tree saved with
-``utils/convert.py::save_flat_npz``; without it the weights are random,
-drawn from ``--seed`` (a smoke run). Every command runs on the CUDA card
+``serve`` restores a ``train-retrieval`` run (``--run-dir``, its latest
+checkpoint or ``--step``), or loads ``--weights``, the JAX ATM-S variable
+tree saved with ``utils/convert.py::save_flat_npz``; without either the
+weights are random, drawn from ``--seed`` (a smoke run). Every command runs on the CUDA card
 (``--device cuda``, the default, raises without one).
 """
 
@@ -67,22 +69,30 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_retrieval(args) -> RetrievalService:
-    """The retrieval service ``serve`` puts behind the daemon, warmed up."""
-    cfg = ATMSConfig(exact_gelu=args.exact_gelu,
+    """The retrieval service ``serve`` puts behind the daemon, warmed up:
+    the model of a ``train-retrieval`` run (``--run-dir``), JAX weights
+    (``--weights``), or seeded random weights when neither is given."""
+    if args.weights and args.run_dir:
+        raise SystemExit("give --run-dir (a run of train-retrieval) or "
+                         "--weights (JAX variables), not both")
+    cfg = ATMSConfig(joint_train=args.joint, exact_gelu=args.exact_gelu,
                      fused_projection=True if args.fused_projection else "auto")
-    model = build_encoder("atms", config=cfg, dtype=_DTYPES[args.dtype],
+    model = build_encoder(args.encoder, config=cfg, dtype=_DTYPES[args.dtype],
                           device=args.device, seed=args.seed)
     if args.weights:
         model.load_state_dict(params_from_flax(load_flat_npz(args.weights)),
                               strict=True)
+    elif args.run_dir:
+        _restore_run(args, model)
     feats = load_features(args.features)
     gallery = feats.get("img_features_test", feats.get("img_features"))
     if gallery is None:
         raise SystemExit(f"{args.features} holds neither img_features_test "
                          "nor img_features")
     svc = RetrievalService(model, gallery, max_batch=args.max_batch,
+                           transfer_dtype=args.transfer_dtype,
                            device=args.device)
-    svc.warmup((cfg.n_channels, cfg.seq_len))
+    svc.warmup((args.channels, args.timepoints))
     return svc
 
 
@@ -283,6 +293,27 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
     return trainer.history[-1]
 
 
+def _restore_run(args, model) -> int:
+    """Load checkpoint ``--step`` (default: the latest) of the run under
+    ``--run-dir`` into ``model``, through the train state it was saved
+    from; returns the step."""
+    state = create_train_state(model, ContrastiveTrainConfig())
+    ckpt = Checkpointer(os.path.join(args.run_dir, "ckpt"))
+    step = ckpt.latest_step() if args.step is None else args.step
+    if step is None:
+        raise SystemExit(f"no checkpoints under {args.run_dir}/ckpt")
+    try:
+        ckpt.restore(step, state)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e)) from None
+    except RuntimeError as e:  # load_state_dict: missing or unexpected keys
+        raise SystemExit(
+            f"could not restore the checkpoint under {args.run_dir}: it does "
+            f"not match encoder '{args.encoder}' (joint={args.joint}): {e}"
+        ) from e
+    return step
+
+
 def cmd_evaluate(args):
     """Score a trained retrieval checkpoint on the k-way table without
     retraining: restore the train state from a run directory, extract the
@@ -307,21 +338,7 @@ def cmd_evaluate(args):
                           exact_gelu=getattr(args, "exact_gelu", False)),
         dtype=_DTYPES[args.dtype], device=device, seed=args.seed)
     ks = _eval_ks(args)
-    state = create_train_state(model, ContrastiveTrainConfig(
-        seed=args.seed, eval_ks=ks))
-    ckpt = Checkpointer(os.path.join(args.run_dir, "ckpt"))
-    step = ckpt.latest_step() if args.step is None else args.step
-    if step is None:
-        raise SystemExit(f"no checkpoints under {args.run_dir}/ckpt")
-    try:
-        ckpt.restore(step, state)
-    except FileNotFoundError as e:
-        raise SystemExit(str(e)) from None
-    except RuntimeError as e:  # load_state_dict: missing or unexpected keys
-        raise SystemExit(
-            f"could not restore the checkpoint under {args.run_dir}: it does "
-            f"not match encoder '{args.encoder}' (joint={args.joint}): {e}"
-        ) from e
+    step = _restore_run(args, model)
     eval_fn = make_eval_features_fn(model)
     feats_arr, scale = eval_fn(
         torch.as_tensor(test.eeg).to(device, torch.float32),
@@ -370,14 +387,30 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="eeg_image_decode_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("serve", help="HTTP retrieval daemon on the GPU")
+    p.add_argument("--run-dir", default=None,
+                   help="run directory written by train-retrieval (holds "
+                        "ckpt/)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to serve (default: latest)")
     p.add_argument("--weights", default=None,
                    help="JAX ATM-S variables as a flat .npz "
-                        "(utils/convert.py::save_flat_npz); random if absent")
+                        "(utils/convert.py::save_flat_npz); without it and "
+                        "--run-dir the weights are random")
+    p.add_argument("--encoder", default="atms")
+    p.add_argument("--joint", action="store_true",
+                   help="the run was trained with --joint (per-subject "
+                        "value embeddings)")
     p.add_argument("--features", required=True,
                    help=".npz with the gallery CLIP features "
                         "(img_features_test or img_features)")
+    p.add_argument("--channels", type=int, default=63)
+    p.add_argument("--timepoints", type=int, default=250)
     p.add_argument("--dtype", default="bfloat16", choices=sorted(_DTYPES))
     p.add_argument("--max-batch", type=int, default=256)
+    p.add_argument("--transfer-dtype", default=None,
+                   choices=["float16", "float32"],
+                   help="host-to-device wire format of the EEG rows "
+                        "(float16 halves the copy)")
     p.add_argument("--fused-projection", action="store_true",
                    help="projection head through its CUDA kernel (tanh GELU)")
     p.add_argument("--exact-gelu", action="store_true",

@@ -23,24 +23,115 @@
 // 52 MFLOP per sample against 64 KB of activations in and out, so the layer
 // is compute-bound (13.4 GFLOP at B 256 is ~14 us at the bf16 tensor-core
 // peak, the 16 MB of activations ~5 us). Mask mode adds 130 KB of bf16
-// masks per sample, which brings the bytes level with the operations. This
-// first version runs the products as fp32 FMA loops (common.cuh::gemm_rows),
-// one block per sample, and keeps what the bound asks for: activations read
-// once and written once, every intermediate on chip, seeded masks drawn in
-// registers. It is bound instead by streaming the weights (0.75 MB in bf16)
-// from L2: each warp job covers 8 rows, so a block reads each weight 8
-// times, and 16 warps per SM hide little of the L2 latency. Tensor-core
-// (mma/wgmma) products over weight tiles staged in shared memory are the
-// next step.
+// masks per sample, which brings the bytes level with the operations.
 //
-// Shared memory per block: x/h1 (L x D), o / FFN hidden (L x inner, then
-// L x FF), q_h k_h v_h of the current head (3 x L x hd) and the fp32 scores
-// (L x L): 104 KB in bf16 (two blocks per SM), 191 KB in fp32.
+// Two designs, chosen by dtype in the launcher (eid_attention_fwd_design
+// names the one a dtype takes):
+// - mma_bf16: attention_fwd_mma_kernel, the layer of attention_tile.cuh on
+//   the tensor cores (mma.sync.m16n8k16, fp32 accumulators) over operands
+//   zero-padded to multiples of 64, after attention_pack_kernel has packed
+//   the weights into that padded layout. One block of 256 threads per
+//   sample; x is read once and the output written once; q|k|v, the scores
+//   (in registers), the FFN hidden layer and the residual stream stay on
+//   chip; seeded masks are drawn in registers. The weights (0.79 MB packed)
+//   stream from L2 through a three-stage cp.async ring, once per sample.
+//   It runs ~18x over its bound on the H100: with eight warps per sample
+//   the code between the products is latency-bound (PERF.md).
+// - fma_fp32: attention_fwd_kernel, the first version's fp32 FMA loops
+//   (common.cuh::gemm_rows), one block per sample: the tensor cores would
+//   take float32 operands as TF32.
+//
+// Shared memory per block, fma_fp32: x/h1 (L x D), o / FFN hidden
+// (L x inner, then L x FF), q_h k_h v_h of the current head (3 x L x hd) and
+// the fp32 scores (L x L): 191 KB. mma_bf16: a 64-row buffer (x, o, the
+// hidden layer), q|k|v (later the residual stream), the fp32 bias and
+// LayerNorm vectors and the ring: 200 KB.
 
 #include <cmath>
 
+#include "attention_tile.cuh"
 #include "common.cuh"
 #include "philox.cuh"
+
+namespace eid {
+namespace attn {
+
+struct PackArgs {
+  Dims d;
+  Packed p;
+  const bf16* w[16];
+  bf16* mat;
+  float* vec;
+};
+
+// The 16 parameters -> the padded layout of attention_tile.cuh: bf16
+// matrices (Wq|Wk|Wv, Wo, W1, W2) and fp32 vectors, zeros in the padding.
+__global__ void __launch_bounds__(256) attention_pack_kernel(const PackArgs a) {
+  const Dims& d = a.d;
+  const Packed& p = a.p;
+  const long total = p.n_w + p.n_v;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    if (i < p.n_w) {
+      bf16 v = __float2bfloat16(0.f);
+      if (i < p.wo) {  // Wq|Wk|Wv: (Dp, 3 innerp)
+        const int r = (int)(i / d.N3), c = (int)(i % d.N3);
+        const int m = c / d.innerp, rc = real_col(d, c - m * d.innerp);
+        if (r < d.D && rc >= 0) v = a.w[2 * m][(long)r * d.inner + rc];
+      } else if (i < p.w1) {  // Wo: (innerp, Dp)
+        const long j = i - p.wo;
+        const int r = (int)(j / d.Dp), c = (int)(j % d.Dp);
+        const int rr = real_col(d, r);
+        if (rr >= 0 && c < d.D) v = a.w[6][(long)rr * d.D + c];
+      } else if (i < p.w2) {  // W1: (Dp, FFp)
+        const long j = i - p.w1;
+        const int r = (int)(j / d.FFp), c = (int)(j % d.FFp);
+        if (r < d.D && c < d.FF) v = a.w[10][(long)r * d.FF + c];
+      } else {  // W2: (FFp, Dp)
+        const long j = i - p.w2;
+        const int r = (int)(j / d.Dp), c = (int)(j % d.Dp);
+        if (r < d.FF && c < d.D) v = a.w[12][(long)r * d.D + c];
+      }
+      a.mat[i] = v;
+    } else {
+      const int j = (int)(i - p.n_w);
+      float v = 0.f;
+      if (j < p.bo) {  // bq|bk|bv
+        const int m = j / d.innerp, rc = real_col(d, j - m * d.innerp);
+        if (rc >= 0) v = to_f(a.w[2 * m + 1][rc]);
+      } else {
+        // bo ln1_s ln1_b b1 b2 ln2_s ln2_b, in the packed order
+        const int start[7] = {p.bo, p.ln1_s, p.ln1_b, p.b1, p.b2, p.ln2_s,
+                              p.ln2_b};
+        const int param[7] = {7, 8, 9, 11, 13, 14, 15};
+        int k = 6;
+        while (j < start[k]) --k;
+        const int c = j - start[k], n = param[k] == 11 ? d.FF : d.D;
+        if (c < n) v = to_f(a.w[param[k]][c]);
+      }
+      a.vec[j] = v;
+    }
+  }
+}
+
+cudaError_t pack_weights(const Dims& d, const void* const* w, void* ws,
+                         cudaStream_t s) {
+  PackArgs a;
+  a.d = d;
+  a.p = packed_layout(d);
+  for (int i = 0; i < 16; ++i) a.w[i] = static_cast<const bf16*>(w[i]);
+  a.mat = static_cast<bf16*>(ws);
+  a.vec = reinterpret_cast<float*>(static_cast<unsigned char*>(ws) +
+                                   a.p.v_off);
+  const long total = a.p.n_w + a.p.n_v;
+  const int blocks = (int)((total + 255) / 256 < 1024 ? (total + 255) / 256
+                                                      : 1024);
+  attention_pack_kernel<<<blocks, 256, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace attn
+}  // namespace eid
 
 namespace {
 
@@ -58,13 +149,10 @@ struct AttnArgs {
   Dropout drop;
 };
 
-// kMode: kDropNone, kDropMasks or kDropSeed; the no-dropout kernel carries
-// no dropout code at all. The dropout modes in bf16 are held to 128
-// registers, so that two blocks share an SM as their 104 KB of shared memory
-// allows (unbounded they take ~195).
+// The fma_fp32 design (launched for float32 only). kMode: kDropNone,
+// kDropMasks or kDropSeed; the no-dropout kernel carries no dropout code.
 template <typename T, int kMode>
-__global__ void __launch_bounds__(
-    kThreads, (kMode != kDropNone && sizeof(T) == 2) ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_kernel(const AttnArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = p.L, D = p.D, inner = p.inner, FF = p.FF, H = p.H;
@@ -236,22 +324,121 @@ int launch(AttnArgs a, int B, size_t smem, cudaStream_t stream) {
   return launch_mode<T, kDropNone>(a, B, smem, stream);
 }
 
+// ——— the bfloat16 design on the tensor cores ———
+
+struct MmaFwdArgs {
+  attn::Dims d;
+  attn::Weights w;
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  float scale;
+  Dropout drop;
+  size_t off_qkv, off_vec, off_ring;
+};
+
+__global__ void __launch_bounds__(attn::kThreads, 1)
+    attention_fwd_mma_kernel(const MmaFwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  attn::Smem sm{};
+  sm.R0 = reinterpret_cast<__nv_bfloat16*>(smem);
+  sm.QKV = reinterpret_cast<__nv_bfloat16*>(smem + a.off_qkv);
+  sm.XS = sm.QKV;
+  sm.vec = reinterpret_cast<float*>(smem + a.off_vec);
+  sm.ring = reinterpret_cast<__nv_bfloat16*>(smem + a.off_ring);
+  const attn::Weights w = attn::stage_vectors(a.w, a.d.Dp, sm.vec);
+  const attn::Drop dr{
+      a.drop, a.drop.mode == kDropSeed ? (uint32_t)*a.drop.seed : 0u,
+      (long)blockIdx.x};
+  const long base = (long)blockIdx.x * a.d.L * a.d.D;
+  attn::layer_chain<true>(a.d, w, a.scale, dr, a.x + base, sm,
+                          a.out + base, attn::Saved{});
+}
+
+// shared memory of attention_fwd_mma_kernel: R0 | q|k|v | vectors | ring
+size_t mma_fwd_smem(const attn::Dims& d, MmaFwdArgs* a) {
+  const size_t qkv = align16((size_t)attn::kRows * d.P0 * 2);
+  const size_t vec = qkv + align16((size_t)attn::kRows * d.Pqkv * 2);
+  const size_t ring = vec + align16((size_t)attn::vector_floats(d) * 4);
+  if (a) a->off_qkv = qkv, a->off_vec = vec, a->off_ring = ring;
+  return ring + attn::kRingBytes;
+}
+
+int launch_mma(const attn::Dims& d, const void* x, const void* const* w,
+               void* out, int B, const Dropout& drop, void* ws,
+               cudaStream_t s) {
+  const attn::Packed pk = attn::packed_layout(d);
+  cudaError_t e = attn::pack_weights(d, w, ws, s);
+  if (e != cudaSuccess) return (int)e;
+  MmaFwdArgs a;
+  a.d = d;
+  a.w = attn::weights_at(ws, pk);
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.scale = (float)(1.0 / std::sqrt((double)d.hd));
+  a.drop = drop;
+  const size_t smem = mma_fwd_smem(d, &a);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(attention_fwd_mma_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  attention_fwd_mma_kernel<<<B, attn::kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Which design a dtype takes: "mma_bf16" (tensor cores) or "fma_fp32".
+extern "C" const char* eid_attention_fwd_design(int dtype) {
+  return dtype == kBF16 ? "mma_bf16" : "fma_fp32";
+}
+
+// Bytes of device workspace eid_attention_fwd needs (the packed weights of
+// the bfloat16 design, none for float32), or -1 for a dtype or shapes it
+// does not take.
+extern "C" long long eid_attention_fwd_workspace(int dtype, int L, int D,
+                                                 int inner, int FF, int H) {
+  if (dtype == kF32) return 0;
+  attn::Dims d;
+  if (dtype != kBF16 || !attn::make_dims(L, D, inner, FF, H, d) ||
+      mma_fwd_smem(d, nullptr) > kMaxSmem)
+    return -1;
+  return (long long)attn::packed_layout(d).bytes;
+}
+
 // x, out: (B, L, D) contiguous; w: 16 device pointers in the order above,
-// weights (D, inner), (inner, D), (D, FF), (FF, D) row-major, all in dtype.
+// weights (D, inner), (inner, D), (D, FF), (FF, D) row-major, all in dtype;
+// ws: eid_attention_fwd_workspace bytes.
 // drop_mode 0: no dropout; 1: masks[4] in dtype, (B,H,L,L), (B,L,D),
 // (B,L,FF), (B,L,D); 2: the int32 seed at seed (a device pointer), keep iff
 // bits < thresh, kept value inv_keep rounded to dtype.
 extern "C" int eid_attention_fwd(int dtype, const void* x,
-                                 const void* const* w, void* out, int B,
-                                 int L, int D, int inner, int FF, int H,
-                                 int drop_mode, const void* const* masks,
-                                 const int* seed, unsigned thresh,
-                                 float inv_keep, void* stream) {
+                                 const void* const* w, void* out, void* ws,
+                                 int B, int L, int D, int inner, int FF,
+                                 int H, int drop_mode,
+                                 const void* const* masks, const int* seed,
+                                 unsigned thresh, float inv_keep,
+                                 void* stream) {
   if (B <= 0) return 0;
   if (H <= 0 || inner % H != 0) return (int)cudaErrorInvalidValue;
-  const size_t sz = dtype == kBF16 ? 2 : 4;
+  if (drop_mode < kDropNone || drop_mode > kDropSeed ||
+      (drop_mode == kDropSeed && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Dropout drop;
+  drop.mode = drop_mode;
+  for (int i = 0; i < 4; ++i) drop.mask[i] = masks[i];
+  drop.seed = seed;
+  drop.thresh = thresh;
+  drop.inv_keep = inv_keep;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    attn::Dims d;
+    if (!attn::make_dims(L, D, inner, FF, H, d))
+      return (int)cudaErrorInvalidValue;
+    return launch_mma(d, x, w, out, B, drop, ws, s);
+  }
+  if (dtype != kF32) return (int)cudaErrorInvalidValue;
+  const size_t sz = 4;
   const int hd = inner / H;
   AttnArgs a;
   a.x = x;
@@ -266,20 +453,10 @@ extern "C" int eid_attention_fwd(int dtype, const void* x,
   a.off_o = align16((size_t)L * D * sz);
   a.off_qkv = a.off_o + align16((size_t)L * inner * sz);
   a.off_s = a.off_qkv + align16((size_t)3 * L * hd * sz);
-  a.drop.mode = drop_mode;
-  for (int i = 0; i < 4; ++i) a.drop.mask[i] = masks[i];
-  a.drop.seed = seed;
-  a.drop.thresh = thresh;
-  a.drop.inv_keep = inv_keep;
-  if (drop_mode < kDropNone || drop_mode > kDropSeed ||
-      (drop_mode == kDropSeed && seed == nullptr))
-    return (int)cudaErrorInvalidValue;
+  a.drop = drop;
   size_t smem = a.off_s + (size_t)L * L * 4;
   const size_t ffn_end = a.off_o + (size_t)L * FF * sz;
   if (ffn_end > smem) smem = ffn_end;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(a, B, smem, s);
-  if (dtype == kF32) return launch<float>(a, B, smem, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(a, B, smem, s);
 }

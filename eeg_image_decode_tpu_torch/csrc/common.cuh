@@ -11,10 +11,10 @@
 // owns a TM-row by (32*TN)-column output tile; all lanes of a warp read the
 // same A element (a shared-memory broadcast) and neighbouring B columns
 // (coalesced). Shapes need no padding, and float32 operands keep full
-// float32 products. The bfloat16 tensor-core products live in mma_tile.cuh,
-// which zero-fills ragged edges in shared memory and masks them on store (the
-// tsconv and projection backward use it; the attention kernels, whose widths
-// 250, 248 and 62 are no multiples of 16 bytes, still use gemm_rows).
+// float32 products; the float32 designs of every kernel use it. The bfloat16
+// tensor-core products live in mma_tile.cuh, which zero-fills ragged edges in
+// shared memory and masks them on store, and in attention_tile.cuh, which
+// pads the attention layer's widths (250, 248, 62) with zeros.
 #pragma once
 
 #include <cuda_bf16.h>

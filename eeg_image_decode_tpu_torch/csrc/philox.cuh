@@ -62,6 +62,23 @@ __host__ __device__ __forceinline__ uint32_t keep_bits(uint32_t seed,
   }
 }
 
+// The bits of elements e and e + 1: one generator call when both lie in
+// the same group of four (e % 4 != 3), two otherwise.
+__host__ __device__ __forceinline__ uint2 keep_bits2(uint32_t seed,
+                                                     uint32_t sample,
+                                                     uint32_t site,
+                                                     uint32_t element) {
+  const uint4 r = philox4x32_10(make_uint4(element >> 2, site, 0u, 0u),
+                                make_uint2(seed, sample));
+  switch (element & 3u) {
+    case 0: return make_uint2(r.x, r.y);
+    case 1: return make_uint2(r.y, r.z);
+    case 2: return make_uint2(r.z, r.w);
+    default:
+      return make_uint2(r.w, keep_bits(seed, sample, site, element + 1));
+  }
+}
+
 // the projection head's site id (0-3 are the attention layer's)
 constexpr int kSiteProjection = 4;
 

@@ -41,14 +41,18 @@ def dropout(h: torch.Tensor, p: float, *, train: bool, mask=None,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """One dropout site. ``mask`` (a pre-scaled keep-mask, broadcastable to
     h) is applied in h's dtype whenever it is given, as the JAX modules'
-    ``dropout_mask``; otherwise, in train mode with p > 0, a keep-mask of
-    value 1/(1−p) is drawn from ``generator`` on h's device."""
+    ``dropout_mask``; otherwise, in train mode with p > 0, a keep
+    pattern is drawn from ``generator`` on h's device and the kept values
+    are divided by 1−p in h's dtype, as flax's ``nn.Dropout`` divides by
+    ``keep_prob`` (in bfloat16, multiplying by a rounded 1/(1−p) would not
+    give the same bits at p = 0.25)."""
     if mask is not None:
         return h * mask.to(h.device, h.dtype)
     if not train or p == 0.0:
         return h
     keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
-    return h * (keep.to(torch.float32) / (1.0 - p)).to(h.dtype)
+    return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
+                                                        device=h.device))
 
 
 def check_fused(value, name: str) -> None:

@@ -53,14 +53,18 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 #: name → (argument types, result type)
 _SIGNATURES = {
-    # dtype, x, w[16], out, B, L, D, inner, FF, H, drop mode, masks[4],
-    # seed (device), thresh, keep value, stream
-    "eid_attention_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # dtype, x, w[16], out, ws, B, L, D, inner, FF, H, drop mode,
+    # masks[4], seed (device), thresh, keep value, stream
+    "eid_attention_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _U, _F, _P], _I),
+    # dtype, L, D, inner, FF, H → workspace bytes, or -1 for shapes the
+    # dtype's design does not take
+    "eid_attention_fwd_workspace": ([_I, _I, _I, _I, _I, _I], _LL),
     # dtype, B, L, D, inner, FF, H → workspace bytes
     "eid_attention_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
-    # dtype, x, g, w[16], wt[6], dx, out[5], ws, B, L, D, inner, FF, H,
-    # drop mode, masks[4], seed (device), thresh, keep value, stream
+    # dtype, x, g, w[16], wt[6] (float32 only), dx, out[5], ws, B, L, D,
+    # inner, FF, H, drop mode, masks[4], seed (device), thresh, keep value,
+    # stream
     "eid_attention_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P, _P, _U, _F, _P], _I),
     # dtype, x, w, out, rows, T, M, F, P, stride, stream
@@ -72,6 +76,8 @@ _SIGNATURES = {
     # the dtype's design does not take
     "eid_tsconv_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
     # dtype → the design it takes ("mma_bf16" or "fma_fp32")
+    "eid_attention_fwd_design": ([_I], ctypes.c_char_p),
+    "eid_attention_bwd_design": ([_I], ctypes.c_char_p),
     "eid_tsconv_fwd_design": ([_I], ctypes.c_char_p),
     "eid_tsconv_bwd_design": ([_I], ctypes.c_char_p),
     "eid_projection_fwd_design": ([_I], ctypes.c_char_p),

@@ -14,10 +14,16 @@ probabilities, ``m_res`` (B, L, D) on the output projection, ``m_ffn1``
 ``fused_attention_layer`` is a ``torch.autograd.Function``. For a CUDA
 tensor its forward is ``csrc/attention_fwd.cu`` and its backward
 ``csrc/attention_bwd.cu`` (recompute on chip, dx per sample, fp32 parameter
-gradients reduced in a fixed order, so two runs agree bit for bit). For a
-CPU tensor it runs the plain versions: ``attention_layer_reference`` and
-``attention_layer_backward_reference``, which follows the rounding points
-of the JAX backward kernel line by line.
+gradients reduced in a fixed order, so two runs agree bit for bit): in
+bfloat16 on the tensor cores over operands zero-padded to multiples of 64
+(``csrc/attention_tile.cuh``; design ``mma_bf16``), in float32 as FMA loops
+(``fma_fp32``); :func:`forward_design` and :func:`backward_design` name the
+one a dtype takes. For a CPU tensor it runs the plain versions:
+``attention_layer_reference`` and ``attention_layer_backward_reference``,
+which follows the rounding points of the JAX backward kernel line by line.
+``attention_layer_backward_tiled`` is the bfloat16 backward's tiling and
+index math in plain PyTorch (padding, head slicing, the two softmax passes,
+the split-K chunks), for the CPU tests.
 
 Dropout, three modes (as in the JAX kernel):
 
@@ -260,6 +266,252 @@ def attention_layer_backward_reference(
     return dx.to(dt).reshape(B, L, D), grads
 
 
+# ——— the bfloat16 tensor-core design's tiling, in plain PyTorch ———
+
+#: one sample's token rows are one tile of this many rows
+TILE_ROWS = 64
+#: split-K chunks of the backward's dW products
+DW_CHUNKS = 32
+
+
+def padded_dims(length: int, d_model: int, inner: int, d_ff: int,
+                n_heads: int) -> dict | None:
+    """The padded widths of ``csrc/attention_tile.cuh::make_dims``: D and FF
+    to multiples of 64, each head to a multiple of 16 such that the heads
+    together fill a multiple of 64; None for shapes the design does not take
+    (L > 64, a padded width above 256, a padded head above 64)."""
+    if not (1 <= length <= TILE_ROWS and inner % n_heads == 0):
+        return None
+    hd = inner // n_heads
+    hdp = _ceil_to(hd, 16)
+    while (n_heads * hdp) % 64:
+        hdp += 16
+    d = {"hd": hd, "hdp": hdp, "Dp": _ceil_to(d_model, 64),
+         "FFp": _ceil_to(d_ff, 64), "innerp": n_heads * hdp}
+    ok = (max(d["Dp"], d["FFp"], d["innerp"]) <= 256 and hdp <= 64)
+    return d if ok else None
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _pad_heads(t: torch.Tensor, dim: int, groups: int, hd: int,
+               hdp: int) -> torch.Tensor:
+    """Axis ``dim`` of ``groups`` blocks of ``hd`` → blocks of ``hdp``, the
+    new columns zero."""
+    t = t.movedim(dim, -1)
+    t = t.reshape(*t.shape[:-1], groups, hd)
+    t = F.pad(t, (0, hdp - hd)).reshape(*t.shape[:-2], groups * hdp)
+    return t.movedim(-1, dim)
+
+
+def _pad_to(t: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """Zero-pad the trailing dims of t up to ``sizes``."""
+    pad = []
+    for have, want in zip(reversed(t.shape[-len(sizes):]), reversed(sizes)):
+        pad += [0, want - have]
+    return F.pad(t, pad)
+
+
+def pack_attention_params(params: dict, n_heads: int, length: int) -> dict:
+    """The packed weights of ``csrc/attention_fwd.cu::attention_pack_kernel``
+    as fp32 tensors: ``wqkv`` (Dp, 3 innerp) with each head's columns at
+    h · hdp, ``wo`` (innerp, Dp), ``w1`` (Dp, FFp), ``w2`` (FFp, Dp), and the
+    vectors, zeros in every padding."""
+    D, inner = params["wq"].shape
+    FF = params["w1"].shape[1]
+    dm = padded_dims(length, D, inner, FF, n_heads)
+    H, hd, hdp = n_heads, dm["hd"], dm["hdp"]
+    Dp, FFp = dm["Dp"], dm["FFp"]
+    f = {k: v.float() for k, v in params.items()}
+    heads = [_pad_heads(_pad_to(f[k], Dp, inner), 1, H, hd, hdp)
+             for k in ("wq", "wk", "wv")]
+    return {
+        "wqkv": torch.cat(heads, dim=1),
+        "bqkv": torch.cat([_pad_heads(f[k], 0, H, hd, hdp)
+                           for k in ("bq", "bk", "bv")]),
+        "wo": _pad_heads(_pad_to(f["wo"], inner, Dp), 0, H, hd, hdp),
+        "w1": _pad_to(f["w1"], Dp, FFp), "w2": _pad_to(f["w2"], FFp, Dp),
+        "b1": _pad_to(f["b1"], FFp),
+        **{k: _pad_to(f[k], Dp) for k in ("bo", "ln1_s", "ln1_b", "b2",
+                                           "ln2_s", "ln2_b")},
+    }
+
+
+def attention_layer_backward_tiled(
+        x: torch.Tensor, params: dict, g: torch.Tensor, n_heads: int = 4, *,
+        masks: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """The bfloat16 design of ``csrc/attention_bwd.cu`` in plain PyTorch,
+    with the arithmetic of :func:`attention_layer_backward_reference`: each
+    sample a 64-row tile (rows ≥ L zero), D, FF and the heads zero-padded as
+    :func:`pack_attention_params` lays the weights out, the heads sliced
+    from padded columns; the softmax backward in the kernel's two passes (a
+    query pass that keeps each row's max, sum and Σ d_p p, and a key pass
+    that rebuilds pᵀ from them); dx as d_r1 + dq Wqᵀ + dk Wkᵀ + dv Wvᵀ from
+    the packed weights; the dW products over the B·L rows as 32 split-K
+    chunks of a multiple of 32 rows summed in order, then unpadded; the
+    bias and LayerNorm vectors as per-sample sums added over the batch in
+    32 chunks. Returns what the plain backward returns."""
+    B, L, D = x.shape
+    dt = x.dtype
+    inner, FF = params["wq"].shape[1], params["w1"].shape[1]
+    H = n_heads
+    dm = padded_dims(L, D, inner, FF, H)
+    if dm is None:
+        raise ValueError(f"shapes (L {L}, D {D}, inner {inner}, FF {FF}, "
+                         f"{H} heads) do not fit the design")
+    hd, hdp, Dp, FFp, ip = (dm[k] for k in ("hd", "hdp", "Dp", "FFp",
+                                            "innerp"))
+    R = TILE_ROWS
+    pk = pack_attention_params({k: params[k].to(dt) for k in PARAM_ORDER},
+                               H, L)
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    def mm(a, b):  # operands in dt, fp32 accumulation
+        return torch.matmul(rnd(a), rnd(b))
+
+    rows = (torch.arange(R) < L).float()[:, None]  # real rows
+    cols_d = (torch.arange(Dp) < D).float()
+    cols_f = (torch.arange(FFp) < FF).float()
+    valid = rows * rows.T                           # (query, key) < L
+    xp = _pad_to(x.float(), R, Dp)
+    gp = _pad_to(g.float(), R, Dp)
+    if masks is not None:
+        m_attn = _pad_to(masks["m_attn"].float(), R, R)
+        mres = _pad_to(masks["m_res"].float(), R, Dp)
+        mf1 = _pad_to(masks["m_ffn1"].float(), R, FFp)
+        mf2 = _pad_to(masks["m_ffn2"].float(), R, Dp)
+    else:
+        m_attn = valid.expand(B, H, R, R)
+        mres, mf2 = rows * cols_d, rows * cols_d
+        mf1 = rows * cols_f
+
+    # ——— recompute, the backward's rounding policy ———
+    qkv = rnd(mm(xp, pk["wqkv"]) + pk["bqkv"]) * rows
+    q, k, v = (qkv[..., i * ip:(i + 1) * ip].reshape(B, R, H, hdp)
+               .transpose(1, 2) for i in range(3))   # (B, H, 64, hdp)
+
+    keys = (torch.arange(R) >= L)[None, :]  # padded key columns
+
+    def softmax_rows(s):
+        """fp32 softmax over keys < L (every row, padded ones too); returns
+        p, each row's max and sum."""
+        s = (s * scale).masked_fill(keys, -torch.inf)
+        mx = s.amax(-1, keepdim=True)
+        e = torch.exp(s - mx).masked_fill(keys, 0.0)
+        z = e.sum(-1, keepdim=True)
+        return e / z, mx, z
+
+    pr, mx, z = softmax_rows(q @ k.transpose(-1, -2))
+    pm = rnd(pr * m_attn)
+    o = rnd(pm @ v).transpose(1, 2).reshape(B, R, ip) * rows
+    r1 = xp + (mm(o, pk["wo"]) + pk["bo"]) * mres
+
+    def ln_fwd(h):
+        hd_ = h[..., :D]
+        mu = hd_.mean(-1, keepdim=True)
+        var = (hd_ - mu).square().mean(-1, keepdim=True)
+        inv = torch.rsqrt(var + 1e-6)
+        return (h - mu) * inv * cols_d * rows, inv
+
+    xhat1, inv1 = ln_fwd(r1)
+    h1 = xhat1 * pk["ln1_s"] + pk["ln1_b"]
+    h1dt = rnd(h1) * rows
+    u = mm(h1dt, pk["w1"]) + pk["b1"]
+    g1, dgelu = _gelu_tanh_and_grad(u)
+    g1m = rnd(g1 * mf1)
+    r2 = h1 + (mm(g1m, pk["w2"]) + pk["b2"]) * mf2
+    xhat2, inv2 = ln_fwd(r2 * rows * cols_d)
+
+    # ——— backward ———
+    def ln_bwd(gy, xhat, inv, s_p):
+        gxh = gy * s_p
+        m1 = gxh[..., :D].mean(-1, keepdim=True)
+        m2 = (gxh * xhat)[..., :D].mean(-1, keepdim=True)
+        return (gxh - m1 - xhat * m2) * inv * cols_d * rows
+
+    vec = {"ln2_s": (gp * xhat2).sum(1), "ln2_b": gp.sum(1)}
+    d_r2 = ln_bwd(gp, xhat2, inv2, pk["ln2_s"])
+    d_z = d_r2 * mf2
+    vec["b2"] = d_z.sum(1)
+    dz = rnd(d_z)
+    d_u = mm(dz, pk["w2"].T) * mf1 * dgelu
+    vec["b1"] = d_u.sum(1)
+    du = rnd(d_u)
+    d_h1 = d_r2 + mm(du, pk["w1"].T)
+    vec["ln1_s"], vec["ln1_b"] = (d_h1 * xhat1).sum(1), d_h1.sum(1)
+    d_r1 = ln_bwd(d_h1, xhat1, inv1, pk["ln1_s"])
+    d_attn = d_r1 * mres
+    vec["bo"] = d_attn.sum(1)
+    da = rnd(d_attn)
+    d_o = rnd(mm(da, pk["wo"].T)).reshape(B, R, H, hdp).transpose(1, 2)
+
+    # query pass: d_p, the row sums Σ d_p p, d_s, d_q = d_s k
+    d_p = (d_o @ v.transpose(-1, -2)) * m_attn
+    rsum = (d_p * pr).sum(-1, keepdim=True)
+    d_s = rnd((d_p - rsum) * pr * scale) * valid
+    d_q = d_s @ k
+    # key pass (rows are keys): pᵀ from the query pass's row statistics
+    sT = (k @ q.transpose(-1, -2)) * scale
+    prT = torch.exp(sT - mx.transpose(-1, -2)) / z.transpose(-1, -2)
+    prT = prT * valid
+    mT = m_attn.transpose(-1, -2)
+    d_v = rnd(prT * mT) @ d_o
+    d_pT = (v @ d_o.transpose(-1, -2)) * mT
+    d_sT = rnd((d_pT - rsum.transpose(-1, -2)) * prT * scale) * valid
+    d_k = d_sT @ q
+    parts = [t.transpose(1, 2).reshape(B, R, ip) * rows
+             for t in (d_q, d_k, d_v)]
+    vec["bqkv"] = torch.cat([t.sum(1) for t in parts], dim=1)
+    dqkv = [rnd(t) for t in parts]
+    dx = d_r1
+    for i, t in enumerate(dqkv):
+        dx = dx + mm(t, pk["wqkv"][:, i * ip:(i + 1) * ip].T)
+    dx = dx[:, :L, :D].to(dt)
+
+    # ——— dW = Aᵀ Y over the B·L rows: split-K chunks summed in order ———
+    N = B * L
+    chunk = _ceil_to(_ceil_to(N, DW_CHUNKS) // DW_CHUNKS, 32)
+
+    def dw(a, y):
+        a = a[:, :L].reshape(N, -1)
+        y = y[:, :L].reshape(N, -1)
+        out = torch.zeros(a.shape[1], y.shape[1])
+        for c in range(DW_CHUNKS):
+            out = out + mm(a[c * chunk:(c + 1) * chunk].T,
+                           y[c * chunk:(c + 1) * chunk])
+        return out
+
+    # real index of each padded head column
+    heads = (torch.arange(H)[:, None] * hdp + torch.arange(hd)).reshape(-1)
+    qkv_cols = torch.cat([heads + i * ip for i in range(3)])
+    d_wqkv = dw(xp, torch.cat(dqkv, dim=2))[:D][:, qkv_cols]
+    grads = {"wq": d_wqkv[:, :inner], "wk": d_wqkv[:, inner:2 * inner],
+             "wv": d_wqkv[:, 2 * inner:],
+             "wo": dw(o, da)[heads][:, :D], "w1": dw(h1dt, du)[:D, :FF],
+             "w2": dw(g1m, dz)[:FF, :D]}
+
+    # per-sample vectors summed over the batch: 32 chunks in order, then
+    # the chunks (reduce.cuh::sum_rows twice)
+    per = _ceil_to(B, DW_CHUNKS) // DW_CHUNKS
+
+    def batch_sum(t):
+        return sum(t[c * per:(c + 1) * per].sum(0) for c in range(DW_CHUNKS)
+                   if c * per < B)
+
+    b_qkv = batch_sum(vec.pop("bqkv"))[qkv_cols]
+    grads.update(bq=b_qkv[:inner], bk=b_qkv[inner:2 * inner],
+                 bv=b_qkv[2 * inner:])
+    for key, n in (("bo", D), ("b1", FF), ("b2", D), ("ln1_s", D),
+                   ("ln1_b", D), ("ln2_s", D), ("ln2_b", D)):
+        grads[key] = batch_sum(vec[key])[:n]
+    return dx, grads
+
+
 # ——— the kernels ———
 
 
@@ -340,12 +592,22 @@ def _forward(x, p, n_heads, drop: _Dropout) -> torch.Tensor:
     B, L, D, inner, FF = _check_shapes(x, p, n_heads, drop.masks)
     _build.check_cuda_args("fused_attention_layer", x,
                            {**p, **(drop.masks or {})})
+    code = _build.DTYPE_CODES[x.dtype]
+    lib = _build.lib()
+    ws_bytes = lib.eid_attention_fwd_workspace(code, L, D, inner, FF,
+                                               n_heads)
+    if ws_bytes < 0:
+        raise ValueError(f"attention_fwd ({forward_design(x.dtype)}): shapes "
+                         f"(L {L}, D {D}, inner {inner}, FF {FF}, {n_heads} "
+                         "heads) do not fit the kernel")
+    # the bfloat16 design's packed, zero-padded weights
+    ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
     mode, mptrs, seed_ptr, thresh, value = drop.c_args(x)
-    rc = _build.lib().eid_attention_fwd(
-        _build.DTYPE_CODES[x.dtype], x.data_ptr(), weights, out.data_ptr(),
-        B, L, D, inner, FF, n_heads, mode, mptrs, seed_ptr, thresh, value,
+    rc = lib.eid_attention_fwd(
+        code, x.data_ptr(), weights, out.data_ptr(), ws.data_ptr(), B, L, D,
+        inner, FF, n_heads, mode, mptrs, seed_ptr, thresh, value,
         _build.stream_of(x))
     name = {"none": "attention_fwd", "masks": "attention_fwd_masks",
             "seed": "attention_fwd_seed"}[drop.mode]
@@ -373,8 +635,9 @@ def _backward(x, p, g, n_heads, drop: _Dropout):
     ws_bytes = lib.eid_attention_bwd_workspace(code, B, L, D, inner, FF,
                                                n_heads)
     if ws_bytes < 0:
-        raise ValueError(f"attention_bwd: shapes (L {L}, D {D}, inner "
-                         f"{inner}, FF {FF}) do not fit the kernel")
+        raise ValueError(f"attention_bwd ({backward_design(x.dtype)}): shapes "
+                         f"(L {L}, D {D}, inner {inner}, FF {FF}, {n_heads} "
+                         "heads) do not fit the kernel")
     ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -383,10 +646,12 @@ def _backward(x, p, g, n_heads, drop: _Dropout):
     d_w1 = torch.empty((D, FF), **f32)
     d_w2 = torch.empty((FF, D), **f32)
     d_vec = torch.empty((3 * inner + 6 * D + FF,), **f32)
-    # transposed copies of the six weights, for the products with Wᵀ
-    wt = [p[k].t().contiguous() for k in ("wq", "wk", "wv", "wo", "w1", "w2")]
+    # the float32 design reads transposed copies of the six weights for its
+    # products with Wᵀ; the bfloat16 design reads its packed weights K-major
+    wt = ([p[k].t().contiguous() for k in ("wq", "wk", "wv", "wo", "w1", "w2")]
+          if x.dtype == torch.float32 else [])
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
-    wt_ptrs = _build.pointer_array(wt)
+    wt_ptrs = _build.pointer_array(wt) if wt else (ctypes.c_void_p * 6)()
     outs = _build.pointer_array([d_wqkv, d_wo, d_w1, d_w2, d_vec])
     mode, mptrs, seed_ptr, thresh, value = drop.c_args(x)
     rc = lib.eid_attention_bwd(
@@ -404,6 +669,20 @@ def _backward(x, p, g, n_heads, drop: _Dropout):
         grads[k] = d_vec[off:off + n]
         off += n
     return dx, grads
+
+
+def forward_design(dtype: torch.dtype) -> str:
+    """The design the forward launcher takes for ``dtype``: ``"mma_bf16"``
+    (tensor cores) or ``"fma_fp32"`` (full-fp32 FMA products)."""
+    return _build.lib().eid_attention_fwd_design(
+        _build.DTYPE_CODES[dtype]).decode()
+
+
+def backward_design(dtype: torch.dtype) -> str:
+    """The design the backward launcher takes for ``dtype``: ``"mma_bf16"``
+    (tensor cores) or ``"fma_fp32"`` (full-fp32 FMA products)."""
+    return _build.lib().eid_attention_bwd_design(
+        _build.DTYPE_CODES[dtype]).decode()
 
 
 class _AttentionLayer(torch.autograd.Function):

@@ -81,7 +81,8 @@ class RetrievalService:
         paid before the first request."""
         c, t = eeg_shape
         for b in self.buckets:
-            self.top_k(np.zeros((b, c, t), np.float32), np.zeros(b, np.int32))
+            self.top_k(np.zeros((b, c, t), np.float32), np.zeros(b, np.int32),
+                       k=1)
 
     def top_k(self, eeg: np.ndarray, subject_ids: np.ndarray | int,
               k: int = 5) -> tuple[np.ndarray, np.ndarray]:

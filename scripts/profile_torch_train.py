@@ -34,9 +34,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 SEED = 20200220
 #: substrings of the port's kernel names (csrc/*.cu)
-OWN = ("attention_fwd_kernel", "attention_bwd_rows_kernel",
-       "atb_partial_kernel", "sum_rows_kernel", "tsconv_fwd_", "tsconv_bwd_",
-       "projection_fwd_", "projection_chain_", "projection_bwd_")
+OWN = ("attention_fwd_", "attention_bwd_", "attention_pack_kernel",
+       "attention_dw_", "atb_partial_kernel", "sum_rows_kernel",
+       "tsconv_fwd_", "tsconv_bwd_", "projection_fwd_", "projection_chain_",
+       "projection_bwd_")
 
 
 def emit(obj) -> None:

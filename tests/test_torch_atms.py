@@ -126,3 +126,33 @@ def test_entry_point_without_device_raises_on_cpu_host():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_encoder("atms", config=ATMSConfig(**SMALL))
+
+
+@pytest.mark.parametrize("p", [0.25, 0.5])
+def test_drawn_dropout_divides_by_keep_prob_as_flax(p):
+    """The drawn dropout in bfloat16 equals flax's ``inputs / keep_prob``
+    on the same keep pattern, bit for bit. At p = 0.25 a product with the
+    rounded factor 1/0.75 (1.3359 in bfloat16) gives other bits; at p = 0.5
+    both formulas are exact (× 2)."""
+    import flax.linen as fnn
+
+    from eeg_image_decode_tpu_torch.models.layers import dropout
+
+    x = np.random.default_rng(31).normal(size=(64, 250)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = dropout(xb, p, train=True,
+                  generator=torch.Generator().manual_seed(3))
+    keep = torch.rand(x.shape, generator=torch.Generator().manual_seed(3)) >= p
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = jnp.where(jnp.asarray(keep.numpy()), xj / (1.0 - p),
+                     jnp.zeros_like(xj))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+    # the formula is flax's own: nn.Dropout's output on its own pattern
+    out = fnn.Dropout(rate=p, deterministic=False).apply(
+        {}, xj, rngs={"dropout": jax.random.key(4)})
+    flax_keep = out != 0
+    np.testing.assert_array_equal(
+        np.asarray(out), np.asarray(jnp.where(flax_keep, xj / (1.0 - p), 0)))
+    rounded = (xb * torch.tensor(1.0 / (1.0 - p)).to(torch.bfloat16)) * keep
+    assert torch.equal(got, rounded) == (p == 0.5)

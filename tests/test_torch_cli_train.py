@@ -206,3 +206,59 @@ def test_cli_other_encoders_and_missing_inputs_raise(tree):
     with pytest.raises(SystemExit, match="--sweep"):
         cli.main(["train-retrieval", "--data-path", root, "--features", feats,
                   "--device", "cpu", "--sweep", "--joint"])
+
+
+@pytest.mark.parametrize("joint", [False, True])
+def test_cli_serve_restores_a_trained_run(tree, tmp_path, capsys, joint):
+    """``serve --run-dir`` restores what ``train-retrieval`` wrote (in-subject
+    and joint): the service's top-k equals the ranking of the restored
+    model's own features against the gallery. A joint run served without
+    ``--joint`` (or the other way round) exits naming the flag, and
+    ``--weights`` with ``--run-dir`` is refused."""
+    import torch
+
+    from eeg_image_decode_tpu_torch.core.checkpoint import Checkpointer
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        create_train_state,
+    )
+
+    root, feats = tree
+    subjects = ["--joint", "--subjects", "all", "--test-subject",
+                "sub-02"] if joint else ["--subjects", "sub-01"]
+    cli.main(["train-retrieval", "--data-path", root, "--features", feats,
+              "--device", "cpu", "--dtype", "float32", "--eval-ks", "2,3",
+              "--batch-size", "4", "--train-reps", "1", "--epochs", "2",
+              "--output-dir", str(tmp_path / "runs"), *subjects])
+    _, run_dir = _last_json(capsys)
+
+    serve = ["serve", "--run-dir", run_dir, "--features", feats,
+             "--dtype", "float32", "--max-batch", "8", "--device", "cpu"]
+    args = cli.build_parser().parse_args(serve + (["--joint"] if joint
+                                                  else []))
+    svc = cli.build_retrieval(args)
+    model = build_encoder("atms", config=ATMSConfig(joint_train=joint),
+                          device="cpu", seed=99)
+    Checkpointer(os.path.join(run_dir, "ckpt")).restore(
+        None, create_train_state(model, ContrastiveTrainConfig()))
+    rng = np.random.default_rng(82)
+    eeg = rng.normal(size=(5, 63, 250)).astype(np.float32)
+    sids = np.asarray([0, 1, 0, 1, 1], np.int32)
+    with torch.no_grad():
+        f, scale = model.eval()(torch.from_numpy(eeg), torch.from_numpy(sids))
+    gallery = load_features(feats)["img_features_test"]
+    logits = float(scale) * f.numpy() @ gallery.T
+    _, got = svc.top_k(eeg, sids, k=3)
+    np.testing.assert_array_equal(got, np.argsort(-logits, axis=1)[:, :3])
+
+    other = cli.build_parser().parse_args(serve + ([] if joint
+                                                   else ["--joint"]))
+    with pytest.raises(SystemExit, match=f"joint={not joint}"):
+        cli.build_retrieval(other)
+    both = cli.build_parser().parse_args(serve + ["--weights", "w.npz"])
+    with pytest.raises(SystemExit, match="not both"):
+        cli.build_retrieval(both)

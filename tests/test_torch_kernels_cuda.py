@@ -487,3 +487,66 @@ def test_tsconv_fwd_mma_refuses_shapes_past_its_limits(cuda):
     assert tsconv_pool_fused(x, w_tilde, 5).shape == (1, 2, 46, 40)
     with pytest.raises(ValueError, match="mma_bf16"):
         tsconv_pool_fused(x.bfloat16(), w_tilde.bfloat16(), 5)
+
+
+# ——— the attention layer on the tensor cores (design "mma_bf16") ———
+
+
+@pytest.mark.cuda
+def test_attention_designs_by_dtype(cuda):
+    from eeg_image_decode_tpu_torch.ops import attention
+
+    assert attention.forward_design(torch.bfloat16) == "mma_bf16"
+    assert attention.backward_design(torch.bfloat16) == "mma_bf16"
+    assert attention.forward_design(torch.float32) == "fma_fp32"
+    assert attention.backward_design(torch.float32) == "fma_fp32"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["none", "masks", "seed"])
+@pytest.mark.parametrize("d,heads,ff,length", ATTN_SHAPES)
+def test_attention_mma_reruns_are_bit_equal(cuda, d, heads, ff, length,
+                                            mode):
+    """In bfloat16 the forward and the backward (dx and all 16 gradients:
+    split-K chunks summed in a fixed order, no atomics) give the same bits
+    on a rerun, in each dropout mode; B = 37 fills no whole chunk of 32
+    rows."""
+    from eeg_image_decode_tpu_torch.ops.attention import PARAM_ORDER
+
+    rng = np.random.default_rng(17)
+    inner = (d // heads) * heads
+    b = 37
+    x = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
+    gout = torch.from_numpy(rng.normal(size=(b, length, d)).astype(np.float32))
+    params = {k: v.to(cuda, torch.bfloat16).requires_grad_() for k, v in
+              _t(attention_params(rng, d, inner, ff)).items()}
+    x = x.to(cuda, torch.bfloat16).requires_grad_()
+    gout = gout.to(cuda, torch.bfloat16)
+    kw = {}
+    if mode == "masks":
+        kw["masks"] = {k: v.to(cuda, torch.bfloat16) for k, v in
+                       _t(keep_masks(rng, b, heads, length, d, ff)).items()}
+    elif mode == "seed":
+        kw = {"dropout_p": 0.25, "seed": 7}
+    inputs = [x, *[params[k] for k in PARAM_ORDER]]
+    outs = [fused_attention_layer(x, params, heads, **kw) for _ in range(2)]
+    grads = [torch.autograd.grad(o, inputs, gout) for o in outs]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    assert torch.isfinite(outs[0].float()).all()
+    for name, a, a2 in zip(("x",) + PARAM_ORDER, *grads):
+        assert torch.equal(a, a2), name
+
+
+@pytest.mark.cuda
+def test_attention_mma_refuses_shapes_past_its_limits(cuda):
+    """L 65 is past the 64-row tile: the bf16 designs raise with their
+    name; fp32 takes the shape."""
+    rng = np.random.default_rng(18)
+    params = {k: v.to(cuda) for k, v in
+              _t(attention_params(rng, 32, 32, 64)).items()}
+    x = torch.zeros(1, 65, 32, device=cuda)
+    assert fused_attention_layer(x, params, 4).shape == (1, 65, 32)
+    with pytest.raises(ValueError, match="mma_bf16"):
+        fused_attention_layer(x.bfloat16(),
+                              {k: v.bfloat16() for k, v in params.items()}, 4)

@@ -84,8 +84,25 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    20 test concepts) and its feature file written to a temporary directory;
    ``cli train-retrieval`` for two epochs at full model width on the card,
    ``--resume-dir`` for a third, then ``cli evaluate`` on the run
-   directory, whose row must equal the trainer's last evaluation.
-7. One JSON line listing the kernels, then the result line
+   directory, whose row must equal the trainer's last evaluation. Then
+   ``cli export-checkpoint`` on that run; the ``.pth`` loads back through
+   ``utils/convert.py::convert_atms_state_dict`` bit-equal to the restored
+   run, and serves the same top-5 on the tree's test EEG as ``cli
+   serve``'s service of the run.
+7. ``cli features`` at the published OpenCLIP ViT-H/14 widths in bf16
+   (vision 32 × 1280, text 24 × 1024) from seeded random weights, written
+   as the ``--clip-params`` pickle and read back: a 200-concept
+   THINGS-layout test tree, one 500 × 500 JPEG per concept, the 49,408-id
+   stand-in vocabulary, ``--batch-size 20``. The cache must have the name
+   ``clip_cache_path`` gives; its (200, 1024) image and text features must
+   be finite and unit-norm, and hold the port's fp32 towers' features on
+   the first 20 images and prompts at per-row cosine ≥ 0.99. Then the
+   vision tower's rate on device tensors at batch 20 and 256 and its
+   largest kernels at batch 20, the host decode ms per image beside the
+   device side's, the pickle's write seconds, the command's seconds and
+   its peak device memory. No TPU kernel lies on this path (the JAX
+   towers are plain XLA), so it adds no row to the kernels line.
+8. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -169,6 +186,25 @@ def device_ms(torch, fn, reps: int = 10) -> float:
     total_us = sum(e.time_range.elapsed_us() for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     return total_us / 1e3 / reps
+
+
+def top_kernels(torch, fn, n: int = 8) -> dict:
+    """Device ms per call of the ``n`` kernels that take the most of one
+    warm call in a ``torch.profiler`` trace, by kernel name, and of all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
+    return {"all": sum(by_name.values()), **{k[:80]: v for k, v in top.items()}}
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -1571,39 +1607,41 @@ def run_cli(argv: list[str]) -> tuple[dict, str | None]:
     return json.loads(lines[-1]), run_dir
 
 
-def cli_path(torch, main_launches: dict) -> dict:
+def cli_path(torch, main_launches: dict,
+             tmp: str) -> tuple[dict, str, str, str]:
+    """Phase 6 in the directory ``tmp``: (its row, the run directory, the
+    tree's root, its feature file)."""
     from eeg_image_decode_tpu_torch.data.synthetic import (
         write_synthetic_things_tree,
     )
     from eeg_image_decode_tpu_torch.ops import _build
 
     ks, seed = "2,4,10,20", 7
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        t0 = time.perf_counter()
-        root = os.path.join(tmp, "things")
-        feats = write_synthetic_things_tree(
-            root, ("sub-01", "sub-02"), n_classes=30, n_test_classes=20,
-            seed=SEED)
-        tree_s = time.perf_counter() - t0
-        common = ["--data-path", root, "--features", feats, "--eval-ks", ks,
-                  "--subjects", "sub-01"]
-        train_args = [*common, "--batch-size", "256", "--seed", str(seed)]
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        row2, run_dir = run_cli(["train-retrieval", *train_args, "--epochs",
-                                 "2", "--output-dir",
-                                 os.path.join(tmp, "runs")])
-        row3, _ = run_cli(["train-retrieval", *train_args, "--epochs", "3",
-                           "--resume-dir", run_dir])
-        # the trainer's evaluation after epoch 2 drew from seed + 104729·2
-        scored, _ = run_cli(["evaluate", *common, "--run-dir", run_dir,
-                             "--seed", str(seed + 104729 * 2)])
-        cli_s = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        add_launches(main_launches, launches)
-        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
-        with open(os.path.join(run_dir, "results.csv")) as f:
-            csv_rows = len(f.read().splitlines()) - 1
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "things")
+    feats = write_synthetic_things_tree(
+        root, ("sub-01", "sub-02"), n_classes=30, n_test_classes=20,
+        seed=SEED)
+    tree_s = time.perf_counter() - t0
+    common = ["--data-path", root, "--features", feats, "--eval-ks", ks,
+              "--subjects", "sub-01"]
+    train_args = [*common, "--batch-size", "256", "--seed", str(seed)]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    row2, run_dir = run_cli(["train-retrieval", *train_args, "--epochs",
+                             "2", "--output-dir",
+                             os.path.join(tmp, "runs")])
+    row3, _ = run_cli(["train-retrieval", *train_args, "--epochs", "3",
+                       "--resume-dir", run_dir])
+    # the trainer's evaluation after epoch 2 drew from seed + 104729·2
+    scored, _ = run_cli(["evaluate", *common, "--run-dir", run_dir,
+                         "--seed", str(seed + 104729 * 2)])
+    cli_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, launches)
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    with open(os.path.join(run_dir, "results.csv")) as f:
+        csv_rows = len(f.read().splitlines()) - 1
     tops = [k for k in row3 if k.startswith("top")]
     differ = {k: (scored.get(k), row3[k]) for k in tops
               if scored.get(k) != row3[k]}
@@ -1621,6 +1659,264 @@ def cli_path(torch, main_launches: dict) -> dict:
             or not np.isfinite([row2["loss"], row3["loss"]]).all()):
         raise RuntimeError(f"cli path: evaluate differs {differ}, kernels "
                            f"not launched {missing}, row {row}")
+    return row, run_dir, root, feats
+
+
+# ——— phase 7: CLIP ViT-H/14 features through cli features, and the export ———
+
+#: the THINGS-EEG test split: 200 concepts, one image each
+FEATURE_IMAGES = 200
+#: bf16 ViT-H/14 features against the port's fp32 features on the same
+#: images: per-row cosine at least this (random weights, 32 layers)
+FEATURE_COSINE = 0.99
+_NOUNS = ("aardvark", "abacus", "accordion", "acorn", "airplane", "alligator",
+          "anchor", "ant", "apple", "apron", "axe", "backpack", "bagel",
+          "ball", "balloon", "banana", "bandage", "banjo", "barrel", "basket",
+          "bat", "bathtub", "battery", "beachball", "bean", "bear", "bed",
+          "bee", "beetle", "bell", "belt", "bench", "bicycle", "binoculars",
+          "bird", "blender", "boat", "bone", "book", "boot")
+_KINDS = ("red", "small", "old", "wooden", "toy")
+
+
+def vit_h_flops(images: int) -> float:
+    """Multiply-adds × 2 of the ViT-H/14 vision forward: patch embedding,
+    32 blocks at 257 tokens × 1280 (qkv, scores, weights × values, out,
+    the 4× MLP), the 1280 → 1024 projection."""
+    n, w, layers = 257, 1280, 32
+    block = 2 * n * w * (3 * w + w + 8 * w) + 4 * n * n * w
+    return images * (2 * 256 * 588 * w + layers * block + 2 * w * 1024)
+
+
+def write_image_tree(root: str, n: int, seed: int) -> None:
+    """A THINGS-layout tree of ``n`` concept folders ``<NNNNN_concept>/``,
+    one 500 × 500 JPEG each (THINGS' size: decode, bicubic resize and crop
+    on the host as for real images), of smooth random content."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        concept = f"{_KINDS[i // len(_NOUNS)]}_{_NOUNS[i % len(_NOUNS)]}"
+        d = os.path.join(root, f"{i + 1:05d}_{concept}")
+        os.makedirs(d)
+        low = rng.integers(0, 256, size=(10, 10, 3)).astype(np.float32)
+        img = np.kron(low, np.ones((50, 50, 1)))
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(d, f"{concept}_01b.jpg"), quality=90)
+
+
+def features_path(torch, card: str) -> dict:
+    """``cli features`` in this process at ViT-H/14 width in bf16 from
+    seeded random weights, on a 200-concept THINGS-layout test tree with the
+    49,408-id stand-in vocabulary; then the vision tower's rate at batch 20
+    and 256 on device tensors, and the bf16 features against the port's
+    fp32 towers on the first 20 images."""
+    import pickle
+
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.data.features import (
+        CLIPFeatureEncoder,
+        clip_cache_path,
+        load_features,
+        load_image,
+    )
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_clip_vocab,
+    )
+    from eeg_image_decode_tpu_torch.data.things_eeg import (
+        things_images_and_prompts,
+    )
+    from eeg_image_decode_tpu_torch.data.tokenizers import CLIPBPETokenizer
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPTextConfig,
+        CLIPTextTower,
+        CLIPVisionConfig,
+        CLIPVisionTower,
+        clip_preprocess,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import (
+        clip_tree_from_state_dict,
+    )
+
+    vcfg, tcfg = CLIPVisionConfig.vit_h_14(), CLIPTextConfig.vit_h_14()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_features_") as tmp:
+        t0 = time.perf_counter()
+        images = os.path.join(tmp, "test_images")
+        write_image_tree(images, FEATURE_IMAGES, SEED)
+        paths, prompts = things_images_and_prompts(images)
+        vocab, merges = write_synthetic_clip_vocab(tmp, prompts)
+        tree_s = time.perf_counter() - t0
+
+        # the fp32 towers, drawn on the card from the seed: the weights of
+        # the run (as the --clip-params pickle) and its fp32 reference
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            vt32 = CLIPVisionTower(vcfg, seed=SEED).eval()
+            tt32 = CLIPTextTower(tcfg, seed=SEED + 1).eval()
+        params = {"vision": clip_tree_from_state_dict(
+                      vt32.state_dict(), "vision", vcfg.heads),
+                  "text": clip_tree_from_state_dict(
+                      tt32.state_dict(), "text", tcfg.heads)}
+        n_vision = sum(int(p.numel()) for p in vt32.parameters())
+        n_params = n_vision + sum(int(p.numel()) for p in tt32.parameters())
+        pkl = os.path.join(tmp, "clip_vit_h_14.pkl")
+        with open(pkl, "wb") as f:
+            pickle.dump(params, f, protocol=pickle.HIGHEST_PROTOCOL)
+        del params
+        weights_write_s = time.perf_counter() - t0
+        pkl_gb = os.path.getsize(pkl) / 1e9
+
+        cache_dir = os.path.join(tmp, "cache")
+        argv = ["features", "--images-dir", images, "--clip-params", pkl,
+                "--vocab", vocab, "--merges", merges, "--cache-dir",
+                cache_dir, "--split", "test", "--batch-size", "20",
+                "--device", "cuda"]
+        args = cli.build_parser().parse_args(argv)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            enc = args.fn(args)
+        cli_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        line = json.loads(buf.getvalue().splitlines()[-1])
+        os.remove(pkl)
+        stats = dict(enc.stats)
+        want_cache = clip_cache_path(cache_dir, "test", paths,
+                                     model_name="ViT-H-14", normalize_img=True)
+        feats = load_features(line["cache"])
+        img, txt = feats["img_features"], feats["text_features"]
+
+        # the rates of the bf16 vision tower on device tensors
+        vt = enc.vision_tower
+        x20 = clip_preprocess(torch.from_numpy(np.stack(
+            [load_image(p, vcfg.image_size) for p in paths[:20]])).cuda())
+        x256 = x20.repeat(13, 1, 1, 1)[:256]
+        with torch.inference_mode():
+            ms20 = cuda_ms(torch, lambda: vt(x20), reps=10)
+            ms256 = cuda_ms(torch, lambda: vt(x256), reps=3)
+            dev_ms20 = device_ms(torch, lambda: vt(x20), reps=3)
+            top20 = top_kernels(torch, lambda: vt(x20))
+
+        # bf16 against the port's fp32 towers, the same weights and images
+        ref = CLIPFeatureEncoder(vt32, tt32, CLIPBPETokenizer.from_files(
+            vocab, merges), device="cuda")
+        img32 = ref.encode_images(paths[:20], batch_size=20)
+        txt32 = ref.encode_texts(prompts[:20])
+        del ref, vt32, tt32, enc, vt, x20, x256
+        torch.cuda.empty_cache()
+
+    def cosines(a, b):
+        return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1)
+                                    * np.linalg.norm(b, axis=-1))
+
+    cos_img, cos_txt = cosines(img[:20], img32), cosines(txt[:20], txt32)
+    flops200 = vit_h_flops(FEATURE_IMAGES)
+    # bytes: the bf16 weights and the fp32 images read once, the features
+    # written once
+    bound_ms, bound_by = bound(
+        flops200, 2 * n_vision + FEATURE_IMAGES * (224 * 224 * 3 + 1024) * 4,
+        "bfloat16")
+    row = {"phase": "features", "card": card, "dtype": "bfloat16",
+           "model": "ViT-H-14 (seeded random weights)", "params": n_params,
+           "images": FEATURE_IMAGES,
+           "img_shape": line["img_shape"], "text_shape": line["text_shape"],
+           "cache_name_matches": line["cache"] == want_cache,
+           "write_tree_s": tree_s, "weights_write_s": weights_write_s,
+           "weights_pickle_gb": pkl_gb, "cli_s": cli_s,
+           "decode_ms_per_image":
+               1e3 * sum(stats["decode_s"]) / stats["images"],
+           "decode_s": sum(stats["decode_s"]),
+           "device_s": sum(stats["device_s"]),
+           # host clock around copy in, tower, copy out: the first batch
+           # (first launches of cuBLAS, cuDNN, attention) and the others
+           "device_ms_first_batch_host_clock": 1e3 * stats["device_s"][0],
+           "device_ms_per_batch_host_clock_p50":
+               1e3 * float(np.median(stats["device_s"][1:])),
+           "cli_rest_s": (cli_s - sum(stats["decode_s"])
+                          - sum(stats["device_s"])),
+           "vision_ms_b20": ms20, "vision_device_ms_b20": dev_ms20,
+           "vision_top_kernels_b20_device_ms": top20,
+           "vision_images_per_s_b20": 20e3 / ms20,
+           "vision_ms_b256": ms256, "vision_images_per_s_b256": 256e3 / ms256,
+           "vision_tflops_b256": vit_h_flops(256) / ms256 / 1e9,
+           "bound_ms_200_images": bound_ms, "bound_by": bound_by,
+           "device_ms_200_images_b20": ms20 * FEATURE_IMAGES / 20,
+           "peak_device_gb_cli": peak_gb,
+           "cosine_bound": FEATURE_COSINE,
+           "img_cosine_min": float(cos_img.min()),
+           "img_cosine_mean": float(cos_img.mean()),
+           "text_cosine_min": float(cos_txt.min()),
+           "text_cosine_mean": float(cos_txt.mean())}
+    emit(row)
+    norms = np.concatenate([np.linalg.norm(img, axis=-1),
+                            np.linalg.norm(txt, axis=-1)])
+    if not (row["cache_name_matches"]
+            and img.shape == (FEATURE_IMAGES, 1024)
+            and txt.shape == (FEATURE_IMAGES, 1024)
+            and np.isfinite(img).all() and np.isfinite(txt).all()
+            and np.abs(norms - 1).max() <= 1e-4
+            and cos_img.min() >= FEATURE_COSINE
+            and cos_txt.min() >= FEATURE_COSINE):
+        raise RuntimeError(f"features path: {row}")
+    return row
+
+
+def export_path(torch, run_dir: str, root: str, feats: str,
+                main_launches: dict) -> dict:
+    """``cli export-checkpoint`` on phase 6's run, the ``.pth`` back through
+    ``convert_atms_state_dict``: the same weights, bit for bit, and the
+    same top-5 on the tree's test EEG as the restored run served by
+    ``cli serve``'s ``build_retrieval``."""
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.core.config import ATMSConfig
+    from eeg_image_decode_tpu_torch.data.features import load_features
+    from eeg_image_decode_tpu_torch.data.things_eeg import (
+        build_retrieval_data,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.serve import RetrievalService
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        convert_atms_state_dict,
+    )
+
+    pth = os.path.join(os.path.dirname(run_dir), "atms_reference.pth")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["export-checkpoint", "--run-dir", run_dir, "--out", pth])
+    export_s = time.perf_counter() - t0
+    ref_sd = torch.load(pth, weights_only=True)
+    served = cli.build_retrieval(cli.build_parser().parse_args(
+        ["serve", "--run-dir", run_dir, "--features", feats]))
+    model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
+                          device="cuda")
+    model.load_state_dict(convert_atms_state_dict(ref_sd), strict=True)
+    imported = RetrievalService(model, load_features(feats)[
+        "img_features_test"], device="cuda")
+    same_weights = all(
+        torch.equal(a, b) for a, b in zip(
+            served.model.state_dict().values(), model.state_dict().values()))
+    d = load_features(feats)
+    test = build_retrieval_data(
+        root, ["sub-01"], train=False, img_features=d["img_features_test"],
+        text_features=d["text_features_test"])
+    _build.reset_launches()
+    _, want = served.top_k(test.eeg, test.subject_ids, k=5)
+    _, got = imported.top_k(test.eeg, test.subject_ids, k=5)
+    launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, launches)
+    row = {"phase": "export", "tensors": len(ref_sd), "export_s": export_s,
+           "same_weights": same_weights, "rows": int(len(want)),
+           "top5_equal": bool(np.array_equal(got, want)),
+           "launches": launches}
+    emit(row)
+    missing = [k for k in ("attention_fwd", "tsconv_fwd") if not launches[k]]
+    if not (same_weights and row["top5_equal"]) or missing:
+        raise RuntimeError(f"export path: kernels not launched {missing}, "
+                           f"row {row}")
     return row
 
 
@@ -1698,7 +1994,10 @@ def main() -> int:
     fused_joint_path(torch, card, train, test, train_row["step_ms_p50"],
                      main_path)
     del train, test
-    cli_path(torch, main_path)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        _, run_dir, root, feats = cli_path(torch, main_path, tmp)
+        export_path(torch, run_dir, root, feats, main_path)
+    features_path(torch, card)
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

@@ -1,6 +1,10 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
-Ported: ``serve``, ``train-retrieval``, ``train-recon`` and ``evaluate``.
+Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
+``evaluate`` and ``export-checkpoint``.
 
+    python -m eeg_image_decode_tpu_torch.cli features \\
+        --images-dir THINGS/images_set/test_images --split test \\
+        --clip-params clip.pkl --vocab vocab.json --merges merges.txt
     python -m eeg_image_decode_tpu_torch.cli train-retrieval \\
         --data-path DATA --features clip.npz --subjects sub-01
     python -m eeg_image_decode_tpu_torch.cli train-retrieval --joint \\
@@ -13,6 +17,8 @@ Ported: ``serve``, ``train-retrieval``, ``train-recon`` and ``evaluate``.
         --run-dir runs/contrast/atms/sub-01/<run> [--joint] \\
         --features gallery.npz [--dtype bfloat16] [--max-batch 256] \\
         [--fused-projection] [--exact-gelu] [--host 127.0.0.1 --port 8080]
+    python -m eeg_image_decode_tpu_torch.cli export-checkpoint \\
+        --run-dir runs/contrast/atms/sub-01/<run> --out atms.pth
 
 Dataset paths come from ``--data-config`` (the reference's
 ``data_config.json`` format) or ``--data-path``; ``--features`` is a cached
@@ -22,6 +28,13 @@ and, for the 200 test concepts, ``img_features_test``/``text_features_test``
 ``<output-dir>/contrast/<encoder>/<subject>/<run>/`` with ``results.csv`` and
 ``ckpt/<epoch>/``; ``--resume-dir`` continues such a run from its latest
 checkpoint and ``evaluate`` rescores one without retraining.
+
+``features`` writes the CLIP cache that ``--features`` reads, from a
+THINGS-layout image directory, through the OpenCLIP ViT-H/14 towers in
+bfloat16 (``--tiny``: the tiny towers in float32); ``--clip-params`` is the
+JAX package's pickle of ``{'vision': …, 'text': …}`` param trees of numpy
+arrays (``utils/convert_clip.py``). ``export-checkpoint`` writes a run's
+model in the reference's ``ATMS_retrieval.py`` ``state_dict`` layout.
 
 ``serve`` restores a ``train-retrieval`` run (``--run-dir``, its latest
 checkpoint or ``--step``), or loads ``--weights``, the JAX ATM-S variable
@@ -360,6 +373,119 @@ def cmd_evaluate(args):
     return row
 
 
+def cmd_features(args):
+    """Build the CLIP feature cache (the ``--features`` / ``--test-features``
+    input of train-retrieval) from a THINGS-layout image directory through
+    the port's CLIP towers: ViT-H/14 in bfloat16, or with ``--tiny`` the
+    tiny towers in float32 under their own cache name. The reference
+    computes it inside its dataset class on first use
+    (``Retrieval/eegdatasets_leaveone.py:60-74``)."""
+    import pickle
+
+    from eeg_image_decode_tpu_torch.data.features import (
+        build_clip_encoder,
+        clip_cache_path,
+        load_or_compute_clip_features,
+    )
+    from eeg_image_decode_tpu_torch.data.things_eeg import (
+        things_images_and_prompts,
+    )
+    from eeg_image_decode_tpu_torch.data.tokenizers import CLIPBPETokenizer
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPTextConfig,
+        CLIPVisionConfig,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import load_clip_params
+
+    tok = CLIPBPETokenizer.from_files(args.vocab, args.merges,
+                                      context_length=16 if args.tiny else 77)
+    if args.tiny:
+        vcfg = CLIPVisionConfig.tiny()
+        tcfg = CLIPTextConfig(vocab_size=len(tok.encoder), context_length=16,
+                              width=32, layers=2, heads=2,
+                              embed_dim=vcfg.embed_dim)
+        dtype = torch.float32
+    else:
+        vcfg = CLIPVisionConfig.vit_h_14()
+        tcfg = CLIPTextConfig.vit_h_14()
+        dtype = torch.bfloat16
+    try:
+        params = load_clip_params(args.clip_params)
+    except pickle.UnpicklingError as e:
+        raise SystemExit(f"--clip-params {args.clip_params}: {e}") from None
+    if not (isinstance(params, dict)
+            and {"vision", "text"} <= set(params.keys())):
+        raise SystemExit(
+            "--clip-params must be a pickle of {'vision': ..., 'text': ...} "
+            "flax param trees (see the JAX package's utils.convert_clip."
+            "convert_openclip_vision/convert_openclip_text)")
+    try:
+        paths, prompts = things_images_and_prompts(args.images_dir)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    enc = build_clip_encoder(params, vcfg, tcfg, tok, dtype=dtype,
+                             device=args.device)
+    del params
+    normalize = not args.raw
+    # tiny runs get their own cache identity: a tiny smoke test and the
+    # real ViT-H encode on the same images and split never share a file
+    model_name = "tiny-clip" if args.tiny else "ViT-H-14"
+    out = load_or_compute_clip_features(
+        args.cache_dir, args.split, paths, prompts, encoder=enc,
+        model_name=model_name, normalize_img=normalize,
+        batch_size=args.batch_size or 20)
+    cache = clip_cache_path(args.cache_dir, args.split, paths,
+                            model_name=model_name, normalize_img=normalize)
+    print(json.dumps({
+        "n_images": len(paths), "n_classes": len(prompts),
+        "img_shape": list(out["img_features"].shape),
+        "text_shape": list(out["text_features"].shape),
+        "cache": cache,
+    }))
+    return enc
+
+
+def cmd_export_checkpoint(args):
+    """A ``train-retrieval`` run → the reference's torch ``.pth`` layout, so
+    a model trained here loads into ``ATMS_retrieval.py``'s ``ATMS`` with
+    ``load_state_dict`` (``utils/convert.py::export_atms_state_dict``).
+
+    The JAX command tries both ``fused_tsconv`` trees, because its
+    checkpoint's tree depends on the training host's backend. The port's
+    tree is the same under either (stage 1 always holds
+    ``temporal_conv_kernel``), so one restore decides."""
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        export_atms_state_dict,
+    )
+
+    ckpt_dir = os.path.join(args.run_dir, "ckpt")
+    ckpt = Checkpointer(ckpt_dir)
+    if ckpt.latest_step() is None:
+        raise SystemExit(f"no checkpoints under {ckpt_dir}")
+    if args.step is not None and args.step not in ckpt.all_steps():
+        raise SystemExit(f"step {args.step} not found under {ckpt_dir} "
+                         f"(available: {ckpt.all_steps()})")
+    model = build_encoder(
+        "atms", config=ATMSConfig(joint_train=args.joint,
+                                  n_channels=args.channels,
+                                  seq_len=args.timepoints),
+        device=args.device)
+    state = create_train_state(model, ContrastiveTrainConfig())
+    try:
+        ckpt.restore(args.step, state)
+    except RuntimeError as e:  # load_state_dict: missing or unexpected keys
+        raise SystemExit(f"could not restore {args.run_dir} "
+                         f"(joint={args.joint}): {e}") from None
+    # reference ModuleList sizes: ATMS_retrieval.py:172 (2) against
+    # ATMS_retrieval_joint_train.py:173 (10)
+    num_subjects = args.num_subjects or (10 if args.joint else 2)
+    sd = export_atms_state_dict(model.state_dict(), num_subjects=num_subjects)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, args.out)
+    print(f"wrote {args.out} ({len(sd)} tensors)")
+    return sd
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-config", default=None,
                    help="path to data_config.json (reference format)")
@@ -386,6 +512,29 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="eeg_image_decode_tpu_torch.cli")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser(
+        "features",
+        help="build the CLIP feature cache (train-retrieval --features "
+             "input) from a THINGS-layout image dir")
+    p.add_argument("--images-dir", required=True,
+                   help="THINGS images root: <dir>/<NNNNN_concept>/<img>.jpg")
+    p.add_argument("--clip-params", required=True,
+                   help="pickle of {'vision':…,'text':…} converted OpenCLIP "
+                        "ViT-H flax trees of numpy arrays (the JAX package's "
+                        "utils/convert_clip.py)")
+    p.add_argument("--vocab", required=True, help="CLIP BPE vocab.json")
+    p.add_argument("--merges", required=True, help="CLIP BPE merges.txt")
+    p.add_argument("--cache-dir", default="cache")
+    p.add_argument("--split", default="train", help="train or test")
+    p.add_argument("--raw", action="store_true",
+                   help="skip image-feature L2 normalization (the "
+                        "reconstruction pipeline's raw embeddings)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny random-config towers in float32 (tests/smoke)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_features)
+
     p = sub.add_parser("serve", help="HTTP retrieval daemon on the GPU")
     p.add_argument("--run-dir", default=None,
                    help="run directory written by train-retrieval (holds "
@@ -494,6 +643,26 @@ def build_parser() -> argparse.ArgumentParser:
     _add_scale_out(p, ("--mesh",))
     p.set_defaults(recon=True, joint=False, cross_subject=False,
                    test_subject=None, fn=cmd_train_retrieval)
+
+    p = sub.add_parser(
+        "export-checkpoint",
+        help="trained ATMS run → reference-format torch .pth "
+             "(reverse migration)")
+    p.add_argument("--run-dir", required=True,
+                   help="train-retrieval run directory (ckpt/ inside)")
+    p.add_argument("--out", required=True, help="output .pth path")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (default: latest)")
+    p.add_argument("--joint", action="store_true",
+                   help="run was trained with --joint")
+    p.add_argument("--num-subjects", type=int, default=None,
+                   help="size of the reference's (unused) subject_wise_"
+                        "linear ModuleList (default: 2, or 10 with --joint "
+                        "— the reference scripts' respective defaults)")
+    p.add_argument("--channels", type=int, default=63)
+    p.add_argument("--timepoints", type=int, default=250)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_export_checkpoint)
     return ap
 
 

@@ -11,6 +11,7 @@ retrieval rises above chance, validating the full pipeline end-to-end.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import pickle
@@ -192,3 +193,54 @@ def write_synthetic_things_tree(
     path = os.path.join(root, "features.npz")
     np.savez(path, **{k: v.astype(np.float32) for k, v in feats.items()})
     return path
+
+
+def write_synthetic_clip_vocab(directory: str, texts: list[str], *,
+                               vocab_size: int = 49408) -> tuple[str, str]:
+    """Write a CLIP BPE vocabulary of ``vocab_size`` ids (``vocab.json``,
+    ``merges.txt``) and return the two paths: a stand-in for OpenCLIP's
+    ``bpe_simple_vocab_16e6`` at its real size, built without a download.
+
+    As in real CLIP: the 256 byte symbols and their ``</w>`` forms first,
+    then one id per merge, ``<|startoftext|>`` at ``vocab_size − 2`` and
+    ``<|endoftext|>`` at ``vocab_size − 1`` (the text tower pools at the
+    largest id of a row). The merges build each word of ``texts`` left to
+    right (the merges of other words may still split it; every piece is in
+    the vocabulary either way); filler entries pad the ids between."""
+    from eeg_image_decode_tpu_torch.data.tokenizers import (
+        _CLIP_PAT,
+        _whitespace_clean,
+        bytes_to_unicode,
+    )
+
+    byte_encoder = bytes_to_unicode()
+    chars = list(byte_encoder.values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    for c in chars:
+        vocab[c + "</w>"] = len(vocab)
+    merges: list[tuple[str, str]] = []
+    for text in texts:
+        for word in _CLIP_PAT.findall(_whitespace_clean(text).lower()):
+            word = "".join(byte_encoder[b] for b in word.encode("utf-8"))
+            symbols = list(word[:-1]) + [word[-1] + "</w>"]
+            cur = symbols[0]
+            for sym in symbols[1:]:
+                if cur + sym not in vocab:
+                    merges.append((cur, sym))
+                    vocab[cur + sym] = len(vocab)
+                cur += sym
+    if len(vocab) + 2 > vocab_size:
+        raise ValueError(f"the texts need {len(vocab) + 2} ids, more than "
+                         f"vocab_size={vocab_size}")
+    for i in range(vocab_size - 2 - len(vocab)):
+        vocab[f"<filler_{i}>"] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    os.makedirs(directory, exist_ok=True)
+    vocab_file = os.path.join(directory, "vocab.json")
+    merges_file = os.path.join(directory, "merges.txt")
+    with open(vocab_file, "w", encoding="utf-8") as f:
+        json.dump(vocab, f)
+    with open(merges_file, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return vocab_file, merges_file

@@ -137,6 +137,9 @@ def load_things_eeg_subject(
     train: bool,
     time_window: tuple[float, float] = (0.0, 1.0),
     average_test_reps: bool = True,
+    classes: list[int] | None = None,
+    pictures: list[int] | None = None,
+    val_size=None,
     dtype=np.float32,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Load one subject's epochs → (eeg, labels).
@@ -149,8 +152,21 @@ def load_things_eeg_subject(
     interface: the extra axis folds into the EEG layout and the images per
     class come from the stored shape (12) instead of 10.
 
-    The JAX loader's ``classes`` / ``pictures`` subset options, which no
-    training script passes, are not ported (ROADMAP.md)."""
+    Subset options (ref ``eegdatasets_leaveone.py:40,168-216``; analysis
+    conveniences that no reference training script passes):
+
+    - ``classes``: keep only the listed class indices (train: every image
+      × rep of each class; test: the listed concepts). Labels keep their
+      original class ids, like the reference.
+    - ``pictures`` (with ``classes``, train only): per ``(class, picture)``
+      pair keep that single image's repetitions. The reference computes the
+      flat index as ``c * 1 + p`` (``:171``), which puts every condition
+      after class 0 in the wrong class; this loader implements the
+      documented intent, ``c * images_per_class + p``, as the JAX loader
+      does.
+    - ``val_size``: accepted and ignored, as in the reference, which stores
+      it and never reads it."""
+    del val_size  # dead in the reference too (stored at :51, never read)
     raw = _load_subject_file(data_path, subject, train)
     n_img_per_cls = 10
     if "preprocessed_eeg_data" in raw:
@@ -168,15 +184,41 @@ def load_things_eeg_subject(
     if mask.shape[0] == data.shape[-1]:
         data = data[..., mask]
 
+    if pictures is not None and (classes is None or not train):
+        raise ValueError("pictures requires classes and train=True "
+                         "(ref eegdatasets_leaveone.py:168-175)")
+
     if train:
         # (n_cls*10, reps=4, C, T) stored flat in class-major order
+        if classes is not None:
+            if pictures is not None:
+                if len(pictures) != len(classes):
+                    raise ValueError(
+                        f"classes ({len(classes)}) and pictures "
+                        f"({len(pictures)}) must pair up elementwise")
+                conds = np.asarray([c * n_img_per_cls + p
+                                    for c, p in zip(classes, pictures)],
+                                   np.int64)
+                cond_labels = np.asarray(classes, np.int32)
+            else:
+                conds = np.asarray([c * n_img_per_cls + j for c in classes
+                                    for j in range(n_img_per_cls)], np.int64)
+                cond_labels = np.repeat(np.asarray(classes, np.int32),
+                                        n_img_per_cls)
+            data = data[conds]
+            n_rep = data.shape[1]
+            eeg = data.reshape(data.shape[0] * n_rep, *data.shape[2:])
+            return eeg, np.repeat(cond_labels, n_rep)
         n_cond, n_rep = data.shape[0], data.shape[1]
         eeg = data.reshape(n_cond * n_rep, *data.shape[2:])
         labels = np.repeat(np.arange(n_cond // n_img_per_cls, dtype=np.int32),
                            n_img_per_cls * n_rep)
         return eeg, labels
     # test: (200, 80, C, T)
-    cls_ids = np.arange(data.shape[0], dtype=np.int32)
+    keep = (np.arange(data.shape[0]) if classes is None
+            else np.asarray(sorted(set(classes)), np.int64))
+    data = data[keep]
+    cls_ids = keep.astype(np.int32)
     if average_test_reps:
         return data.mean(axis=1), cls_ids
     return (data.reshape(-1, *data.shape[2:]),
@@ -256,3 +298,43 @@ def build_retrieval_data(
         n_classes=int(labels.max()) + 1,
         images_per_class=ipc,
     )
+
+
+def list_image_classes(img_directory: str) -> tuple[list[str], list[str]]:
+    """Sorted class folders → (folder names, text prompts). Prompt template
+    'This picture is {description}' (ref ``eegdatasets_leaveone.py:96-105``).
+    Folders without an underscore get no prompt, exactly like the reference,
+    which then misaligns prompts with classes; prefer
+    :func:`things_images_and_prompts`."""
+    dirs = sorted(d for d in os.listdir(img_directory)
+                  if os.path.isdir(os.path.join(img_directory, d)))
+    prompts = []
+    for d in dirs:
+        if "_" not in d:
+            continue
+        desc = d[d.index("_") + 1:]
+        prompts.append(f"This picture is {desc}")
+    return dirs, prompts
+
+
+def things_images_and_prompts(root: str) -> tuple[list[str], list[str]]:
+    """THINGS ``images_set`` layout (``<root>/<NNNNN_concept>/<img>.jpg``) →
+    (sorted image paths, one prompt per class dir), the aligned pair the
+    CLIP feature cache needs. Same template as :func:`list_image_classes`,
+    but a dir without an underscore keeps its whole name as the concept, so
+    prompts always stay class-aligned."""
+    dirs = sorted(d for d in os.listdir(root)
+                  if os.path.isdir(os.path.join(root, d)))
+    if not dirs:
+        raise ValueError(f"no class directories under {root}")
+    exts = (".png", ".jpg", ".jpeg")
+    paths, prompts = [], []
+    for d in dirs:
+        desc = d.split("_", 1)[1] if "_" in d else d
+        prompts.append(f"This picture is {desc}")
+        sub = os.path.join(root, d)
+        paths.extend(os.path.join(sub, f) for f in sorted(os.listdir(sub))
+                     if f.lower().endswith(exts))
+    if not paths:
+        raise ValueError(f"no images under the class dirs of {root}")
+    return paths, prompts

@@ -37,6 +37,7 @@ import csv
 import math
 import os
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -297,7 +298,8 @@ class ContrastiveTrainer:
     def fit(self, epochs: int | None = None, log_fn=print) -> list[dict]:
         """Epochs ``start_epoch … epochs−1``: train, evaluate, append the
         row, save a checkpoint every ``ckpt_every_epochs`` epochs (and after
-        the last), rewrite ``results.csv``."""
+        the last), rewrite ``results.csv``; at the end, with an
+        ``output_dir``, draw ``summary.png``."""
         epochs = epochs or self.cfg.epochs
         for epoch in range(self.start_epoch, epochs):
             train_metrics = self.train_epoch(epoch)
@@ -325,7 +327,23 @@ class ContrastiveTrainer:
         if (self.checkpointer is not None and epochs > self.start_epoch
                 and self.checkpointer.latest_step() != epochs):
             self.checkpointer.save(epochs, self.state)  # final state
+        if self.output_dir:
+            self._plot_summary()
         return self.history
+
+    def _plot_summary(self) -> None:
+        """``summary.png``, the reference's ``pos_img_text.png`` panel
+        (``ATMS_retrieval.py:462-510``). Best-effort, as in the JAX
+        trainer: a finished run does not fail on its plot (matplotlib may
+        be absent), it warns."""
+        path = os.path.join(self.output_dir, "summary.png")
+        try:
+            from eeg_image_decode_tpu_torch.utils.plotting import (
+                plot_training_summary,
+            )
+            plot_training_summary(self.history, path)
+        except Exception as e:  # the run itself succeeded
+            warnings.warn(f"{path} not written: {e!r}", stacklevel=2)
 
     def extract_features(self, eeg, subject_ids,
                          batch_size: int = 2048) -> np.ndarray:

@@ -6,8 +6,12 @@ no JAX, so it runs on a GPU host without JAX or the test suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes: a small one with ragged widths (not multiples of 4, 16 or 32) and
-the full ATM-S serving width; float32 and bfloat16.
+the full ATM-S serving width; float32 and bfloat16. At the end, the CLIP
+towers of ``cli features`` (plain PyTorch, no kernel of the port) in
+bfloat16 against float32, and the command itself, on the card.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -550,3 +554,124 @@ def test_attention_mma_refuses_shapes_past_its_limits(cuda):
     with pytest.raises(ValueError, match="mma_bf16"):
         fused_attention_layer(x.bfloat16(),
                               {k: v.bfloat16() for k, v in params.items()}, 4)
+
+
+# ——— the CLIP towers of cli features (plain PyTorch: no TPU kernel) ———
+
+
+def _cosines(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1)
+
+
+@pytest.mark.cuda
+def test_clip_towers_bf16_against_fp32_on_card(cuda):
+    """ViT-H/14 widths at 4 layers (the full 32 run in chip_smoke.py), the
+    same seeded weights: bf16 holds fp32 at per-row cosine ≥ 0.999 (pooled
+    features, the vision grid, the text states); fp32 on the card holds
+    fp32 on the CPU at 1e-4 (no TF32)."""
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPTextConfig,
+        CLIPTextTower,
+        CLIPVisionConfig,
+        CLIPVisionTower,
+        clip_preprocess,
+    )
+
+    vcfg = dataclasses.replace(CLIPVisionConfig.vit_h_14(), layers=4)
+    tcfg = dataclasses.replace(CLIPTextConfig.vit_h_14(), layers=4)
+    rng = np.random.default_rng(21)
+    imgs = clip_preprocess(torch.from_numpy(
+        rng.random((4, 224, 224, 3)).astype(np.float32)))
+    ids = torch.from_numpy(rng.integers(1, 49000, (4, 77)).astype(np.int32))
+    ids[torch.arange(4), torch.tensor([5, 9, 30, 76])] = 49407
+    towers = {}
+    for name, cls, cfg in (("vision", CLIPVisionTower, vcfg),
+                           ("text", CLIPTextTower, tcfg)):
+        cpu = cls(cfg, seed=3).eval()
+        with torch.device(cuda):
+            fp32 = cls(cfg).eval()
+            bf16 = cls(cfg, dtype=torch.bfloat16).eval()
+        fp32.load_state_dict(cpu.state_dict())
+        bf16.load_state_dict(cpu.state_dict())
+        towers[name] = (cpu, fp32, bf16)
+    with torch.inference_mode():
+        cpu, fp32, bf16 = towers["vision"]
+        want = cpu(imgs)
+        got32, got16 = fp32(imgs.to(cuda)), bf16(imgs.to(cuda))
+        grid32 = fp32(imgs.to(cuda), return_grid=True)
+        grid16 = bf16(imgs.to(cuda), return_grid=True)
+        cpu, fp32, bf16 = towers["text"]
+        t_want = cpu(ids, return_states=True)
+        t32 = fp32(ids.to(cuda), return_states=True)
+        t16 = bf16(ids.to(cuda), return_states=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got32.cpu(), want, rtol=1e-4, atol=1e-4)
+    for k in t_want:
+        torch.testing.assert_close(t32[k].cpu(), t_want[k], rtol=1e-4,
+                                   atol=1e-4, msg=k)
+    assert got16.dtype == torch.float32 and got16.shape == (4, 1024)
+    for name, a, b in (("vision", got16, got32), ("grid", grid16, grid32),
+                       *((f"text {k}", t16[k], t32[k]) for k in t32)):
+        cos = _cosines(a, b).min().item()
+        assert cos >= 0.999, (name, cos)
+
+
+@pytest.mark.cuda
+def test_cli_features_tiny_on_card(cuda, tmp_path):
+    """``cli features --tiny`` on the card against the same command on the
+    CPU: the same cache file name, features within 1e-4."""
+    import contextlib
+    import io
+    import json
+    import pickle
+
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.data.features import load_features
+    from PIL import Image
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_clip_vocab,
+    )
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPTextConfig,
+        CLIPTextTower,
+        CLIPVisionConfig,
+        CLIPVisionTower,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import (
+        clip_tree_from_state_dict,
+    )
+
+    rng = np.random.default_rng(22)
+    images = tmp_path / "images"
+    for name in ("00001_aardvark", "00002_ice_cream", "00003_abacus"):
+        (images / name).mkdir(parents=True)
+        Image.fromarray(rng.integers(0, 256, (32, 40, 3), dtype=np.uint8)
+                        ).save(images / name / "a.png")
+    vocab, merges = write_synthetic_clip_vocab(
+        str(tmp_path), ["This picture is aardvark", "This picture is "
+                        "ice_cream", "This picture is abacus"],
+        vocab_size=600)
+    vcfg = CLIPVisionConfig.tiny()
+    tcfg = CLIPTextConfig(vocab_size=600, context_length=16, width=32,
+                          layers=2, heads=2, embed_dim=vcfg.embed_dim)
+    params = {"vision": clip_tree_from_state_dict(
+                  CLIPVisionTower(vcfg, seed=1).state_dict(), "vision", 2),
+              "text": clip_tree_from_state_dict(
+                  CLIPTextTower(tcfg, seed=2).state_dict(), "text", 2)}
+    with open(tmp_path / "clip.pkl", "wb") as f:
+        pickle.dump(params, f)
+    lines = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["features", "--images-dir", str(images),
+                      "--clip-params", str(tmp_path / "clip.pkl"),
+                      "--vocab", vocab, "--merges", merges, "--cache-dir",
+                      str(tmp_path / device), "--tiny", "--device", device])
+        lines[device] = json.loads(buf.getvalue().splitlines()[-1])
+    got, want = lines["cuda"], lines["cpu"]
+    assert got["cache"].rsplit("/", 1)[1] == want["cache"].rsplit("/", 1)[1]
+    g, w = load_features(got["cache"]), load_features(want["cache"])
+    for k in ("img_features", "text_features"):
+        assert g[k].shape == (3, vcfg.embed_dim)
+        np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-4, err_msg=k)

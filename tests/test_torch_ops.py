@@ -108,23 +108,55 @@ def test_cpu_wrappers_launch_no_kernel():
     assert _build.LAUNCHES == {k: 0 for k in _build.LAUNCHES}
 
 
-def test_package_imports_without_jax():
-    """The port imports no JAX, flax, optax, orbax or JAX-package module."""
+def test_package_imports_without_jax(tmp_path):
+    """The port imports no JAX, flax, optax, orbax or JAX-package module,
+    also when ``cli features --tiny`` runs (its pickle reader, towers,
+    tokenizer, image reader and cache writer) and a plot is drawn."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
         "import eeg_image_decode_tpu_torch.core.checkpoint\n"
         "import eeg_image_decode_tpu_torch.data.features\n"
         "import eeg_image_decode_tpu_torch.data.things_eeg\n"
+        "import eeg_image_decode_tpu_torch.data.tokenizers\n"
+        "import eeg_image_decode_tpu_torch.models.clip_vit\n"
         "import eeg_image_decode_tpu_torch.ops.philox\n"
         "import eeg_image_decode_tpu_torch.data.synthetic\n"
         "import eeg_image_decode_tpu_torch.losses\n"
         "import eeg_image_decode_tpu_torch.train.contrastive\n"
         "import eeg_image_decode_tpu_torch.train.evaluator\n"
+        "import eeg_image_decode_tpu_torch.utils.convert\n"
+        "import eeg_image_decode_tpu_torch.utils.convert_clip\n"
+        "import eeg_image_decode_tpu_torch.utils.plotting\n"
+        "import pickle, numpy as np\n"
+        "from eeg_image_decode_tpu_torch import cli\n"
+        "from PIL import Image\n"
+        "from eeg_image_decode_tpu_torch.data.synthetic import "
+        "write_synthetic_clip_vocab\n"
+        "from eeg_image_decode_tpu_torch.models import clip_vit as c\n"
+        "from eeg_image_decode_tpu_torch.utils.convert_clip import "
+        "clip_tree_from_state_dict as tree\n"
+        "from eeg_image_decode_tpu_torch.utils.plotting import "
+        "plot_training_summary\n"
+        "d = sys.argv[1]\n"
+        "import os; os.makedirs(d + '/img/00001_cat')\n"
+        "Image.new('RGB', (40, 32)).save(d + '/img/00001_cat/a.png')\n"
+        "v, m = write_synthetic_clip_vocab(d, ['This picture is cat'], "
+        "vocab_size=600)\n"
+        "vc = c.CLIPVisionConfig.tiny()\n"
+        "tc = c.CLIPTextConfig(vocab_size=600, context_length=16, width=32, "
+        "layers=2, heads=2, embed_dim=32)\n"
+        "pickle.dump({'vision': tree(c.CLIPVisionTower(vc, seed=0)"
+        ".state_dict(), 'vision', 2), 'text': tree(c.CLIPTextTower(tc, "
+        "seed=1).state_dict(), 'text', 2)}, open(d + '/p.pkl', 'wb'))\n"
+        "cli.main(['features', '--images-dir', d + '/img', '--clip-params', "
+        "d + '/p.pkl', '--vocab', v, '--merges', m, '--cache-dir', d, "
+        "'--tiny', '--device', 'cpu'])\n"
+        "plot_training_summary([{'epoch': 0, 'loss': 1.0}], d + '/s.png')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"
     )
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+    subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,
+                   check=True, timeout=120)

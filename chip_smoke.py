@@ -88,7 +88,11 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    ``cli export-checkpoint`` on that run; the ``.pth`` loads back through
    ``utils/convert.py::convert_atms_state_dict`` bit-equal to the restored
    run, and serves the same top-5 on the tree's test EEG as ``cli
-   serve``'s service of the run.
+   serve``'s service of the run. The resumed ``train-retrieval`` call also
+   exports its features (``--export-features``), on which ``cli
+   train-prior`` trains two epochs (its ``diffusion_prior.pkl`` read back
+   and sampled), and ``cli train-lowlevel`` trains one epoch on sub-01's
+   training EEG with one seeded latent per trial (full model widths).
 7. ``cli features`` at the published OpenCLIP ViT-H/14 widths in bf16
    (vision 32 × 1280, text 24 × 1024) from seeded random weights, written
    as the ``--clip-params`` pickle and read back: a 200-concept
@@ -102,7 +106,31 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    device side's, the pickle's write seconds, the command's seconds and
    its peak device memory. No TPU kernel lies on this path (the JAX
    towers are plain XLA), so it adds no row to the kernels line.
-8. One JSON line listing the kernels, then the result line
+8. The diffusion prior at full width (``PriorConfig()``: 1024 → (1024,
+   512, 256, 128, 64), fp32). Right after phase 4, its trainer's
+   ``export_features`` writes the pairs on the card (the eval forward over
+   the 66,160 training and 200 test rows; its launches count into the main
+   path). ``PriorPipe`` trains 3 epochs on the 66,160 pairs at B 1024; a
+   second pipe launched as the same 3-epoch job trains 2 with a checkpoint
+   each, and a fresh pipe resumes it to epoch 3, whose per-step losses and
+   final weights must equal the uninterrupted run's bit for bit. Then CFG
+   sampling of the 200 test rows, 50 steps at guidance 5.0 (per-row keys:
+   each row sampled in a permuted batch and in two smaller batches must
+   agree with the full batch within ``REBATCH_TOL``; bit-equality is
+   reported), and one training step's kernel launches and device time from
+   a ``torch.profiler`` trace. Step p50, epoch seconds, sampling ms and
+   samples/s, peak device memory.
+9. The low-level encoder at full width (``LowLevelConfig()``, 143 M
+   parameters, fp32, no TF32): phase 4's 66,160 × 63 × 250 EEG with one
+   latent per trial, 66,160 × 4 × 64 × 64 fp32 (4.3 GB) drawn on the card
+   from ``SEED``, B 30: two epochs (2,205 steps each) with a checkpoint
+   after each, and a fresh trainer resumed from the first checkpoint,
+   whose second epoch must equal the uninterrupted one bit for bit. Step
+   p50, epoch seconds, the kernel launches and device time of one step,
+   peak device memory and the TF32 settings.
+   No TPU kernel lies inside the prior or the low-level encoder (the JAX
+   modules are plain XLA), so phases 8-9 add no row to the kernels line.
+10. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -190,7 +218,8 @@ def device_ms(torch, fn, reps: int = 10) -> float:
 
 def top_kernels(torch, fn, n: int = 8) -> dict:
     """Device ms per call of the ``n`` kernels that take the most of one
-    warm call in a ``torch.profiler`` trace, by kernel name, and of all."""
+    warm call in a ``torch.profiler`` trace, by kernel name, and of all;
+    ``launches``: the kernels the call launched."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -199,12 +228,17 @@ def top_kernels(torch, fn, n: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    launches = 0
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # device kernels only: not an optimizer's user-annotation span
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            launches += 1
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
-    return {"all": sum(by_name.values()), **{k[:80]: v for k, v in top.items()}}
+    return {"all": sum(by_name.values()), "launches": launches,
+            **{k[:80]: v for k, v in top.items()}}
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -1632,7 +1666,8 @@ def cli_path(torch, main_launches: dict,
                              "2", "--output-dir",
                              os.path.join(tmp, "runs")])
     row3, _ = run_cli(["train-retrieval", *train_args, "--epochs", "3",
-                       "--resume-dir", run_dir])
+                       "--resume-dir", run_dir, "--export-features",
+                       os.path.join(tmp, "cli_pairs.npz")])
     # the trainer's evaluation after epoch 2 drew from seed + 104729·2
     scored, _ = run_cli(["evaluate", *common, "--run-dir", run_dir,
                          "--seed", str(seed + 104729 * 2)])
@@ -1920,6 +1955,305 @@ def export_path(torch, run_dir: str, root: str, feats: str,
     return row
 
 
+# ——— phase 8: the diffusion prior at full width ———
+
+#: the DDPM sampling of the reference: 50 steps at guidance 5.0
+PRIOR_STEPS, PRIOR_GUIDANCE = 50, 5.0
+#: a row sampled in another order or another batch against the same row
+#: in the full batch: max |Δ| at most this (the products may sum in another
+#: order; whether the rows are bit-equal is reported)
+REBATCH_TOL = 1e-4
+
+
+def prior_pairs_path(torch, trainer, main_launches: dict, tmp: str) -> dict:
+    """Phase 4's trainer writes the prior's training pairs on the card
+    (``export_features``): the eval forward over the 66,160 training and
+    200 test rows. Its launches count into the main path."""
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    path = os.path.join(tmp, "pairs.npz")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    trainer.export_features(path)
+    export_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, launches)
+    with np.load(path) as z:
+        pairs = {k: z[k] for k in z.files}
+    shapes = {k: list(v.shape) for k, v in pairs.items()}
+    if (pairs["eeg_features"].shape != (66160, 1024)
+            or pairs["img_features"].shape != (66160, 1024)
+            or pairs["eeg_features_test"].shape != (200, 1024)
+            or not all(np.isfinite(v).all() for v in pairs.values())
+            or not (launches["attention_fwd"] and launches["tsconv_fwd"])):
+        raise RuntimeError(f"export_features: {shapes}, launches {launches}")
+    emit({"phase": "prior_export", "export_s": export_s, "shapes": shapes,
+          "launches": launches})
+    return pairs
+
+
+def prior_path(torch, card: str, pairs: dict, tmp: str) -> dict:
+    """``PriorPipe(PriorConfig())`` on the exported pairs: 2 epochs with a
+    checkpoint each, a fresh pipe resumed to epoch 3 against an
+    uninterrupted 3-epoch run (bit for bit), then CFG sampling of the 200
+    test rows and its per-row determinism."""
+    from eeg_image_decode_tpu_torch.core.checkpoint import Checkpointer
+    from eeg_image_decode_tpu_torch.core.config import PriorConfig
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    cfg = PriorConfig(seed=SEED % 1000)
+    c, h = pairs["eeg_features"], pairs["img_features"]
+    n_steps = len(c) // cfg.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    whole = PriorPipe(cfg, device="cuda")
+    h_whole = whole.train(c, h, epochs=3, log_fn=None)
+    step_ms = whole.last_steps["step_ms"]
+    ref_losses = whole.last_steps["step_loss"].cpu().numpy()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    ckpt_dir = os.path.join(tmp, "prior_ckpt")
+    part = PriorPipe(cfg, device="cuda")
+    part.init(total_steps=n_steps * 3)          # launched as a 3-epoch job
+    part.train(c, h, epochs=2, log_fn=None,
+               checkpointer=Checkpointer(ckpt_dir), ckpt_every_epochs=1)
+    resumed = PriorPipe(cfg, device="cuda")
+    t0 = time.perf_counter()
+    h_res = resumed.train(c, h, epochs=3, log_fn=None, resume=True,
+                          checkpointer=Checkpointer(ckpt_dir))
+    resumed_epoch_s = time.perf_counter() - t0
+    got = resumed.last_steps["step_loss"].cpu().numpy()
+    same_losses = bool(np.array_equal(got, ref_losses))
+    same_weights = all(
+        torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                          whole.model.state_dict().values()))
+    norms = whole.last_steps["grad_norm"].cpu().numpy()
+    losses = [r["loss"] for r in h_whole]
+    if not (same_losses and same_weights
+            and [r["epoch"] for r in h_res] == [0, 1, 2]
+            and np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError(f"prior: resumed epoch bit-equal {same_losses}, "
+                           f"weights {same_weights}, losses {losses}")
+
+    # sampling: the 200 test rows, 50 steps, guidance 5.0
+    test = torch.as_tensor(pairs["eeg_features_test"], device="cuda")
+    keys = torch.arange(len(test), dtype=torch.int64, device="cuda") + SEED
+
+    def sample(rows=None):
+        sel = slice(None) if rows is None else rows
+        return whole.generate(test[sel], num_inference_steps=PRIOR_STEPS,
+                              guidance_scale=PRIOR_GUIDANCE,
+                              row_keys=keys[sel])
+
+    out = sample()
+    sample_ms = cuda_ms(torch, lambda: whole.generate(
+        test, num_inference_steps=PRIOR_STEPS,
+        guidance_scale=PRIOR_GUIDANCE), reps=5)
+    keyed_ms = cuda_ms(torch, sample, reps=3)
+    perm = torch.randperm(len(test), generator=torch.Generator().manual_seed(
+        SEED)).to("cuda")
+    permuted = sample(perm)
+    split = torch.cat([sample(slice(0, 37)), sample(slice(37, None))])
+    perm_equal = bool(torch.equal(permuted, out[perm]))
+    perm_err = float((permuted - out[perm]).abs().max())
+    split_equal = bool(torch.equal(split, out))
+    split_err = float((split - out).abs().max())
+    if not (torch.isfinite(out).all() and out.shape == (len(test),
+                                                        cfg.embed_dim)
+            and max(perm_err, split_err) <= REBATCH_TOL):
+        raise RuntimeError(f"prior sampling: a row differs with its batch: "
+                           f"permuted max |Δ| {perm_err}, re-batched "
+                           f"{split_err}")
+
+    batch = torch.as_tensor(c[:cfg.batch_size], device="cuda")
+    target = torch.as_tensor(h[:cfg.batch_size], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def one_step():
+        noise = torch.randn(target.shape, generator=gen, device="cuda")
+        t = torch.randint(0, 1000, (len(target),), generator=gen,
+                          device="cuda")
+        whole.model.train()
+        whole._update(whole._loss(target, batch, t, noise,
+                                  torch.ones(len(target), device="cuda"),
+                                  train=True, generator=gen))
+
+    census = top_kernels(torch, one_step, n=6)
+    p50 = float(np.median(step_ms[3:]))
+    row = {"phase": "prior", "card": card, "dtype": "float32",
+           "params": sum(p.numel() for p in whole.model.parameters()),
+           "pairs": len(c), "batch": cfg.batch_size, "steps_per_epoch":
+           n_steps, "epoch_loss": losses, "step_ms_p50": p50,
+           "step_ms_min": float(np.min(step_ms[3:])),
+           "step_ms_max": float(np.max(step_ms[3:])),
+           "epoch_s": [r["epoch_time_s"] for r in h_whole],
+           "resumed_epoch_s": resumed_epoch_s,
+           "resumed_epoch_bit_equal": same_losses,
+           "resumed_weights_bit_equal": same_weights,
+           "clip_active_steps_last_epoch": int((norms >= 1.0).sum()),
+           "grad_norm_last_epoch_min_max": [float(norms.min()),
+                                            float(norms.max())],
+           "step_launches": census.pop("launches"),
+           "step_device_ms": census.pop("all"),
+           "step_top_device_ms": census,
+           "peak_mem_gb": peak_gb,
+           "sample_rows": len(test), "sample_steps": PRIOR_STEPS,
+           "guidance": PRIOR_GUIDANCE, "sample_ms": sample_ms,
+           "samples_per_s": len(test) / (sample_ms / 1e3),
+           "sample_row_keys_ms": keyed_ms,
+           "permuted_rows_bit_equal": perm_equal,
+           "permuted_max_abs_diff": perm_err,
+           "rebatched_rows_bit_equal": split_equal,
+           "rebatched_max_abs_diff": split_err,
+           "sample_norm_mean": float(out.norm(dim=-1).mean())}
+    emit(row)
+    return row
+
+
+def prior_cli_path(torch, pairs_path: str, tmp: str) -> dict:
+    """``cli train-prior`` on the pairs phase 6's run exported."""
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    out = os.path.join(tmp, "prior_cli")
+    t0 = time.perf_counter()
+    last, _ = run_cli(["train-prior", "--eeg-features", pairs_path,
+                       "--epochs", "2", "--output-dir", out, "--seed", "7"])
+    cli_s = time.perf_counter() - t0
+    pipe = PriorPipe.from_checkpoint(os.path.join(out, "diffusion_prior.pkl"))
+    with np.load(pairs_path) as z:
+        test = torch.as_tensor(z["eeg_features_test"], device="cuda")
+    sample = pipe.generate(test, num_inference_steps=10)
+    row = {"phase": "prior_cli", "row": last, "cli_s": cli_s,
+           "sample_shape": list(sample.shape)}
+    emit(row)
+    if last["epoch"] != 1 or not np.isfinite(last["loss"]) \
+            or not bool(sample.isfinite().all()):
+        raise RuntimeError(f"cli train-prior: {row}")
+    return row
+
+
+# ——— phase 9: the low-level VAE-latent trainer at full width ———
+
+def lowlevel_path(torch, card: str, eeg, tmp: str) -> dict:
+    """``LowLevelTrainer(LowLevelConfig())`` on phase 4's EEG with per-trial
+    latents drawn on the card: two epochs uninterrupted (a checkpoint after
+    each), and a fresh trainer resumed from the first epoch's checkpoint,
+    whose second epoch must equal the uninterrupted one bit for bit."""
+    import shutil
+
+    from eeg_image_decode_tpu_torch.core.checkpoint import Checkpointer
+    from eeg_image_decode_tpu_torch.core.config import LowLevelConfig
+    from eeg_image_decode_tpu_torch.train.lowlevel import (
+        CUDNN_FLAGS,
+        LowLevelTrainer,
+    )
+
+    cfg = LowLevelConfig(epochs=2)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    t0 = time.perf_counter()
+    lat = torch.randn((len(eeg), *cfg.latent_shape), generator=g,
+                      device="cuda")
+    torch.cuda.synchronize()
+    latents_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = os.path.join(tmp, "lowlevel_ckpt")
+    whole = LowLevelTrainer(cfg, device="cuda")
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": CUDNN_FLAGS["allow_tf32"]}
+    h_whole = whole.train(eeg, lat, seed=7, log_fn=None,
+                          checkpointer=Checkpointer(ckpt_dir),
+                          ckpt_every_epochs=1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = whole.last_steps["step_ms"]
+    ref = whole.last_steps["step_loss"].cpu().numpy()
+    n_steps = len(ref)
+    # a fresh trainer resumes from the checkpoint after epoch 1
+    first = os.path.join(tmp, "lowlevel_first")
+    os.makedirs(first)
+    shutil.copytree(os.path.join(ckpt_dir, "1"), os.path.join(first, "1"))
+    shutil.copy(os.path.join(ckpt_dir, "history.json"), first)
+    resumed = LowLevelTrainer(cfg, device="cuda")
+    t0 = time.perf_counter()
+    h_res = resumed.train(eeg, lat, seed=7, log_fn=None, resume=True,
+                          checkpointer=Checkpointer(first))
+    resumed_epoch_s = time.perf_counter() - t0
+    got = resumed.last_steps["step_loss"].cpu().numpy()
+    same_losses = bool(np.array_equal(got, ref))
+    same_weights = all(
+        torch.equal(a, b) for a, b in zip(resumed.model.state_dict().values(),
+                                          whole.model.state_dict().values()))
+    losses = [r["loss"] for r in h_whole]
+    first_k, last_k = float(ref[:50].mean()), float(ref[-50:].mean())
+    pred = whole.predict(eeg[:4])
+    if not (same_losses and same_weights and n_steps >= 200
+            and [r["epoch"] for r in h_res] == [0, 1]
+            and np.all(np.isfinite(losses))
+            and pred.shape == (4, 64, 64, 4)
+            and bool(pred.isfinite().all())):
+        raise RuntimeError(f"lowlevel: {n_steps} steps, resumed epoch "
+                           f"bit-equal {same_losses}, weights "
+                           f"{same_weights}, losses {losses}")
+
+    x, y = eeg[:cfg.batch_size], lat[:cfg.batch_size]
+
+    def one_step():
+        whole.model.train()
+        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
+            loss = torch.mean(torch.abs(whole.model(x, train=True) - y))
+            whole.state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        whole.state.optimizer.step()
+
+    census = top_kernels(torch, one_step)
+    p50 = float(np.median(step_ms[3:]))
+    row = {"phase": "lowlevel", "card": card, "dtype": "float32",
+           "tf32": tf32, "cudnn_deterministic": CUDNN_FLAGS["deterministic"],
+           "params": sum(p.numel() for p in whole.model.parameters()),
+           "trials": len(eeg), "latents_gb": lat.numel() * 4 / 1e9,
+           "latents_on_card_s": latents_s, "batch": cfg.batch_size,
+           "steps_per_epoch": n_steps, "epoch_loss": losses,
+           "loss_first50_last50_epoch2": [first_k, last_k],
+           "step_ms_p50": p50, "step_ms_min": float(np.min(step_ms[3:])),
+           "step_ms_max": float(np.max(step_ms[3:])),
+           "epoch_s": [r["epoch_time_s"] for r in h_whole],
+           "epoch_s_estimate_from_p50": p50 * n_steps / 1e3,
+           "resumed_epoch_s": resumed_epoch_s,
+           "resumed_epoch_bit_equal": same_losses,
+           "resumed_weights_bit_equal": same_weights,
+           "step_launches": census.pop("launches"),
+           "step_device_ms": census.pop("all"),
+           "step_top_device_ms": census,
+           "peak_mem_gb": peak_gb}
+    emit(row)
+    return row
+
+
+def lowlevel_cli_path(torch, root: str, tmp: str) -> dict:
+    """``cli train-lowlevel`` on phase 6's tree: sub-01's training EEG with
+    one seeded latent per trial."""
+    from eeg_image_decode_tpu_torch.data.things_eeg import (
+        load_things_eeg_subject,
+    )
+
+    eeg, _ = load_things_eeg_subject(root, "sub-01", train=True)
+    lat = np.random.default_rng(SEED).normal(
+        size=(len(eeg), 4, 64, 64)).astype(np.float32)
+    path = os.path.join(tmp, "latents.npz")
+    np.savez(path, latents=lat)
+    out = os.path.join(tmp, "lowlevel_cli")
+    t0 = time.perf_counter()
+    last, _ = run_cli(["train-lowlevel", "--data-path", root, "--subjects",
+                       "sub-01", "--latents", path, "--epochs", "1",
+                       "--output-dir", out])
+    row = {"phase": "lowlevel_cli", "trials": len(eeg), "row": last,
+           "cli_s": time.perf_counter() - t0,
+           "checkpoints": sorted(os.listdir(os.path.join(out, "ckpt")))}
+    emit(row)
+    if last["epoch"] != 0 or not np.isfinite(last["loss"]) \
+            or "1" not in row["checkpoints"]:
+        raise RuntimeError(f"cli train-lowlevel: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -1981,23 +2315,35 @@ def main() -> int:
     data_s = time.perf_counter() - t0
     train_row, trainer = train_path(torch, card, train, test, data_s)
     grad_check(torch, trainer)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_prior_")
+    export_launches: dict = {}
+    pairs = prior_pairs_path(torch, trainer, export_launches, work.name)
     del trainer
 
     # launches on the main paths: the serving requests, the training epoch
-    # and the evaluation, the fused-head joint run and the CLI (each counted
-    # from 0). The seeded mask draws are device functions of the seeded
-    # forwards and the backwards, not launches.
+    # and the evaluation, the export of the prior's pairs, the fused-head
+    # joint run and the CLI (each counted from 0). The seeded mask draws
+    # are device functions of the seeded forwards and the backwards, not
+    # launches.
     main_path = {k: sum(r["launches"][k] for r in serve_rows)
                  + train_row["launches_train"][k]
                  + train_row["launches_eval"][k]
                  for k in _build.LAUNCHES}
+    add_launches(main_path, export_launches)
     fused_joint_path(torch, card, train, test, train_row["step_ms_p50"],
                      main_path)
+    eeg = train.eeg
     del train, test
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         _, run_dir, root, feats = cli_path(torch, main_path, tmp)
         export_path(torch, run_dir, root, feats, main_path)
+        prior_cli_path(torch, os.path.join(tmp, "cli_pairs.npz"), tmp)
+        lowlevel_cli_path(torch, root, tmp)
     features_path(torch, card)
+    with work:
+        prior_path(torch, card, pairs, work.name)
+        del pairs
+        lowlevel_path(torch, card, eeg, work.name)
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

@@ -1,6 +1,6 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
 Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
-``evaluate`` and ``export-checkpoint``.
+``evaluate``, ``export-checkpoint``, ``train-prior`` and ``train-lowlevel``.
 
     python -m eeg_image_decode_tpu_torch.cli features \\
         --images-dir THINGS/images_set/test_images --split test \\
@@ -19,6 +19,11 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
         [--fused-projection] [--exact-gelu] [--host 127.0.0.1 --port 8080]
     python -m eeg_image_decode_tpu_torch.cli export-checkpoint \\
         --run-dir runs/contrast/atms/sub-01/<run> --out atms.pth
+    python -m eeg_image_decode_tpu_torch.cli train-prior \\
+        --eeg-features feats.npz --output-dir runs/prior [--resume-dir DIR]
+    python -m eeg_image_decode_tpu_torch.cli train-lowlevel \\
+        --data-path DATA --subjects sub-08 --latents latents.npz \\
+        --output-dir runs/lowlevel [--resume-dir DIR]
 
 Dataset paths come from ``--data-config`` (the reference's
 ``data_config.json`` format) or ``--data-path``; ``--features`` is a cached
@@ -35,6 +40,13 @@ bfloat16 (``--tiny``: the tiny towers in float32); ``--clip-params`` is the
 JAX package's pickle of ``{'vision': …, 'text': …}`` param trees of numpy
 arrays (``utils/convert_clip.py``). ``export-checkpoint`` writes a run's
 model in the reference's ``ATMS_retrieval.py`` ``state_dict`` layout.
+
+``train-prior`` trains the diffusion prior on the ``.npz`` that
+``train-retrieval --export-features`` writes (``eeg_features`` →
+``img_features``) and writes ``<dir>/diffusion_prior.pkl`` (the JAX
+package's ``prior-v1`` pickle) beside ``<dir>/ckpt/``. ``train-lowlevel``
+trains the EEG → VAE-latent encoder on one subject's training EEG and
+``--latents`` (key ``latents``, one per EEG trial, NCHW or NHWC).
 
 ``serve`` restores a ``train-retrieval`` run (``--run-dir``, its latest
 checkpoint or ``--step``), or loads ``--weights``, the JAX ATM-S variable
@@ -486,6 +498,78 @@ def cmd_export_checkpoint(args):
     return sd
 
 
+def cmd_train_prior(args):
+    """The diffusion prior on exported (EEG feature, image embedding)
+    pairs; prints the last history row."""
+    import numpy as np
+
+    from eeg_image_decode_tpu_torch.core.config import PriorConfig
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    _refuse_scale_out(args)
+    with np.load(args.eeg_features) as d:
+        c_emb, h_emb = d["eeg_features"], d["img_features"]
+    cfg = PriorConfig(epochs=args.epochs or 150,
+                      batch_size=args.batch_size or 1024,
+                      lr=args.lr or 1e-3, seed=args.seed)
+    pipe = PriorPipe(cfg, device=args.device)
+    out_dir = args.resume_dir or args.output_dir
+    history = pipe.train(c_emb, h_emb,
+                         checkpointer=Checkpointer(os.path.join(out_dir,
+                                                                "ckpt")),
+                         resume=bool(args.resume_dir))
+    pipe.save_with_config(os.path.join(out_dir, "diffusion_prior.pkl"))
+    print(json.dumps(history[-1]))
+    return history
+
+
+#: ``train-lowlevel --tiny``: widths a CPU trains in seconds (the output is
+#: still 4 × 64 × 64)
+TINY_STAGES, TINY_TIME_PROJ = (32, 16, 8, 8, 8, 8), 8
+
+
+def cmd_train_lowlevel(args):
+    """The EEG → VAE-latent encoder on one subject's training EEG; prints
+    the last history row."""
+    import numpy as np
+
+    from eeg_image_decode_tpu_torch.core.config import LowLevelConfig
+    from eeg_image_decode_tpu_torch.data.things_eeg import (
+        load_things_eeg_subject,
+    )
+    from eeg_image_decode_tpu_torch.models.lowlevel import EncoderLowLevel
+    from eeg_image_decode_tpu_torch.train.lowlevel import LowLevelTrainer
+
+    _refuse_scale_out(args)
+    if args.preview_dir or args.vae_params:
+        raise SystemExit("--preview-dir / --vae-params decode previews "
+                         "through the SDXL VAE, which is not ported yet "
+                         "(ROADMAP.md §1, item 5)")
+    eeg, _ = load_things_eeg_subject(_resolve_data_path(args), args.subjects,
+                                     train=True)
+    with np.load(args.latents) as d:
+        latents = d["latents"]
+    cfg = LowLevelConfig(n_channels=eeg.shape[1], seq_len=eeg.shape[2],
+                         time_proj_dim=TINY_TIME_PROJ if args.tiny else 128,
+                         epochs=args.epochs or 200,
+                         batch_size=args.batch_size or 30,
+                         lr=args.lr or 1e-3)
+    model = None
+    if args.tiny:
+        model = EncoderLowLevel(n_channels=cfg.n_channels,
+                                seq_len=cfg.seq_len,
+                                time_proj_dim=cfg.time_proj_dim,
+                                stage_channels=TINY_STAGES)
+    trainer = LowLevelTrainer(cfg, model=model, device=args.device)
+    out_dir = args.resume_dir or args.output_dir
+    history = trainer.train(
+        eeg, latents, seed=args.seed,
+        checkpointer=Checkpointer(os.path.join(out_dir, "ckpt")),
+        resume=bool(args.resume_dir))
+    print(json.dumps(history[-1]))
+    return history
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-config", default=None,
                    help="path to data_config.json (reference format)")
@@ -663,6 +747,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timepoints", type=int, default=250)
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_export_checkpoint)
+
+    p = sub.add_parser("train-prior", help="diffusion prior training")
+    _add_common(p)
+    p.add_argument("--eeg-features", required=True,
+                   help=".npz with eeg_features + img_features (what "
+                        "train-retrieval --export-features writes)")
+    p.add_argument("--resume-dir", default=None,
+                   help="existing run directory: restore the latest "
+                        "checkpoint (the full state) and continue")
+    _add_scale_out(p, ("--mesh",))
+    p.set_defaults(fn=cmd_train_prior)
+
+    p = sub.add_parser("train-lowlevel", help="EEG→VAE-latent training")
+    _add_common(p)
+    p.add_argument("--subjects", default="sub-08")
+    p.add_argument("--latents", required=True,
+                   help=".npz with latents, one per EEG trial")
+    p.add_argument("--resume-dir", default=None,
+                   help="existing run directory: restore the latest "
+                        "checkpoint (the full state) and continue")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny widths for CPU smoke runs (upsampling stages "
+                        "32,16,8,8,8,8, time projection 8); the JAX CLI's "
+                        "--tiny picks the tiny preview VAE, not ported yet")
+    p.add_argument("--preview-dir", default=None,
+                   help="decode sample predictions through the SDXL VAE: "
+                        "not ported yet (ROADMAP.md), exits")
+    p.add_argument("--vae-params", default=None,
+                   help="the SDXL VAE for --preview-dir: not ported yet, "
+                        "exits")
+    _add_scale_out(p, ("--mesh",))
+    p.set_defaults(fn=cmd_train_lowlevel)
     return ap
 
 

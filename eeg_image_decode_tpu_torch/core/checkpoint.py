@@ -1,9 +1,12 @@
 """Checkpoint / resume (counterpart of
 ``eeg_image_decode_tpu/core/checkpoint.py``, which wraps orbax).
 
-The full train state round-trips: the model's ``state_dict`` (parameters
-and BatchNorm statistics), the optimizer's ``state_dict`` and the step
-count, stored with ``torch.save`` as ``<directory>/<step>/state.pt``. A
+The full train state of every trainer round-trips (:class:`TrainState`:
+the contrastive trainer's, the diffusion prior's and the low-level
+trainer's): the model's ``state_dict`` (parameters and BatchNorm
+statistics), the optimizer's ``state_dict`` (its moments and, for the
+prior's and the low-level trainer's optimizer, its update count) and the
+step count, stored with ``torch.save`` as ``<directory>/<step>/state.pt``. A
 checkpoint is written under a temporary name and renamed into place, so a
 run killed mid-save never leaves a half-written checkpoint that
 ``latest_step`` would return. The directory layout mirrors the reference's
@@ -17,15 +20,26 @@ import json
 import os
 import shutil
 import tempfile
+from dataclasses import dataclass
 
 import torch
 
 _STATE_FILE = "state.pt"
 
 
+@dataclass
+class TrainState:
+    """What a trainer checkpoints: the model (parameters and BatchNorm
+    buffers), its optimizer and the number of steps taken."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
 class Checkpointer:
-    """Checkpoints of a train state (``train/contrastive.py::TrainState``)
-    keyed by integer step (the trainer saves the completed-epoch count)."""
+    """Checkpoints of a :class:`TrainState`, keyed by integer step (the
+    trainers save the completed-epoch count)."""
 
     def __init__(self, directory: str, *, max_to_keep: int | None = None):
         self.directory = os.path.abspath(directory)

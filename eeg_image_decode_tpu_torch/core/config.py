@@ -1,8 +1,8 @@
 """Configuration of the port (copy of ``eeg_image_decode_tpu/core/config.py``).
 
-The dataclasses the serving and training slices need are copied:
-``DataConfig``, ``ATMSConfig`` and ``ContrastiveTrainConfig``. Defaults
-reproduce the reference's hyperparameters.
+The dataclasses the ported slices need are copied: ``DataConfig``,
+``ATMSConfig``, ``ContrastiveTrainConfig``, ``PriorConfig`` and
+``LowLevelConfig``. Defaults reproduce the reference's hyperparameters.
 
 The three ``fused_*`` switches name a hand-written CUDA kernel of
 ``ops/``: ``True`` routes through the kernel's wrapper (the kernel for a
@@ -121,3 +121,50 @@ class ContrastiveTrainConfig:
     #: with a checkpointer: save every this many epochs (ref ``:381``), and
     #: always after the last
     ckpt_every_epochs: int = 5
+
+
+@dataclass(frozen=True)
+class PriorConfig:
+    """Diffusion prior (ref ``Generation/diffusion_prior.py:92-203,268-338``)."""
+
+    embed_dim: int = 1024
+    cond_dim: int = 1024
+    hidden_dims: tuple[int, ...] = (1024, 512, 256, 128, 64)
+    time_embed_dim: int = 512
+    dropout: float = 0.0
+    # training
+    num_train_timesteps: int = 1000
+    batch_size: int = 1024
+    epochs: int = 150
+    lr: float = 1e-3
+    warmup_steps: int = 500
+    grad_clip_norm: float = 1.0
+    cond_dropout_prob: float = 0.1
+    # sampling
+    num_inference_steps: int = 50
+    guidance_scale: float = 5.0
+    seed: int = 0
+
+    @staticmethod
+    def tiny() -> "PriorConfig":
+        """Dims matched to the tiny SDXL UNet's 64-d image embeds (the CLI's
+        ``--tiny`` smoke chain, prior → generator)."""
+        return PriorConfig(
+            embed_dim=64, cond_dim=64, hidden_dims=(64, 32),
+            time_embed_dim=32, batch_size=8, epochs=2, warmup_steps=2,
+            num_inference_steps=4,
+        )
+
+
+@dataclass(frozen=True)
+class LowLevelConfig:
+    """VAE-latent low-level encoder training
+    (ref ``Generation/train_vae_latent_512_low_level_no_average.py:219-260,490-545``)."""
+
+    n_channels: int = 63
+    seq_len: int = 250
+    time_proj_dim: int = 128
+    latent_shape: tuple[int, int, int] = (4, 64, 64)
+    batch_size: int = 30
+    epochs: int = 200
+    lr: float = 1e-3

@@ -1,6 +1,7 @@
-"""Shared building blocks of the ATM-S encoder (counterpart of
-``eeg_image_decode_tpu/models/layers.py``): the tsconv stack, the projection
-head and the raw logit scale.
+"""Shared building blocks (counterpart of
+``eeg_image_decode_tpu/models/layers.py``): the ATM-S tsconv stack,
+projection head and raw logit scale, and the diffusion prior's
+:class:`MLPBlock`.
 
 Parameters keep the JAX package's names and layouts (dense kernels are
 (d_in, d_out)); ``utils/convert.py`` maps a JAX variable tree onto them.
@@ -11,6 +12,8 @@ convention) or draws one from a ``torch.Generator`` (:func:`dropout`).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -87,6 +90,15 @@ def layer_norm_fast(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
     mu = h32.mean(-1, keepdim=True)
     var = torch.clamp(h32.square().mean(-1, keepdim=True) - mu * mu, min=0.0)
     return (h32 - mu) * (torch.rsqrt(var + 1e-6) * ln.scale) + ln.bias
+
+
+def layer_norm(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=float32)`` through ``F.layer_norm`` (eps
+    1e-6, fp32 out): one launch each way where :func:`layer_norm_fast`
+    takes a dozen. Its variance sums in another order than flax's fast
+    E[h²] − μ², the same function to fp32 rounding."""
+    return F.layer_norm(h.float(), (h.shape[-1],), ln.scale, ln.bias,
+                        eps=1e-6)
 
 
 class BatchNorm(nn.Module):
@@ -242,3 +254,33 @@ class LogitScale(nn.Module):
 
     def forward(self) -> torch.Tensor:
         return self.logit_scale
+
+
+class MLPBlock(nn.Module):
+    """Dense → LayerNorm (fp32, :func:`layer_norm`) → SiLU → Dropout, the
+    recurring hidden block of the diffusion prior (ref
+    ``Generation/diffusion_prior.py:135-161``). ``dropout_mask``, a
+    pre-scaled keep-mask, replaces the draw whenever it is given (the
+    placement-parity hook of the JAX block)."""
+
+    def __init__(self, d_in: int, features: int, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.Dense_0 = Dense(d_in, features)
+        self.LayerNorm_0 = LNParams(features)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                dropout_mask=None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = F.silu(layer_norm(self.Dense_0(x), self.LayerNorm_0))
+        return dropout(x, self.dropout, train=train, mask=dropout_mask,
+                       generator=generator)
+
+
+@torch.no_grad()
+def lecun_normal_(t: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init, ``lecun_normal``: a normal truncated to
+    ±2 standard units, scaled to variance 1/fan_in."""
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(math.sqrt(1.0 / fan_in) / 0.87962566103423978)

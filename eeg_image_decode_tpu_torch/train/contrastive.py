@@ -44,6 +44,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from eeg_image_decode_tpu_torch.core.checkpoint import TrainState
 from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
 from eeg_image_decode_tpu_torch.data.things_eeg import EEGRetrievalData
 from eeg_image_decode_tpu_torch.losses import (
@@ -52,16 +53,6 @@ from eeg_image_decode_tpu_torch.losses import (
 )
 from eeg_image_decode_tpu_torch.train.evaluator import retrieval_eval
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
-
-
-@dataclass
-class TrainState:
-    """The model (parameters and BatchNorm buffers), its optimizer and the
-    number of steps taken."""
-
-    model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
-    step: int = 0
 
 
 def create_train_state(model: torch.nn.Module,

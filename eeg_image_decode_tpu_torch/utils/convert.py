@@ -13,6 +13,20 @@ live here and nowhere else:
 - ``spatial_conv/kernel`` (C, 1, F, G) HWIO → (C·F, G), c-major rows;
 - ``proj_conv/kernel`` (1, 1, F, E) → (F, E).
 
+The diffusion prior's tree (``models/diffusion_prior.py``) needs no layout
+change. The low-level encoder's (``models/lowlevel.py``, ``params`` and
+``batch_stats``) computes in NCHW with PyTorch's convolutions:
+
+- ``up_{i}/kernel``, flax ``ConvTranspose`` (kh, kw, in, out), unflipped →
+  ``F.conv_transpose2d``'s (in, out, kh, kw), flipped in space (torch's
+  transposed convolution is the gradient of a correlation);
+- ``proj_16/kernel`` and ``proj_out/kernel``, 1 × 1 ``Conv`` (1, 1, in, out)
+  → ``F.conv2d``'s (out, in, 1, 1).
+
+:func:`flax_from_params` is the inverse for the trees the port pickles (the
+prior's and the low-level encoder's). :func:`load_numpy_pickle` reads such
+a pickle, or the JAX package's, without importing JAX.
+
 A joint-training model (``ATMSConfig(joint_train=True)``) has
 ``embedding/subject_value_w`` (subjects, T, d_model) and
 ``embedding/subject_value_b`` in place of ``embedding/value_embedding``, in
@@ -30,6 +44,9 @@ port's keys).
 
 from __future__ import annotations
 
+import pickle
+import re
+
 import numpy as np
 import torch
 
@@ -45,7 +62,15 @@ def _flatten(tree: dict, prefix: str = "", sep: str = "/") -> dict:
     return out
 
 
+_CONV_T = re.compile(r"(^|\.)up_\d+\.kernel$")
+_CONV_1X1 = re.compile(r"(^|\.)proj_(16|out)\.kernel$")
+
+
 def _port_layout(key: str, a: np.ndarray) -> tuple[str, np.ndarray]:
+    if _CONV_T.search(key):  # (kh, kw, in, out) → flipped (in, out, kh, kw)
+        return key, np.transpose(a[::-1, ::-1], (2, 3, 0, 1))
+    if _CONV_1X1.search(key):  # (1, 1, in, out) → (out, in, 1, 1)
+        return key, np.transpose(a, (3, 2, 0, 1))
     if key.endswith("temporal_conv.kernel"):
         return key[: -len(".kernel")] + "_kernel", a.reshape(a.shape[1], -1)
     if key.endswith("spatial_conv.kernel"):
@@ -57,10 +82,11 @@ def _port_layout(key: str, a: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX ATM-S variables → the port's ``state_dict`` (fp32 tensors).
+    """JAX variables (ATM-S, the diffusion prior or the low-level encoder)
+    → the port's ``state_dict`` (fp32 tensors).
 
-    Load it with ``model.load_state_dict(sd, strict=True)`` into
-    ``build_encoder("atms")`` of the same configuration."""
+    Load it with ``model.load_state_dict(sd, strict=True)`` into the port's
+    model of the same configuration."""
     flat = _flatten(variables.get("params", {}), sep=".")
     flat.update(_flatten(variables.get("batch_stats", {}), sep="."))
     sd = {}
@@ -68,6 +94,61 @@ def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
         key, a = _port_layout(key, a)
         sd[key] = torch.from_numpy(np.array(a, dtype=np.float32))
     return sd
+
+
+def flax_from_params(state_dict: dict) -> dict:
+    """The inverse of :func:`params_from_flax` for the diffusion prior's and
+    the low-level encoder's ``state_dict``: ``{"params": tree,
+    "batch_stats": tree}`` of fp32 numpy arrays in the JAX layouts (BatchNorm
+    ``mean`` / ``var`` buffers go to ``batch_stats``). The ATM-S tsconv
+    kernels do not map back from their keys alone and are refused."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, v in state_dict.items():
+        if key.endswith(("temporal_conv_kernel", "spatial_conv.kernel",
+                         "proj_conv.kernel")):
+            raise ValueError(f"{key}: the ATM-S tsconv kernels have no "
+                             "inverse here")
+        a = np.array(v.detach().cpu().numpy() if torch.is_tensor(v) else v,
+                     dtype=np.float32)
+        if _CONV_T.search(key):
+            a = np.transpose(a, (2, 3, 0, 1))[::-1, ::-1]
+        elif _CONV_1X1.search(key):
+            a = np.transpose(a, (2, 3, 1, 0))
+        *parents, leaf = key.split(".")
+        node = out["batch_stats" if leaf in ("mean", "var") else "params"]
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return out
+
+
+class _NumpyOnly(pickle.Unpickler):
+    """Unpickles numpy arrays and plain containers only: a pickle that names
+    a class of JAX (``jax.Array`` leaves) or of any other package is refused
+    before that package is imported."""
+
+    def find_class(self, module: str, name: str):
+        root = module.split(".", 1)[0]
+        if root in ("jax", "jaxlib", "flax"):
+            raise pickle.UnpicklingError(
+                f"the pickle holds {module}.{name} objects (jax.Array "
+                "leaves); write it with numpy leaves instead, e.g. "
+                "jax.tree_util.tree_map(np.asarray, tree)")
+        if root == "numpy" or (module, name) in (
+                ("builtins", "dict"), ("builtins", "list"),
+                ("builtins", "tuple"), ("collections", "OrderedDict"),
+                ("_codecs", "encode")):  # protocol 2 array bytes
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the pickle names {module}.{name}; only numpy arrays in plain "
+            "dicts are read")
+
+
+def load_numpy_pickle(path: str):
+    """A pickle of numpy arrays in plain containers (a JAX param tree as
+    the JAX package writes it), read without importing JAX."""
+    with open(path, "rb") as f:
+        return _NumpyOnly(f).load()
 
 
 def save_flat_npz(variables: dict, path: str) -> None:

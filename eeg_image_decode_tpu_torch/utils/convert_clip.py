@@ -24,10 +24,10 @@ is not ported yet (ROADMAP.md).
 
 from __future__ import annotations
 
-import pickle
-
 import numpy as np
 import torch
+
+from eeg_image_decode_tpu_torch.utils.convert import load_numpy_pickle
 
 
 def _ln_from_flax(out: dict, prefix: str, leaf: dict) -> None:
@@ -166,31 +166,8 @@ def openclip_state_dicts(sd: dict) -> tuple[dict, dict]:
     return _tensors(vision), _tensors(text)
 
 
-class _NumpyOnly(pickle.Unpickler):
-    """Unpickles numpy arrays and plain containers only: a pickle that names
-    a class of JAX (``jax.Array`` leaves) or of any other package is refused
-    before that package is imported."""
-
-    def find_class(self, module: str, name: str):
-        root = module.split(".", 1)[0]
-        if root in ("jax", "jaxlib", "flax"):
-            raise pickle.UnpicklingError(
-                f"the pickle holds {module}.{name} objects (jax.Array "
-                "leaves); write it with numpy leaves instead, e.g. "
-                "jax.tree_util.tree_map(np.asarray, tree)")
-        if root == "numpy" or (module, name) in (
-                ("builtins", "dict"), ("builtins", "list"),
-                ("builtins", "tuple"), ("collections", "OrderedDict"),
-                ("_codecs", "encode")):  # protocol 2 array bytes
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(
-            f"the pickle names {module}.{name}; only numpy arrays in plain "
-            "dicts are read")
-
-
 def load_clip_params(path: str) -> dict:
     """The ``--clip-params`` pickle (``{'vision': tree, 'text': tree}`` of
     numpy arrays, as ``convert_openclip_vision`` / ``_text`` write it),
     read without importing JAX."""
-    with open(path, "rb") as f:
-        return _NumpyOnly(f).load()
+    return load_numpy_pickle(path)

@@ -675,3 +675,131 @@ def test_cli_features_tiny_on_card(cuda, tmp_path):
     for k in ("img_features", "text_features"):
         assert g[k].shape == (3, vcfg.embed_dim)
         np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-4, err_msg=k)
+
+
+# ——— the diffusion prior and the low-level encoder: plain PyTorch on the
+# card (no kernel of the port), one training step against the CPU ———
+
+
+def _rel(a, b):
+    return (torch.linalg.vector_norm(a.double().cpu() - b.double().cpu())
+            / torch.linalg.vector_norm(b.double().cpu()).clamp_min(1e-30)
+            ).item()
+
+
+def _step_on(device, model_state, build, step):
+    """``build(device)`` → (trainer, its model) loaded with ``model_state``;
+    ``step(trainer)`` → the loss. Returns (loss, gradients, trainer)."""
+    trainer, model = build(device)
+    model.load_state_dict(model_state, strict=True)
+    loss = step(trainer)
+    grads = {n: p.grad.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    return loss, grads, trainer
+
+
+@pytest.mark.cuda
+def test_prior_step_on_card_matches_cpu(cuda):
+    """One full-width prior step (B 64, fp32) on the card against the CPU:
+    the loss at 1e-5, each gradient at 1e-4 relative; then the optimizer
+    fed the CPU's gradients on both sides moves the weights alike (1e-6)."""
+    from eeg_image_decode_tpu_torch.core.config import PriorConfig
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    cfg = PriorConfig(batch_size=64)
+    rng = np.random.default_rng(41)
+    c = torch.from_numpy(rng.normal(size=(64, 1024)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(64, 1024)).astype(np.float32))
+    noise = torch.from_numpy(rng.normal(size=(64, 1024)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, 64))
+    keep = torch.ones(64)
+    ref = PriorPipe(cfg, device="cpu")
+    ref.init(total_steps=10)
+    state = {k: v.clone() for k, v in ref.model.state_dict().items()}
+
+    def build(device):
+        pipe = PriorPipe(cfg, device=device)
+        pipe.init(total_steps=10)
+        return pipe, pipe.model
+
+    def step(pipe):
+        dev = pipe.device
+        pipe.model.eval()
+        loss = pipe._loss(h.to(dev), c.to(dev), t.to(dev), noise.to(dev),
+                          keep.to(dev), train=False)
+        pipe.state.optimizer.zero_grad()
+        loss.backward()
+        return loss.item()
+
+    results = {d: _step_on(d, state, build, step) for d in ("cpu", cuda)}
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = results.values()
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), (l_gpu, l_cpu)
+    errs = {n: _rel(g_gpu[n], g_cpu[n]) for n in g_cpu}
+    assert max(errs.values()) <= 1e-4, errs
+    for pipe in (p_cpu, p_gpu):
+        for n, p in pipe.model.named_parameters():
+            p.grad = g_cpu[n].to(p.device)
+        pipe.state.optimizer.step()
+    want = p_cpu.model.state_dict()
+    for n, v in p_gpu.model.state_dict().items():
+        assert _rel(v, want[n]) <= 1e-6, n
+
+
+@pytest.mark.cuda
+def test_lowlevel_step_on_card_matches_cpu(cuda):
+    """One low-level training step (B 8, fp32, no TF32) on the card against
+    the same step on the CPU in float64, the exact reference (the card
+    host's CPU convolution backward in fp32 is itself off by far more than
+    the card's): the L1 loss at 1e-5; the backward from the reference's
+    output gradient, sign(pred − latents)/N (a rounding-level pred −
+    latents can flip a sign: the L1 loss is not smooth), at 1e-4 relative
+    for every gradient but the conv biases ahead of a train-mode BatchNorm,
+    whose gradient is zero up to rounding; the BatchNorm statistics at
+    1e-4; then AdamW fed the same gradients on the card and on the CPU, both
+    fp32, moves the weights alike (1e-6)."""
+    from eeg_image_decode_tpu_torch.core.config import LowLevelConfig
+    from eeg_image_decode_tpu_torch.models.lowlevel import EncoderLowLevel
+    from eeg_image_decode_tpu_torch.train.lowlevel import LowLevelTrainer
+
+    cfg = LowLevelConfig(time_proj_dim=16)
+    rng = np.random.default_rng(42)
+    eeg = torch.from_numpy(rng.normal(size=(8, 63, 250)))
+    lat = torch.from_numpy(0.1 * rng.normal(size=(8, 4, 64, 64)))
+
+    def build(device):
+        t = LowLevelTrainer(cfg, device=device, model=EncoderLowLevel(
+            time_proj_dim=16, stage_channels=(64, 32, 16, 16, 8, 8)))
+        t.init(total_steps=10, steps_per_epoch=1, seed=3)
+        return t
+
+    ref, card, cpu32 = build("cpu"), build(cuda), build("cpu")
+    ref.model.double()
+    out = {}
+    for t, dt in ((ref, torch.float64), (card, torch.float32)):
+        t.model.train()
+        pred = t.model(eeg.to(t.device, dt), train=True)
+        out[dt] = torch.mean(torch.abs(pred - lat.to(t.device, dt))).item()
+        if "dy" not in out:  # the reference's, the first side run
+            out["dy"] = torch.sign(pred - lat).detach() / pred.numel()
+        t.state.optimizer.zero_grad()
+        pred.backward(out["dy"].to(t.device, dt))
+    assert abs(out[torch.float32] - out[torch.float64]) <= 1e-5 * out[
+        torch.float64], out
+    pre_bn = {f"up_{i}.bias" for i in range(6)} | {"proj_16.bias"}
+    want = {n: p.grad for n, p in ref.model.named_parameters()}
+    errs = {n: _rel(p.grad, want[n]) for n, p in card.model.named_parameters()
+            if n not in pre_bn}
+    assert max(errs.values()) <= 1e-4, errs
+    ref_sd = ref.model.state_dict()
+    stats = {n: _rel(v, ref_sd[n]) for n, v in card.model.state_dict().items()
+             if n.endswith((".mean", ".var"))}
+    assert max(stats.values()) <= 1e-4, stats
+    # AdamW on the card against AdamW on the CPU, fed the same gradients
+    cpu32.model.load_state_dict(card.model.state_dict())
+    for t in (cpu32, card):
+        for n, p in t.model.named_parameters():
+            p.grad = want[n].to(p.device, torch.float32)
+        t.state.optimizer.step()
+    moved = cpu32.model.state_dict()
+    for n, v in card.model.state_dict().items():
+        assert _rel(v, moved[n]) <= 1e-6, n

@@ -111,7 +111,9 @@ def test_cpu_wrappers_launch_no_kernel():
 def test_package_imports_without_jax(tmp_path):
     """The port imports no JAX, flax, optax, orbax or JAX-package module,
     also when ``cli features --tiny`` runs (its pickle reader, towers,
-    tokenizer, image reader and cache writer) and a plot is drawn."""
+    tokenizer, image reader and cache writer), a plot is drawn, and the
+    diffusion prior and the low-level encoder train, sample and round-trip
+    their files."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
@@ -123,6 +125,12 @@ def test_package_imports_without_jax(tmp_path):
         "import eeg_image_decode_tpu_torch.ops.philox\n"
         "import eeg_image_decode_tpu_torch.data.synthetic\n"
         "import eeg_image_decode_tpu_torch.losses\n"
+        "import eeg_image_decode_tpu_torch.models.diffusion_prior\n"
+        "import eeg_image_decode_tpu_torch.models.lowlevel\n"
+        "import eeg_image_decode_tpu_torch.ops.ddpm\n"
+        "import eeg_image_decode_tpu_torch.train.lowlevel\n"
+        "import eeg_image_decode_tpu_torch.train.optim\n"
+        "import eeg_image_decode_tpu_torch.train.prior\n"
         "import eeg_image_decode_tpu_torch.train.contrastive\n"
         "import eeg_image_decode_tpu_torch.train.evaluator\n"
         "import eeg_image_decode_tpu_torch.utils.convert\n"
@@ -153,6 +161,24 @@ def test_package_imports_without_jax(tmp_path):
         "d + '/p.pkl', '--vocab', v, '--merges', m, '--cache-dir', d, "
         "'--tiny', '--device', 'cpu'])\n"
         "plot_training_summary([{'epoch': 0, 'loss': 1.0}], d + '/s.png')\n"
+        "from eeg_image_decode_tpu_torch.core.config import PriorConfig, "
+        "LowLevelConfig\n"
+        "from eeg_image_decode_tpu_torch.train.prior import PriorPipe\n"
+        "from eeg_image_decode_tpu_torch.train.lowlevel import "
+        "LowLevelTrainer\n"
+        "from eeg_image_decode_tpu_torch.models.lowlevel import "
+        "EncoderLowLevel\n"
+        "r = np.random.default_rng(0)\n"
+        "p = PriorPipe(PriorConfig.tiny(), device='cpu')\n"
+        "p.train(r.normal(size=(16, 64)), r.normal(size=(16, 64)), epochs=1, "
+        "log_fn=None)\n"
+        "p.generate(r.normal(size=(2, 64)))\n"
+        "PriorPipe.from_checkpoint(p.save_with_config(d + '/prior.pkl'), "
+        "device='cpu')\n"
+        "t = LowLevelTrainer(LowLevelConfig(time_proj_dim=2), device='cpu', "
+        "model=EncoderLowLevel(time_proj_dim=2, stage_channels=(4,) * 6))\n"
+        "t.train(r.normal(size=(4, 63, 250)), r.normal(size=(4, 4, 64, 64)), "
+        "epochs=1, batch_size=2, log_fn=None)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'eeg_image_decode_tpu')]\n"

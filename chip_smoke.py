@@ -92,7 +92,13 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    exports its features (``--export-features``), on which ``cli
    train-prior`` trains two epochs (its ``diffusion_prior.pkl`` read back
    and sampled), and ``cli train-lowlevel`` trains one epoch on sub-01's
-   training EEG with one seeded latent per trial (full model widths).
+   training EEG with one seeded latent per trial (full model widths),
+   decoding its four previews through the full-width SDXL VAE (seeded
+   weights written as the JAX VAE's pickle, ``--vae-params``). Then ``cli
+   latents`` at 512 px on 20 written 500 × 500 JPEGs through that VAE, and
+   ``cli generate`` at full SDXL-turbo width on the run's 20 exported test
+   features and the ``train-prior`` pickle: two seeds from noise, and one
+   from those latents (``--init-latents``, strength 0.5); 512 × 512 PNGs.
 7. ``cli features`` at the published OpenCLIP ViT-H/14 widths in bf16
    (vision 32 × 1280, text 24 × 1024) from seeded random weights, written
    as the ``--clip-params`` pickle and read back: a 200-concept
@@ -130,7 +136,26 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    peak device memory and the TF32 settings.
    No TPU kernel lies inside the prior or the low-level encoder (the JAX
    modules are plain XLA), so phases 8-9 add no row to the kernels line.
-10. One JSON line listing the kernels, then the result line
+10. Generation at full width (``GeneratorConfig()``: the SDXL-turbo UNet
+   with the IP-Adapter, 2.92 B parameters, and the SDXL VAE, 84 M, bf16,
+   built on ``meta`` and filled N(0, 0.02) on the card from ``SEED``):
+   parameter counts and weight memory; one UNet call (B 2, 64 × 64
+   latents, t = 999) and one VAE decode in bf16 against the same weights
+   in fp32, per-row cosine ≥ ``GEN_COSINE``; each stage alone at B 16
+   (CUDA events, operations from PyTorch's FLOP counter, the largest
+   kernels). Then ``ReconstructionService`` (phase 4's trained encoder,
+   phase 8's trained prior at 50 steps and guidance 5.0, ``max_batch``
+   16, 4 Euler-ancestral steps at guidance 0, 512 px) behind the HTTP
+   daemon: requests of 1, 16 and 20 rows (p50 latency and images/s; the
+   images (B, 512, 512, 3), finite, in [0, 1]; the same (seed, row) in
+   each within ``GEN_BATCH_TOL``), two requests the coalescer merges
+   (each row against the same request served alone, ≤ 2/255, bit-equality
+   reported), the attention and tsconv launches of those requests (into
+   the main path), and a 16-row request's device milliseconds split into
+   encoder, prior, UNet steps and VAE decode, with the device's busy
+   time and idle share in a traced one. No TPU kernel lies inside
+   the generator (the JAX UNet, VAE and scheduler are plain XLA).
+11. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -1153,8 +1178,9 @@ def serve_path(torch, variant: str, fused_projection: bool, eeg, sids,
     model = build_encoder("atms", config=cfg, dtype=torch.bfloat16,
                           device="cuda", seed=SEED)
     svc = RetrievalService(model, gallery, max_batch=BATCH, device="cuda")
-    svc.warmup((cfg.n_channels, cfg.seq_len))
+    svc.warmup((cfg.n_channels, cfg.seq_len))  # this thread's direct calls
     server = EEGDecodeServer(retrieval=svc)
+    server.warmup((cfg.n_channels, cfg.seq_len))  # the daemon's device thread
     port = server.start(port=0)
     url = f"http://127.0.0.1:{port}/v1/retrieve"
     try:
@@ -2106,7 +2132,7 @@ def prior_path(torch, card: str, pairs: dict, tmp: str) -> dict:
            "rebatched_max_abs_diff": split_err,
            "sample_norm_mean": float(out.norm(dim=-1).mean())}
     emit(row)
-    return row
+    return row, whole
 
 
 def prior_cli_path(torch, pairs_path: str, tmp: str) -> dict:
@@ -2227,9 +2253,10 @@ def lowlevel_path(torch, card: str, eeg, tmp: str) -> dict:
     return row
 
 
-def lowlevel_cli_path(torch, root: str, tmp: str) -> dict:
+def lowlevel_cli_path(torch, root: str, tmp: str, vae_pkl: str) -> dict:
     """``cli train-lowlevel`` on phase 6's tree: sub-01's training EEG with
-    one seeded latent per trial."""
+    one seeded latent per trial, decoding its previews through the
+    full-width SDXL VAE of ``vae_pkl`` after the epoch."""
     from eeg_image_decode_tpu_torch.data.things_eeg import (
         load_things_eeg_subject,
     )
@@ -2240,17 +2267,388 @@ def lowlevel_cli_path(torch, root: str, tmp: str) -> dict:
     path = os.path.join(tmp, "latents.npz")
     np.savez(path, latents=lat)
     out = os.path.join(tmp, "lowlevel_cli")
+    previews = os.path.join(tmp, "lowlevel_previews")
     t0 = time.perf_counter()
     last, _ = run_cli(["train-lowlevel", "--data-path", root, "--subjects",
                        "sub-01", "--latents", path, "--epochs", "1",
-                       "--output-dir", out])
+                       "--output-dir", out, "--preview-dir", previews,
+                       "--vae-params", vae_pkl, "--preview-every", "1"])
+    shown = sorted(os.listdir(os.path.join(previews, "epoch_0000")))
     row = {"phase": "lowlevel_cli", "trials": len(eeg), "row": last,
            "cli_s": time.perf_counter() - t0,
-           "checkpoints": sorted(os.listdir(os.path.join(out, "ckpt")))}
+           "checkpoints": sorted(os.listdir(os.path.join(out, "ckpt"))),
+           "previews": shown, "preview_shape": list(
+               _png(os.path.join(previews, "epoch_0000", shown[0])).shape)}
     emit(row)
     if last["epoch"] != 0 or not np.isfinite(last["loss"]) \
-            or "1" not in row["checkpoints"]:
+            or "1" not in row["checkpoints"] or len(shown) != 4 \
+            or row["preview_shape"] != [512, 512, 3]:
         raise RuntimeError(f"cli train-lowlevel: {row}")
+    return row
+
+
+def _png(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def write_vae_pickle(torch, path: str) -> dict:
+    """The full-width SDXL VAE (``VAEConfig.sdxl()``) with seeded N(0, 0.02)
+    weights drawn on the card, written as the JAX VAE's param tree of numpy
+    arrays: the ``--vae-params`` input of ``cli latents`` and ``cli
+    train-lowlevel --preview-dir``."""
+    import pickle
+
+    from eeg_image_decode_tpu_torch.gen.sdxl import fill_random_
+    from eeg_image_decode_tpu_torch.gen.vae import VAE, VAEConfig
+    from eeg_image_decode_tpu_torch.utils.convert import flax_from_params
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        vae = VAE(VAEConfig.sdxl(), dtype=torch.bfloat16)
+    fill_random_(vae.to_empty(device="cuda"), SEED + 7)
+    tree = flax_from_params({f"vae.{k}": v
+                             for k, v in vae.state_dict().items()})["vae"]
+    with open(path, "wb") as f:
+        pickle.dump(tree, f, protocol=4)
+    return {"params": sum(p.numel() for p in vae.parameters()),
+            "pickle_mb": os.path.getsize(path) / 1e6,
+            "write_s": time.perf_counter() - t0}
+
+
+#: ``cli generate`` on phase 6's 20 test concepts: one batch of them
+GEN_CLI_BATCH = 20
+
+
+def generate_cli_path(torch, tmp: str, pairs_path: str, prior_pkl: str,
+                      vae_pkl: str) -> dict:
+    """``cli latents`` at 512 px on 20 written images (the VAE of
+    ``vae_pkl``), then ``cli generate`` at full width on the test features
+    of phase 6's run and the prior ``cli train-prior`` wrote: two seeds
+    from noise, and one seed from those latents (``--init-latents``,
+    strength 0.5)."""
+    images = os.path.join(tmp, "gen_images")
+    write_image_tree(images, GEN_CLI_BATCH, SEED + 3)
+    lat_row, _ = run_cli(["latents", "--images-dir", images, "--vae-params",
+                          vae_pkl, "--cache-dir", os.path.join(tmp, "cache"),
+                          "--split", "test", "--batch-size", "8"])
+    with np.load(lat_row["cache"]) as z:
+        lat = z["latents"]
+    if (lat_row["latent_shape"] != [GEN_CLI_BATCH, 64, 64, 4]
+            or not np.isfinite(lat).all()
+            or not os.path.basename(lat_row["cache"]).startswith(
+                "sdxl-vae-512_features_test_")):
+        raise RuntimeError(f"cli latents: {lat_row}")
+    rows = {}
+    for name, extra in (("noise", ["--seeds", "2"]),
+                        ("init_latents", ["--seeds", "1", "--init-latents",
+                                          lat_row["cache"],
+                                          "--img2img-strength", "0.5"])):
+        out = os.path.join(tmp, f"generated_{name}")
+        t0 = time.perf_counter()
+        row, _ = run_cli(["generate", "--eeg-features", pairs_path,
+                          "--prior-params", prior_pkl, "--gen-batch",
+                          str(GEN_CLI_BATCH), "--output-dir", out, *extra])
+        row["cli_s"] = time.perf_counter() - t0
+        dirs = sorted(os.listdir(out))
+        img = _png(os.path.join(out, dirs[-1], "0.png"))
+        row["class_dirs"] = len(dirs)
+        row["png_shape"] = list(img.shape)
+        rows[name] = row
+        if (len(dirs) != GEN_CLI_BATCH or row["resolution"] != 512
+                or list(img.shape) != [512, 512, 3]):
+            raise RuntimeError(f"cli generate ({name}): {row}")
+    out = {"phase": "generate_cli", "latents": lat_row, "generate": rows}
+    emit(out)
+    return out
+
+
+# ——— phase 10: SDXL-turbo + IP-Adapter generation at full width ———
+
+#: bf16 against fp32 on the same seeded weights: per-row cosine at least
+#: this. bf16 keeps 8 bits of mantissa; each of the UNet's 70 transformer
+#: blocks and 24 resnets and the VAE's 30 convolutions rounds its input
+#: and output once, so the errors add up over the depth but stay far below
+#: the signal
+GEN_COSINE = 0.99
+#: a row served alone against the same (seed, row) coalesced with another
+#: request: at most 2/255 in [0, 1] (two 8-bit PNG levels)
+GEN_BATCH_TOL = 2 / 255
+#: rows per reconstruction chunk (the JAX ``serve --gen-batch`` default)
+GEN_BATCH = 16
+#: request sizes of the latency table, and requests per size
+GEN_SIZES, GEN_REPS = (1, 16, 20), 3
+
+
+def _post_bytes(url: str, body: bytes) -> bytes:
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read()
+
+
+def _images(body: bytes) -> np.ndarray:
+    with np.load(io.BytesIO(body)) as z:
+        return z["images"]
+
+
+def _row_cosine(torch, a, b) -> list:
+    return torch.nn.functional.cosine_similarity(
+        a.flatten(1).double(), b.flatten(1).double(), dim=1).tolist()
+
+
+def _flops(torch, fn) -> float:
+    """The multiply-add × 2 operations of one call, from PyTorch's FLOP
+    counter (matmuls, convolutions, attention)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        fn()
+    return float(counter.get_total_flops())
+
+
+def generation_path(torch, card: str, encoder, prior, eeg: np.ndarray,
+                    main_launches: dict) -> dict:
+    """``sdxl_turbo()`` UNet with the IP-Adapter and the ``sdxl()`` VAE in
+    bf16 from the seeded fill; bf16 against fp32 on the same weights (one
+    UNet call at B 2, 64 × 64, t = 999, and one VAE decode); then
+    ``ReconstructionService`` (phase 4's trained encoder, phase 8's trained
+    prior, ``max_batch`` 16, guidance 0, 4 steps, 512 px) behind the HTTP
+    daemon: requests of 1, 16 and 20 rows, and two requests the coalescer
+    merges, each row held against the same (seed, row) served alone."""
+    import threading
+
+    from eeg_image_decode_tpu_torch.gen.sdxl import (
+        Generator4Embeds,
+        GeneratorConfig,
+    )
+    from eeg_image_decode_tpu_torch.gen.unet import SDXLUNet
+    from eeg_image_decode_tpu_torch.gen.vae import VAE
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.serve import ReconstructionService
+    from eeg_image_decode_tpu_torch.server import EEGDecodeServer
+
+    gcfg = GeneratorConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    gen = Generator4Embeds(gcfg, device="cuda")
+    gen.init_random(seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = {
+        "unet": sum(p.numel() for p in gen.unet.parameters()),
+        "unet_ip_adapter": sum(p.numel() for n, p in
+                               gen.unet.named_parameters()
+                               if "_ip." in n or "image_proj." in n),
+        "vae": sum(p.numel() for p in gen.vae.parameters())}
+    weights_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+
+    # bf16 against fp32 on the same weights
+    with torch.device("meta"):
+        net32 = torch.nn.ModuleDict({
+            "unet": SDXLUNet(gcfg.unet, dtype=torch.float32),
+            "vae": VAE(gcfg.vae, dtype=torch.float32)})
+    net32.to_empty(device="cuda")
+    net32.load_state_dict(gen.net.state_dict())
+    net32.eval()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 100)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    lat, ctx, pooled, emb = (randn(2, 4, 64, 64), randn(2, 77, 2048),
+                             randn(2, 1280), randn(2, 1024))
+    t = torch.full((2,), 999, dtype=torch.int64, device="cuda")
+    tids = torch.tensor([[512.0, 512, 0, 0, 512, 512]] * 2, device="cuda")
+    with torch.no_grad():
+        e16 = gen.unet(lat, t, ctx, pooled, tids, emb)
+        e32 = net32["unet"](lat, t, ctx, pooled, tids, emb)
+        d16 = gen.vae.decode(lat)
+        d32 = net32["vae"].decode(lat)
+    precision = {
+        "unet_eps_row_cosine": _row_cosine(torch, e16, e32),
+        "unet_eps_max_abs_diff": float((e16 - e32).abs().max()),
+        "unet_eps_max_abs": float(e32.abs().max()),
+        "vae_decode_row_cosine": _row_cosine(torch, d16, d32),
+        "vae_decode_max_abs_diff": float((d16 - d32).abs().max()),
+        "vae_decode_max_abs": float(d32.abs().max()),
+        "cosine_limit": GEN_COSINE}
+    del net32, e32, d32
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(e16).all() and torch.isfinite(d16).all()
+            and min(precision["unet_eps_row_cosine"]
+                    + precision["vae_decode_row_cosine"]) >= GEN_COSINE):
+        raise RuntimeError(f"generation bf16 against fp32: {precision}")
+
+    # the stages alone at B 16: device time and operations
+    x16 = randn(GEN_BATCH, 4, 64, 64)
+    t16 = torch.full((GEN_BATCH,), 999, dtype=torch.int64, device="cuda")
+    ctx16 = torch.zeros(GEN_BATCH, 77, 2048, device="cuda")
+    tids16 = tids[:1].expand(GEN_BATCH, -1)
+    emb16 = randn(GEN_BATCH, 1024)
+
+    def unet_call():
+        with torch.no_grad():
+            gen.unet(x16, t16, ctx16, None, tids16, emb16)
+
+    def decode_call():
+        with torch.no_grad():
+            gen.vae.decode(x16)
+
+    stages = {
+        "unet_ms_b16": cuda_ms(torch, unet_call, reps=5),
+        "vae_decode_ms_b16": cuda_ms(torch, decode_call, reps=3),
+        "unet_flops_per_image": _flops(torch, lambda: gen.unet(
+            x16[:1], t16[:1], ctx16[:1], None, tids16[:1], emb16[:1])),
+        "vae_decode_flops_per_image": _flops(
+            torch, lambda: gen.vae.decode(x16[:1]))}
+    for k in ("unet", "vae_decode"):
+        stages[f"{k}_tflops_per_s"] = (
+            GEN_BATCH * stages[f"{k}_flops_per_image"]
+            / (stages[f"{k}_ms_b16"] / 1e3) / 1e12)
+    stages["unet_top_device_ms_b16"] = top_kernels(torch, unet_call, n=6)
+    stages["vae_decode_top_device_ms_b16"] = top_kernels(torch, decode_call,
+                                                         n=6)
+
+    svc = ReconstructionService(encoder, prior, gen, max_batch=GEN_BATCH,
+                                device="cuda")
+    server = EEGDecodeServer(reconstruction=svc)
+    t0 = time.perf_counter()
+    server.warmup((eeg.shape[1], eeg.shape[2]))  # on its device thread
+    warmup_s = time.perf_counter() - t0
+    port = server.start(port=0)
+    url = f"http://127.0.0.1:{port}/v1/reconstruct"
+
+    def body(lo, n, seed):
+        return _npz(eeg=eeg[lo:lo + n], subject_ids=np.zeros(n, np.int32),
+                    seed=np.int64(seed))
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        latency, answers = {}, {}
+        for n in GEN_SIZES:
+            times = []
+            for _ in range(GEN_REPS):
+                t0 = time.perf_counter()
+                answers[n] = _images(_post_bytes(url, body(0, n, SEED)))
+                times.append(time.perf_counter() - t0)
+            p50 = float(np.median(times))
+            latency[str(n)] = {"http_p50_s": p50,
+                               "http_min_s": float(np.min(times)),
+                               "images_per_s": n / p50}
+        launches = dict(_build.LAUNCHES)
+        for n in GEN_SIZES:  # the service called directly: no HTTP
+            times = []
+            for _ in range(GEN_REPS):
+                t0 = time.perf_counter()
+                svc.reconstruct(eeg[:n], np.zeros(n, np.int32), seed=SEED)
+                times.append(time.perf_counter() - t0)
+            latency[str(n)]["direct_p50_s"] = float(np.median(times))
+        t0 = time.perf_counter()
+        wire = _npz(images=answers[16])
+        t1 = time.perf_counter()
+        _images(wire)
+        wire_s = {"npz_write_16_s": t1 - t0,
+                  "npz_read_16_s": time.perf_counter() - t1,
+                  "npz_mb_16": len(wire) / 1e6}
+        add_launches(main_launches, launches)
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for n, imgs in answers.items():
+            if (imgs.shape != (n, 512, 512, 3) or imgs.dtype != np.float32
+                    or not np.isfinite(imgs).all() or imgs.min() < 0
+                    or imgs.max() > 1):
+                raise RuntimeError(f"reconstruct {n} rows: shape "
+                                   f"{imgs.shape}, range [{imgs.min()}, "
+                                   f"{imgs.max()}]")
+        if not (launches["attention_fwd"] and launches["tsconv_fwd"]):
+            raise RuntimeError(f"the reconstruction path launched no "
+                               f"forward kernel: {launches}")
+
+        # the same (seed, row) in a 1-row, a 16-row and a 20-row request
+        one_vs_16 = float(np.abs(answers[1] - answers[16][:1]).max())
+        sixteen_vs_20 = float(np.abs(answers[16] - answers[20][:16]).max())
+
+        # two requests the coalescer merges: both are pending when the
+        # device lock is released, so one dispatch serves their 8 rows
+        results = {}
+        pending = server._coalescers["reconstruction"]
+
+        def client(name, lo, n, seed):
+            results[name] = _images(_post_bytes(url, body(lo, n, seed)))
+
+        threads = [threading.Thread(target=client, args=a) for a in
+                   (("a", 0, 3, SEED + 1), ("b", 3, 5, SEED + 2))]
+        with server._device_lock:
+            for th in threads:
+                th.start()
+            deadline = time.perf_counter() + 120
+            while len(pending._pending) < 2:
+                if time.perf_counter() > deadline:
+                    raise RuntimeError("the two requests never queued")
+                time.sleep(0.01)
+        for th in threads:
+            th.join(timeout=600)
+        alone = {"a": svc.reconstruct(eeg[0:3], np.zeros(3, np.int32),
+                                      seed=SEED + 1),
+                 "b": svc.reconstruct(eeg[3:8], np.zeros(5, np.int32),
+                                      seed=SEED + 2)}
+        coalesced_err = max(float(np.abs(results[k] - alone[k]).max())
+                            for k in alone)
+        coalesced_bit_equal = all(np.array_equal(results[k], alone[k])
+                                  for k in alone)
+        if max(coalesced_err, one_vs_16, sixteen_vs_20) > GEN_BATCH_TOL:
+            raise RuntimeError(
+                f"a row's image depends on its batch: coalesced max |Δ| "
+                f"{coalesced_err}, 1 vs 16 rows {one_vs_16}, 16 vs 20 "
+                f"{sixteen_vs_20}")
+
+        # the device split of a 16-row request (CUDA events per stage)
+        direct, splits = [], []
+        for _ in range(GEN_REPS):
+            t0 = time.perf_counter()
+            svc.reconstruct(eeg[:GEN_BATCH], np.zeros(GEN_BATCH, np.int32),
+                            seed=SEED)
+            direct.append(time.perf_counter() - t0)
+            splits.append(dict(svc.stage_ms))
+        split = {k: float(np.median([s[k] for s in splits]))
+                 for k in svc.STAGES}
+        # the device's busy time in one traced 16-row request
+        census = top_kernels(torch, lambda: svc.reconstruct(
+            eeg[:GEN_BATCH], np.zeros(GEN_BATCH, np.int32), seed=SEED), n=6)
+        busy_ms, launches_16 = census.pop("all"), census.pop("launches")
+    finally:
+        server.stop()
+
+    row = {"phase": "generation", "card": card, "dtype": "bfloat16",
+           "params": counts, "weights_gb": weights_gb,
+           "build_s": build_s, "precision": precision, "stages": stages,
+           "max_batch": GEN_BATCH,
+           "steps": gcfg.num_inference_steps,
+           "guidance": gcfg.guidance_scale, "resolution": 512,
+           "prior_steps": prior.cfg.num_inference_steps,
+           "prior_guidance": prior.cfg.guidance_scale,
+           "warmup_s": warmup_s, "latency": latency, "wire": wire_s,
+           "direct_p50_s_16": float(np.median(direct)),
+           "device_ms_16": split,
+           "device_ms_16_total": float(sum(split.values())),
+           "launches_16": launches_16, "device_busy_ms_16": busy_ms,
+           "idle_share_16": 1.0 - busy_ms / (float(np.median(direct)) * 1e3),
+           "top_device_ms_16": census,
+           "launches": launches,
+           "one_vs_16_rows_max_abs_diff": one_vs_16,
+           "sixteen_vs_20_rows_max_abs_diff": sixteen_vs_20,
+           "coalesced_max_abs_diff": coalesced_err,
+           "coalesced_bit_equal": coalesced_bit_equal,
+           "batch_tolerance": GEN_BATCH_TOL,
+           "serve_peak_mem_gb": serve_peak_gb}
+    emit(row)
     return row
 
 
@@ -2318,6 +2716,7 @@ def main() -> int:
     work = tempfile.TemporaryDirectory(prefix="chip_smoke_prior_")
     export_launches: dict = {}
     pairs = prior_pairs_path(torch, trainer, export_launches, work.name)
+    encoder = trainer.model  # phase 10 serves the trained encoder
     del trainer
 
     # launches on the main paths: the serving requests, the training epoch
@@ -2333,17 +2732,25 @@ def main() -> int:
     fused_joint_path(torch, card, train, test, train_row["step_ms_p50"],
                      main_path)
     eeg = train.eeg
+    eeg_test = test.eeg[:40].cpu().numpy()
     del train, test
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         _, run_dir, root, feats = cli_path(torch, main_path, tmp)
         export_path(torch, run_dir, root, feats, main_path)
         prior_cli_path(torch, os.path.join(tmp, "cli_pairs.npz"), tmp)
-        lowlevel_cli_path(torch, root, tmp)
+        vae_pkl = os.path.join(tmp, "vae.pkl")
+        emit({"phase": "vae_pickle", **write_vae_pickle(torch, vae_pkl)})
+        lowlevel_cli_path(torch, root, tmp, vae_pkl)
+        generate_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
+                          os.path.join(tmp, "prior_cli",
+                                       "diffusion_prior.pkl"), vae_pkl)
     features_path(torch, card)
     with work:
-        prior_path(torch, card, pairs, work.name)
+        _, prior = prior_path(torch, card, pairs, work.name)
         del pairs
         lowlevel_path(torch, card, eeg, work.name)
+    del eeg
+    generation_path(torch, card, encoder, prior, eeg_test, main_path)
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

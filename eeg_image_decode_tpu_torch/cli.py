@@ -1,6 +1,7 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
 Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
-``evaluate``, ``export-checkpoint``, ``train-prior`` and ``train-lowlevel``.
+``evaluate``, ``export-checkpoint``, ``train-prior``, ``train-lowlevel``,
+``latents`` and ``generate``.
 
     python -m eeg_image_decode_tpu_torch.cli features \\
         --images-dir THINGS/images_set/test_images --split test \\
@@ -23,7 +24,13 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
         --eeg-features feats.npz --output-dir runs/prior [--resume-dir DIR]
     python -m eeg_image_decode_tpu_torch.cli train-lowlevel \\
         --data-path DATA --subjects sub-08 --latents latents.npz \\
-        --output-dir runs/lowlevel [--resume-dir DIR]
+        --output-dir runs/lowlevel [--resume-dir DIR] \\
+        [--preview-dir previews --vae-params vae.pkl]
+    python -m eeg_image_decode_tpu_torch.cli latents \\
+        --images-dir THINGS/images_set/test_images --vae-params vae.pkl
+    python -m eeg_image_decode_tpu_torch.cli generate \\
+        --eeg-features feats.npz --prior-params runs/prior/diffusion_prior.pkl \\
+        [--generator-params gen.pkl] [--init-latents lat.npz] --seeds 10
 
 Dataset paths come from ``--data-config`` (the reference's
 ``data_config.json`` format) or ``--data-path``; ``--features`` is a cached
@@ -51,7 +58,13 @@ trains the EEG → VAE-latent encoder on one subject's training EEG and
 ``serve`` restores a ``train-retrieval`` run (``--run-dir``, its latest
 checkpoint or ``--step``), or loads ``--weights``, the JAX ATM-S variable
 tree saved with ``utils/convert.py::save_flat_npz``; without either the
-weights are random, drawn from ``--seed`` (a smoke run). Every command runs on the CUDA card
+weights are random, drawn from ``--seed`` (a smoke run). With
+``--prior-params`` it also serves ``/v1/reconstruct``: that encoder → the
+prior → SDXL-turbo + IP-Adapter (``--generator-params``, the JAX
+generator's pickle, or seeded random weights) → the VAE decode.
+``generate`` renders the test classes' images from ``--eeg-features``
+through the prior and the generator; ``latents`` writes the SDXL-VAE latent
+cache of an image directory. Every command runs on the CUDA card
 (``--device cuda``, the default, raises without one).
 """
 
@@ -59,10 +72,12 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from eeg_image_decode_tpu_torch.core.checkpoint import (
@@ -94,7 +109,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def build_retrieval(args) -> RetrievalService:
-    """The retrieval service ``serve`` puts behind the daemon, warmed up:
+    """The retrieval service ``serve`` puts behind the daemon (which warms
+    it up on its device thread):
     the model of a ``train-retrieval`` run (``--run-dir``), JAX weights
     (``--weights``), or seeded random weights when neither is given."""
     if args.weights and args.run_dir:
@@ -114,17 +130,91 @@ def build_retrieval(args) -> RetrievalService:
     if gallery is None:
         raise SystemExit(f"{args.features} holds neither img_features_test "
                          "nor img_features")
-    svc = RetrievalService(model, gallery, max_batch=args.max_batch,
-                           transfer_dtype=args.transfer_dtype,
-                           device=args.device)
-    svc.warmup((args.channels, args.timepoints))
-    return svc
+    return RetrievalService(model, gallery, max_batch=args.max_batch,
+                            transfer_dtype=args.transfer_dtype,
+                            device=args.device)
+
+
+def _generator_config(args, prior_embed_dim: int):
+    """The generator's config: SDXL-turbo at 512 px, or ``--tiny``; a
+    ``--resolution`` sets the latent size. A random-weight ``--tiny`` run
+    takes the prior's embedding width for the IP-Adapter input (a full-width
+    1024-d prior through the tiny generator); with ``--generator-params``
+    the weights' own shapes decide."""
+    from eeg_image_decode_tpu_torch.gen.sdxl import GeneratorConfig
+
+    gcfg = GeneratorConfig.tiny() if args.tiny else GeneratorConfig()
+    if getattr(args, "resolution", None):
+        # the reference's recombination stage renders at 1024²
+        # (1x1024_reconstruct_sdxl.ipynb cells 20-27); latents are pixel/8
+        factor = gcfg.pixel_factor
+        if args.resolution % factor:
+            raise SystemExit(
+                f"--resolution must be a multiple of the VAE factor "
+                f"{factor}; got {args.resolution}")
+        side = args.resolution // factor
+        gcfg = dataclasses.replace(gcfg, latent_size=(side, side))
+    if (args.tiny and not args.generator_params
+            and gcfg.unet.ip_image_embed_dim != prior_embed_dim):
+        gcfg = dataclasses.replace(gcfg, unet=dataclasses.replace(
+            gcfg.unet, ip_image_embed_dim=int(prior_embed_dim)))
+    return gcfg
+
+
+def _build_generator(args, prior_embed_dim: int):
+    """``Generator4Embeds`` on ``--device``: bf16 at full width, fp32 with
+    ``--tiny``; weights from ``--generator-params`` (the JAX generator's
+    ``{"unet", "vae"}`` pickle of numpy arrays), else random N(0, 0.02)
+    ones drawn on the device from ``--seed`` (0 for ``generate``; a smoke
+    run)."""
+    from eeg_image_decode_tpu_torch.gen.sdxl import Generator4Embeds
+    from eeg_image_decode_tpu_torch.utils.convert import load_numpy_pickle
+
+    gen = Generator4Embeds(_generator_config(args, prior_embed_dim),
+                           dtype=torch.float32 if args.tiny
+                           else torch.bfloat16, device=args.device)
+    if args.generator_params:
+        gen.load_params(load_numpy_pickle(args.generator_params))
+    else:
+        gen.init_random(seed=getattr(args, "seed", 0))
+    return gen
+
+
+def _load_prior(args):
+    from eeg_image_decode_tpu_torch.core.config import PriorConfig
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    # a prior-v1 pickle brings its own config; a bare tree takes the guess
+    return PriorPipe.from_checkpoint(
+        args.prior_params,
+        default_cfg=PriorConfig.tiny() if args.tiny else PriorConfig(),
+        device=args.device)
+
+
+def build_reconstruction(args, model):
+    """The reconstruction service ``serve --prior-params`` adds (the
+    daemon warms it up on its device thread):
+    ``model`` (the retrieval service's encoder) → the prior of
+    ``--prior-params`` → the generator (``--generator-params`` or random),
+    ``--gen-batch`` rows per chunk."""
+    from eeg_image_decode_tpu_torch.serve import ReconstructionService
+
+    pipe = _load_prior(args)
+    gen = _build_generator(args, pipe.cfg.embed_dim)
+    return ReconstructionService(model, pipe, gen, max_batch=args.gen_batch,
+                                 device=args.device)
 
 
 def cmd_serve(args) -> None:
-    server = EEGDecodeServer(retrieval=build_retrieval(args))
-    print(f"serving /v1/retrieve on http://{args.host}:{args.port}",
-          flush=True)
+    retrieval = build_retrieval(args)
+    reconstruction = (build_reconstruction(args, retrieval.model)
+                      if args.prior_params else None)
+    server = EEGDecodeServer(retrieval=retrieval,
+                             reconstruction=reconstruction)
+    server.warmup((args.channels, args.timepoints))
+    routes = "/v1/retrieve" + (" and /v1/reconstruct" if reconstruction
+                               else "")
+    print(f"serving {routes} on http://{args.host}:{args.port}", flush=True)
     server.serve_forever(host=args.host, port=args.port)
 
 
@@ -501,8 +591,6 @@ def cmd_export_checkpoint(args):
 def cmd_train_prior(args):
     """The diffusion prior on exported (EEG feature, image embedding)
     pairs; prints the last history row."""
-    import numpy as np
-
     from eeg_image_decode_tpu_torch.core.config import PriorConfig
     from eeg_image_decode_tpu_torch.train.prior import PriorPipe
 
@@ -531,8 +619,6 @@ TINY_STAGES, TINY_TIME_PROJ = (32, 16, 8, 8, 8, 8), 8
 def cmd_train_lowlevel(args):
     """The EEG → VAE-latent encoder on one subject's training EEG; prints
     the last history row."""
-    import numpy as np
-
     from eeg_image_decode_tpu_torch.core.config import LowLevelConfig
     from eeg_image_decode_tpu_torch.data.things_eeg import (
         load_things_eeg_subject,
@@ -541,10 +627,10 @@ def cmd_train_lowlevel(args):
     from eeg_image_decode_tpu_torch.train.lowlevel import LowLevelTrainer
 
     _refuse_scale_out(args)
-    if args.preview_dir or args.vae_params:
-        raise SystemExit("--preview-dir / --vae-params decode previews "
-                         "through the SDXL VAE, which is not ported yet "
-                         "(ROADMAP.md §1, item 5)")
+    if args.preview_dir and not args.vae_params:
+        raise SystemExit("--preview-dir needs --vae-params (frozen VAE)")
+    if args.vae_params and not args.preview_dir:
+        raise SystemExit("--vae-params is read only with --preview-dir")
     eeg, _ = load_things_eeg_subject(_resolve_data_path(args), args.subjects,
                                      train=True)
     with np.load(args.latents) as d:
@@ -561,6 +647,10 @@ def cmd_train_lowlevel(args):
                                 time_proj_dim=cfg.time_proj_dim,
                                 stage_channels=TINY_STAGES)
     trainer = LowLevelTrainer(cfg, model=model, device=args.device)
+    if args.preview_dir:
+        trainer.set_preview_decoder(_load_vae(args),
+                                    preview_dir=args.preview_dir,
+                                    preview_every=args.preview_every)
     out_dir = args.resume_dir or args.output_dir
     history = trainer.train(
         eeg, latents, seed=args.seed,
@@ -568,6 +658,213 @@ def cmd_train_lowlevel(args):
         resume=bool(args.resume_dir))
     print(json.dumps(history[-1]))
     return history
+
+
+# ——— generation: latents / generate ———
+
+
+def _load_vae(args):
+    """The SDXL VAE (``--tiny``: the tiny VAE in fp32; else bf16) on
+    ``--device`` with the weights of ``--vae-params``: the JAX VAE's param
+    tree as a pickle of numpy arrays, raw or under the ``"vae"`` key of a
+    generator dict."""
+    from eeg_image_decode_tpu_torch.gen.vae import VAE, VAEConfig
+    from eeg_image_decode_tpu_torch.utils.convert import load_numpy_pickle
+
+    tree = load_numpy_pickle(args.vae_params)
+    if isinstance(tree, dict) and "vae" in tree:
+        tree = tree["vae"]
+    device = resolve_device(args.device)
+    with torch.device("meta"):
+        vae = VAE(VAEConfig.tiny() if args.tiny else VAEConfig.sdxl(),
+                  dtype=torch.float32 if args.tiny else torch.bfloat16)
+    vae.to_empty(device=device)
+    vae.load_state_dict({k[len("vae."):]: v for k, v in
+                         params_from_flax({"vae": tree}).items()},
+                        strict=True)
+    return vae.eval()
+
+
+def _list_image_files(root: str) -> list[str]:
+    """Sorted recursive listing of image files (the THINGS ``images_set``
+    layout is ``<root>/<class_dir>/<img>.jpg``; flat dirs work too)."""
+    out = []
+    for dirpath, dirnames, filenames in os.walk(root):
+        dirnames.sort()
+        out.extend(os.path.join(dirpath, f) for f in sorted(filenames)
+                   if f.lower().endswith((".png", ".jpg", ".jpeg")))
+    if not out:
+        raise SystemExit(f"no images found under {root}")
+    return out
+
+
+def cmd_latents(args):
+    """The content-keyed SDXL-VAE latent cache of an image directory (the
+    low-level pipeline's ``train/test_image_latent_512.pt`` caches,
+    ``Generation/eegdatasets_leaveone_latent_vae_no_average.py:62-70``),
+    through the port's VAE; prints the cache file."""
+    from eeg_image_decode_tpu_torch.data.features import (
+        VAELatentEncoder,
+        cache_path,
+        load_or_compute_vae_latents,
+    )
+
+    size = args.image_size or (16 if args.tiny else 512)
+    enc = VAELatentEncoder(_load_vae(args), image_size=size,
+                           device=args.device)
+    paths = _list_image_files(args.images_dir)
+    t0 = time.perf_counter()
+    latents = load_or_compute_vae_latents(
+        args.cache_dir, args.split, paths, encoder=enc,
+        batch_size=args.batch_size or 8)
+    row = {"n_images": len(paths), "latent_shape": list(latents.shape),
+           "cache": cache_path(args.cache_dir, f"sdxl-vae-{size}",
+                               args.split, paths),
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(row))
+    return row
+
+
+def _read_lines(path: str, n: int, flag: str, keep_empty: bool) -> list:
+    with open(path) as f:
+        lines = [ln.rstrip("\n") for ln in f if keep_empty or ln.strip()]
+    if len(lines) != n:
+        raise SystemExit(f"{flag} has {len(lines)} lines, need one per test "
+                         f"class ({n})")
+    return lines
+
+
+def _init_latents(args, gcfg, n: int):
+    """``--init-latents`` (.npy or .npz, first array): one latent per test
+    class, NCHW or NHWC, at the generation latent size → NCHW fp32."""
+    d = np.load(args.init_latents)
+    lat = np.asarray(d[d.files[0]] if hasattr(d, "files") else d, np.float32)
+    if lat.shape[0] != n:
+        raise SystemExit(
+            f"--init-latents rows ({lat.shape[0]}) must align with the EEG "
+            f"test features ({n})")
+    if lat.shape[1] != gcfg.vae.latent_channels:
+        lat = np.ascontiguousarray(lat.transpose(0, 3, 1, 2))
+    if tuple(lat.shape[2:4]) != tuple(gcfg.latent_size):
+        raise SystemExit(
+            f"--init-latents spatial size {tuple(lat.shape[2:4])} does not "
+            f"match the generation latent size {tuple(gcfg.latent_size)} "
+            f"(resolution {gcfg.latent_size[0] * gcfg.pixel_factor}px); "
+            "re-export the low-level latents at this resolution or drop "
+            "--resolution")
+    return lat
+
+
+def _text_encoder(args, gcfg):
+    """(encode(prompts) → (context, pooled), the encoded '') from
+    ``--text-encoder-params`` (the JAX encoder's ``{"te1", "te2"}``
+    pickle) and ``--tokenizer-dir`` (vocab.json + merges.txt)."""
+    from eeg_image_decode_tpu_torch.data.tokenizers import CLIPBPETokenizer
+    from eeg_image_decode_tpu_torch.gen.text_encoder import (
+        SDXLTextEncoder,
+        SDXLTextEncoderConfig,
+        tiny_text_encoder_config,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert import load_numpy_pickle
+
+    te_cfg = (tiny_text_encoder_config(gcfg.unet, args.tokenizer_dir)
+              if args.tiny else SDXLTextEncoderConfig())
+    files = [os.path.join(args.tokenizer_dir, f)
+             for f in ("vocab.json", "merges.txt")]
+    ctx_len = te_cfg.clip_l.context_length
+    tok1 = CLIPBPETokenizer.from_files(*files, context_length=ctx_len)
+    tok2 = CLIPBPETokenizer.from_files(*files, pad_token="!",
+                                       context_length=ctx_len)
+    enc = SDXLTextEncoder(te_cfg, device=args.device)
+    enc.load_flax_params(load_numpy_pickle(args.text_encoder_params))
+    return lambda prompts: enc.encode(prompts, tok1, tok2)
+
+
+def cmd_generate(args):
+    """n-seed image generation for every test class from prior-sampled
+    embeddings (the reference's ``Generation_metrics_sub8.ipynb`` cell 9
+    driver): ``<output>/<sub>/<class-name>/<seed>.png`` with
+    ``--class-names``/``--sub``, ``class_%04d/<seed>.png`` otherwise.
+    Prints one JSON row: the counts, the device seconds (sampling and
+    generation, ending in the images' readback) and the host's PNG
+    seconds."""
+    from PIL import Image
+
+    with np.load(args.eeg_features) as d:
+        feats_test = d["eeg_features_test"]
+    n = feats_test.shape[0]
+    pipe = _load_prior(args)
+    gen = _build_generator(args, pipe.cfg.embed_dim)
+    gcfg = gen.config
+    dev = gen.device
+
+    encode_prompts = None
+    if args.text_encoder_params and args.tokenizer_dir:
+        # encode '' once as the default conditioning (ref
+        # custom_pipeline.py:239 — not zeros)
+        encode_prompts = _text_encoder(args, gcfg)
+        gen.set_default_text_conditioning(*encode_prompts([""]))
+    captions = None
+    if args.captions_file:
+        if encode_prompts is None:
+            raise SystemExit("--captions-file needs --text-encoder-params "
+                             "and --tokenizer-dir to encode the prompts")
+        captions = _read_lines(args.captions_file, n, "--captions-file",
+                               keep_empty=True)
+    init_latents = (_init_latents(args, gcfg, n) if args.init_latents
+                    else None)
+    class_names = (_read_lines(args.class_names, n, "--class-names",
+                               keep_empty=False) if args.class_names
+                   else None)
+    out_root = (os.path.join(args.output_dir, args.sub) if args.sub
+                else args.output_dir)
+    os.makedirs(out_root, exist_ok=True)
+    bs = args.gen_batch
+
+    def pad_rows(a):
+        # the last batch padded with its last row: every batch one shape
+        return np.concatenate([a, np.repeat(a[-1:], bs - len(a), 0)]) \
+            if len(a) < bs else a
+
+    device_s = png_s = 0.0
+    for start in range(0, n, bs):
+        t0 = time.perf_counter()
+        real = min(bs, n - start)
+        emb = pipe.generate(
+            pad_rows(feats_test[start:start + bs]),
+            generator=torch.Generator(device=dev).manual_seed(start))
+        kw = {}
+        if captions is not None:
+            prompts = captions[start:start + real]
+            ctx_b, pooled_b = encode_prompts(prompts + [prompts[-1]]
+                                             * (bs - real))
+            kw.update(text_context=ctx_b, pooled_text_embed=pooled_b)
+        if init_latents is not None:
+            kw.update(init_latents=pad_rows(init_latents[start:start + bs]),
+                      img2img_strength=args.img2img_strength)
+        arrays = []
+        for seed in range(args.seeds):
+            imgs = gen.generate(
+                emb, generator=torch.Generator(device=dev).manual_seed(
+                    1000 + seed), **kw)
+            arrays.append(torch.round(imgs[:real] * 255).to(torch.uint8))
+        arrays = [a.cpu().numpy() for a in arrays]
+        t1 = time.perf_counter()
+        device_s += t1 - t0
+        for seed, arr in enumerate(arrays):
+            for j in range(real):
+                cls = start + j
+                cls_dir = os.path.join(out_root, class_names[cls]
+                                       if class_names else f"class_{cls:04d}")
+                os.makedirs(cls_dir, exist_ok=True)
+                Image.fromarray(arr[j]).save(os.path.join(cls_dir,
+                                                          f"{seed}.png"))
+        png_s += time.perf_counter() - t1
+    row = {"n_classes": n, "seeds": args.seeds, "images": n * args.seeds,
+           "resolution": gcfg.latent_size[0] * gcfg.pixel_factor,
+           "output_dir": out_root, "device_s": device_s, "png_s": png_s}
+    print(json.dumps(row))
+    return row
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -650,7 +947,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exact-erf FFN GELU for checkpoints converted from "
                         "the reference (forces the plain attention layer)")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights when --weights is absent")
+                   help="seed of the random weights when --weights (or "
+                        "--generator-params) is absent")
+    p.add_argument("--gen-batch", type=int, default=16,
+                   help="rows per reconstruction chunk")
+    p.add_argument("--prior-params", default=None,
+                   help="enable /v1/reconstruct: the diffusion prior's "
+                        "pickle (train-prior's diffusion_prior.pkl)")
+    p.add_argument("--generator-params", default=None,
+                   help="the JAX generator's {'unet', 'vae'} pickle of "
+                        "numpy arrays; random weights if absent")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny generator (fp32) and tiny-prior default "
+                        "(tests/smoke)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
@@ -769,16 +1078,67 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoint (the full state) and continue")
     p.add_argument("--tiny", action="store_true",
                    help="tiny widths for CPU smoke runs (upsampling stages "
-                        "32,16,8,8,8,8, time projection 8); the JAX CLI's "
-                        "--tiny picks the tiny preview VAE, not ported yet")
+                        "32,16,8,8,8,8, time projection 8) and the tiny "
+                        "preview VAE")
     p.add_argument("--preview-dir", default=None,
-                   help="decode sample predictions through the SDXL VAE: "
-                        "not ported yet (ROADMAP.md), exits")
+                   help="periodically decode sample predictions through the "
+                        "frozen VAE to PNGs here (ref :309-323)")
+    p.add_argument("--preview-every", type=int, default=10)
     p.add_argument("--vae-params", default=None,
-                   help="the SDXL VAE for --preview-dir: not ported yet, "
-                        "exits")
+                   help="pickled JAX VAE param tree (for --preview-dir)")
     _add_scale_out(p, ("--mesh",))
     p.set_defaults(fn=cmd_train_lowlevel)
+
+    p = sub.add_parser(
+        "latents", help="build the SDXL-VAE latent cache from an image dir")
+    p.add_argument("--images-dir", required=True)
+    p.add_argument("--vae-params", required=True,
+                   help="pickled JAX VAE param tree (raw or generator dict)")
+    p.add_argument("--cache-dir", default="cache")
+    p.add_argument("--split", default="train")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="default 512 (16 with --tiny)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny VAE config in fp32 (tests/smoke)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_latents)
+
+    p = sub.add_parser("generate",
+                       help="prior sampling + SDXL image generation")
+    p.add_argument("--eeg-features", required=True,
+                   help=".npz with eeg_features_test (train-retrieval "
+                        "--export-features)")
+    p.add_argument("--prior-params", required=True)
+    p.add_argument("--generator-params", default=None,
+                   help="the JAX generator's {'unet', 'vae'} pickle of numpy "
+                        "arrays; seeded random weights if absent")
+    p.add_argument("--text-encoder-params", default=None,
+                   help="the JAX SDXL text encoder's {'te1', 'te2'} pickle")
+    p.add_argument("--tokenizer-dir", default=None,
+                   help="directory with the CLIP vocab.json + merges.txt")
+    p.add_argument("--captions-file", default=None,
+                   help="semantic-level text prompts, one line per test "
+                        "class — needs the text encoder flags")
+    p.add_argument("--init-latents", default=None,
+                   help=".npy/.npz VAE latents per test class for the "
+                        "low-level img2img init (NCHW or NHWC)")
+    p.add_argument("--img2img-strength", type=float, default=0.7)
+    p.add_argument("--output-dir", default="./generated_imgs")
+    p.add_argument("--class-names", default=None,
+                   help="file with one THINGS class name per test class: "
+                        "write <output>/<sub>/<class-name>/<j>.png")
+    p.add_argument("--sub", default=None,
+                   help="subject tag level in the output tree, e.g. sub-08")
+    p.add_argument("--seeds", type=int, default=10)
+    p.add_argument("--gen-batch", type=int, default=50)
+    p.add_argument("--resolution", type=int, default=None,
+                   help="output resolution in pixels (default: the config's "
+                        "512; the reference's recombination stage uses 1024)")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny generator config in fp32 (tests/smoke)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_generate)
     return ap
 
 

@@ -13,6 +13,10 @@ encoder does (PIL, bicubic on the shorter side, centre crop, /255), and
 ``clip_preprocess``, the towers and the L2 normalisation run on the device.
 ``compute_clip_features`` (the ``open_clip`` package and a download) is not
 ported (ROADMAP.md).
+
+:class:`VAELatentEncoder` and :func:`load_or_compute_vae_latents` fill the
+low-level pipeline's SDXL-VAE latent cache (``sdxl-vae-{size}``, the JAX
+cache name) through the port's VAE (``gen/vae.py``).
 """
 
 from __future__ import annotations
@@ -207,3 +211,57 @@ def load_or_compute_clip_features(
                        batch_size=batch_size)
     save_features(path, img_features=img, text_features=txt)
     return {"img_features": img, "text_features": txt}
+
+
+class VAELatentEncoder:
+    """Image files → SDXL-VAE latents through the port's VAE (the
+    counterpart of ``FlaxVAELatentEncoder``): each image resized to
+    ``image_size``² (PIL bicubic, no crop), mapped to [-1, 1] and encoded
+    deterministically (the distribution's mean × scaling factor), giving
+    NHWC (N, size/8, size/8, 4) fp32 latents, the JAX cache's layout.
+    ``vae``: a ``gen/vae.py::VAE`` with weights, moved to ``device``
+    (default: the CUDA card; raises without one)."""
+
+    def __init__(self, vae, *, image_size: int = 512, device=None):
+        self.device = resolve_device(device)
+        self.vae = vae.to(self.device).eval()
+        self.image_size = image_size
+
+    def _load_images(self, paths: list[str]) -> np.ndarray:
+        from PIL import Image
+
+        size = self.image_size
+        out = np.empty((len(paths), size, size, 3), np.float32)
+        for i, p in enumerate(paths):
+            with Image.open(p) as im:
+                im = im.convert("RGB").resize((size, size), Image.BICUBIC)
+                out[i] = np.asarray(im, np.float32) / 255.0
+        return out
+
+    @torch.inference_mode()
+    def encode_images(self, image_paths: list[str], *,
+                      batch_size: int = 8) -> np.ndarray:
+        chunks = []
+        for i in range(0, len(image_paths), batch_size):
+            x = torch.from_numpy(self._load_images(
+                image_paths[i:i + batch_size])).to(self.device)
+            lat = self.vae.encode((x * 2.0 - 1.0).permute(0, 3, 1, 2))
+            chunks.append(lat.float().permute(0, 2, 3, 1).cpu().numpy())
+        return np.concatenate(chunks, 0)
+
+
+def load_or_compute_vae_latents(cache_dir: str, split: str,
+                                image_paths: list[str], *,
+                                encoder: VAELatentEncoder,
+                                batch_size: int = 8) -> np.ndarray:
+    """Content-keyed cache-or-encode for VAE latents, the analogue of
+    :func:`load_or_compute_clip_features` for the low-level pipeline; the
+    file is the JAX package's (``sdxl-vae-{size}``), key ``latents``."""
+    path = cache_path(cache_dir, f"sdxl-vae-{encoder.image_size}", split,
+                      image_paths)
+    if os.path.exists(path):
+        return load_features(path)["latents"]
+    latents = encoder.encode_images(image_paths, batch_size=batch_size)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, latents=latents)
+    return latents

@@ -7,8 +7,14 @@ One request is encoded by the ATM-S forward (three CUDA kernels on the
 card), scored as ``scale · f32(feats) @ galleryᵀ`` and ranked to the top
 ``k_cap`` on the device; the host slices to the client's k. Requests are
 chunked by ``max_batch`` and each chunk is padded to the smallest bucket of
-``(8, 32, max_batch)`` that fits, as in the JAX service. The reconstruction
-and caption services are not ported yet (ROADMAP.md).
+``(8, 32, max_batch)`` that fits, as in the JAX service.
+
+:class:`ReconstructionService` is EEG → images: the ATM-S eval forward (the
+attention and tsconv kernels on the card) → the diffusion prior's CFG
+sampling → SDXL-turbo + IP-Adapter (``gen/sdxl.py``) → the VAE decode.
+Every draw is per row, keyed by the row's (seed, row) pair, so a row's
+image does not depend on the batch it rides in. The caption service is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,6 +23,9 @@ import numpy as np
 import torch
 
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
+
+#: row-key domains: the prior's draws and SDXL's of one (seed, row)
+PRIOR_DOMAIN, SDXL_DOMAIN = 0, 1
 
 
 def _check_request(eeg: np.ndarray, subject_ids) -> tuple[np.ndarray, np.ndarray]:
@@ -37,6 +46,47 @@ def _check_request(eeg: np.ndarray, subject_ids) -> tuple[np.ndarray, np.ndarray
             f"batch size {eeg.shape[0]}"
         )
     return eeg, subject_ids
+
+
+def _default_row_seeds(n: int, seed: int) -> np.ndarray:
+    """(seed, row-index-within-request) pairs, the per-row identity of the
+    draws: noise derived from these (not from a batch-level key) makes a
+    row's output independent of the batch it rides in, so the HTTP
+    coalescer (``server.py::_Coalescer``) can merge concurrent seeded
+    requests without changing anyone's result."""
+    return np.stack([np.full(n, seed, np.uint32),
+                     np.arange(n, dtype=np.uint32)], axis=1)
+
+
+def _check_row_seeds(row_seeds, n: int, seed: int) -> np.ndarray:
+    """Default or validate per-row seeds against the request's row count."""
+    if row_seeds is None:
+        return _default_row_seeds(n, seed)
+    row_seeds = np.asarray(row_seeds, np.uint32)
+    if row_seeds.shape != (n, 2):
+        raise ValueError(
+            f"row_seeds must have shape ({n}, 2) — one (seed, row-index) "
+            f"pair per EEG row; got {row_seeds.shape}")
+    return row_seeds
+
+
+def _mix64(z: np.ndarray) -> np.ndarray:
+    """splitmix64's finaliser over uint64 (wrapping arithmetic)."""
+    z = z + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def _row_keys(row_seeds, domain: int) -> np.ndarray:
+    """(B, 2) (seed, row) pairs → (B,) int64 keys of
+    ``ops/ddpm.py::row_noise``, namespaced by ``domain`` (0 = prior
+    sampling, 1 = SDXL generation): a pure function of (seed, row, domain).
+    The JAX package folds the same triple into threefry keys, whose bits
+    cannot be reproduced here; the port hashes it with splitmix64."""
+    rs = np.asarray(row_seeds, np.uint64).reshape(-1, 2)
+    k = _mix64(_mix64(_mix64(rs[:, 0]) ^ rs[:, 1]) ^ np.uint64(domain))
+    return k.view(np.int64)
 
 
 class RetrievalService:
@@ -112,3 +162,99 @@ class RetrievalService:
             torch.cat([s for s, _ in chunks]).cpu().numpy(),
             torch.cat([i for _, i in chunks]).cpu().numpy().astype(np.int32),
         )
+
+
+class ReconstructionService:
+    """EEG epochs → images (the reference's reconstruction pipeline as a
+    service) on ``device`` (default: the CUDA card; raises without one).
+
+    ``model``: an eval-mode ``ContrastiveModel`` (``build_encoder``);
+    ``prior_pipe``: a trained or loaded ``train/prior.py::PriorPipe``;
+    ``generator``: a ``gen/sdxl.py::Generator4Embeds`` with weights, all on
+    the same device. Each chunk of ``max_batch`` rows (the last one padded
+    up, as the JAX service pads) runs encoder → prior CFG sampling → the
+    UNet steps → the VAE decode, and the images are read back once after
+    the loop. The JAX service's ``fused=`` switch chooses how XLA schedules
+    the three stages (one jitted program or three); eager PyTorch has one
+    path, so it has no counterpart here.
+
+    On a CUDA device ``stage_ms`` holds the device milliseconds of the last
+    call's stages, summed over its chunks (CUDA events): ``encoder``,
+    ``prior``, ``unet_steps`` and ``vae_decode``."""
+
+    STAGES = ("encoder", "prior", "unet_steps", "vae_decode")
+
+    def __init__(self, model: torch.nn.Module, prior_pipe, generator, *,
+                 max_batch: int = 16, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.prior = prior_pipe
+        self.generator = generator
+        self.max_batch = max_batch
+        self.stage_ms: dict[str, float] = {}
+
+    def warmup(self, eeg_shape: tuple[int, int]) -> None:
+        """One chunk before accepting traffic: the kernel build, cuDNN's
+        algorithm choice and the allocator's pools are paid here."""
+        c, t = eeg_shape
+        self.reconstruct(np.zeros((1, c, t), np.float32),
+                         np.zeros(1, np.int32))
+
+    @torch.inference_mode()
+    def _chunk(self, eeg: np.ndarray, sids: np.ndarray,
+               row_seeds: np.ndarray, events: list) -> torch.Tensor:
+        dev = self.device
+
+        def mark():
+            if dev.type == "cuda":
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events[-1].append(ev)
+
+        events.append([])
+        mark()
+        feats, _ = self.model(torch.from_numpy(eeg).to(dev),
+                              torch.from_numpy(sids).to(dev))
+        feats = feats.float()
+        mark()
+        embeds = self.prior.generate(feats, row_keys=torch.from_numpy(
+            _row_keys(row_seeds, PRIOR_DOMAIN)).to(dev))
+        mark()
+        latents = self.generator.generate(
+            embeds, decode=False,
+            row_keys=torch.from_numpy(_row_keys(row_seeds, SDXL_DOMAIN)))
+        mark()
+        imgs = self.generator.decode(latents)
+        mark()
+        return imgs
+
+    def reconstruct(self, eeg: np.ndarray, subject_ids: np.ndarray | int, *,
+                    seed: int = 0, row_seeds: np.ndarray | None = None
+                    ) -> np.ndarray:
+        """(B, C, T) EEG → (B, H, W, 3) float32 images in [0, 1].
+
+        Noise is drawn per ROW from ``row_seeds`` ((B, 2) uint32 (seed,
+        row-index) pairs; default ``(seed, 0..B-1)``), so the same request
+        and seed give the same images alone, coalesced, or split across
+        chunks."""
+        eeg, subject_ids = _check_request(eeg, subject_ids)
+        n = eeg.shape[0]
+        row_seeds = _check_row_seeds(row_seeds, n, seed)
+        out, events = [], []
+        for start in range(0, n, self.max_batch):
+            sl = slice(start, start + self.max_batch)
+            m = eeg[sl].shape[0]
+            pad = self.max_batch - m
+            imgs = self._chunk(
+                np.pad(eeg[sl], ((0, pad), (0, 0), (0, 0))),
+                np.pad(subject_ids[sl], (0, pad)),
+                np.pad(row_seeds[sl], ((0, pad), (0, 0))), events)
+            # device results stay queued; one readback after the loop
+            out.append(imgs[:m])
+        images = torch.cat(out).cpu().numpy()
+        if self.device.type == "cuda":
+            self.stage_ms = {
+                name: float(sum(ev[i].elapsed_time(ev[i + 1])
+                                for ev in events))
+                for i, name in enumerate(self.STAGES)}
+        return images

@@ -1,23 +1,32 @@
-"""HTTP serving daemon (copy of ``eeg_image_decode_tpu/server.py``, with
-only the retrieval service wired):
+"""HTTP serving daemon (counterpart of ``eeg_image_decode_tpu/server.py``),
+with the retrieval and reconstruction services wired:
 
     POST /v1/retrieve     → {"scores": [[...]], "indices": [[...]]}
-    POST /v1/reconstruct  → 501 (service not ported yet)
+    POST /v1/reconstruct  → .npz bytes {"images": (B, H, W, 3) float32}
     POST /v1/caption      → 501 (service not ported yet)
-    GET  /healthz         → {"ok": true, "services": ["retrieval"]}
+    GET  /healthz         → {"ok": true, "services": [...]}
 
 Request bodies are either JSON (``{"eeg": [[[...]]], "subject_ids": [...],
-"k": 5}``) or ``application/octet-stream`` carrying an ``.npz`` with
-``eeg``/``subject_ids`` arrays (binary path — no JSON float overhead; use it
-for real batches).
+"k": 5, "seed": 0}``) or ``application/octet-stream`` carrying an ``.npz``
+with ``eeg``/``subject_ids`` arrays (binary path — no JSON float overhead;
+use it for real batches). The reconstruction answer is an ``.npz`` as the
+JAX daemon's, written uncompressed (``np.load`` reads either; zlib over
+float images costs the host more than the bytes cost localhost).
 
 Design notes:
 - One card: requests of any size are chunked by the service's
   ``max_batch`` (see :mod:`serve`), and a global lock serializes device
   work — HTTP threads handle I/O concurrently while the card executes one
-  batch at a time.
-- The ``_Coalescer`` batches the requests that queue while the card is busy
-  into one dispatch.
+  batch at a time. The device work itself runs on one long-lived thread:
+  PyTorch keeps cuDNN's execution plans per thread, so a call from each
+  request's fresh handler thread would build them anew (≈ 1 s more for a
+  16-row reconstruct request on an NVIDIA H100 80GB HBM3 at 700 W,
+  ``scripts/profile_torch_reconstruct.py``).
+  :meth:`EEGDecodeServer.warmup` warms the services on that thread.
+- One ``_Coalescer`` per service batches the requests that queue while the
+  card is busy into one dispatch. A reconstruction request's rows carry
+  their (seed, row) pairs, so a row's image does not depend on what it was
+  coalesced with.
 """
 
 from __future__ import annotations
@@ -25,11 +34,15 @@ from __future__ import annotations
 import io
 import json
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from eeg_image_decode_tpu_torch.serve import _check_request
+from eeg_image_decode_tpu_torch.serve import (
+    _check_request,
+    _default_row_seeds,
+)
 
 
 class _Coalescer:
@@ -130,26 +143,52 @@ def _slice_rows(out: tuple, lo: int, hi: int) -> tuple:
 
 
 class EEGDecodeServer:
-    """The retrieval service behind one HTTP daemon.
+    """The retrieval and reconstruction services behind one HTTP daemon.
 
     ``retrieval``: a :class:`eeg_image_decode_tpu_torch.serve.RetrievalService`
-    or None. The reconstruction and caption routes answer 501 (service not
-    configured), as the JAX daemon does when those services are absent.
+    or None; ``reconstruction``: a
+    :class:`eeg_image_decode_tpu_torch.serve.ReconstructionService` or None.
+    An absent service's route answers 501 (service not configured), as the
+    JAX daemon does; the caption route always does (not ported yet).
     """
 
-    def __init__(self, *, retrieval=None):
+    def __init__(self, *, retrieval=None, reconstruction=None):
         self.retrieval = retrieval
-        self.reconstruction = None
+        self.reconstruction = reconstruction
         self.caption = None
         self._device_lock = threading.Lock()
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
-        # the batching happens in the queue that forms while the card runs
-        # the current batch
-        self._coalescer = _Coalescer(
-            lambda rows, k: self.retrieval.top_k(rows["eeg"], rows["sids"],
-                                                 k=k),
-            self._device_lock)
+        # every device call runs on this one thread (per-thread cuDNN
+        # plans: the module docstring)
+        self._device = ThreadPoolExecutor(max_workers=1,
+                                          thread_name_prefix="device")
+
+        def on_device(fn):
+            return lambda rows, **kw: self._device.submit(fn, rows,
+                                                          **kw).result()
+
+        # one coalescer per service, all on the single device lock: the
+        # batching happens in the queue that forms while the card runs the
+        # current batch. Seeded services take per-row seeds, not a batch
+        # seed: a row's noise must not depend on what it was merged with.
+        self._coalescers = {
+            "retrieval": _Coalescer(on_device(
+                lambda rows, k: self.retrieval.top_k(
+                    rows["eeg"], rows["sids"], k=k)), self._device_lock),
+            "reconstruction": _Coalescer(on_device(
+                lambda rows: (self.reconstruction.reconstruct(
+                    rows["eeg"], rows["sids"], row_seeds=rows["row_seeds"]),
+                )), self._device_lock),
+        }
+
+    def warmup(self, eeg_shape: tuple[int, int]) -> None:
+        """Each configured service's ``warmup`` on the device thread, so
+        the per-thread state it builds (cuDNN's plans, cuBLAS's handles)
+        is the one requests use."""
+        for svc in (self.retrieval, self.reconstruction):
+            if svc is not None:
+                self._device.submit(svc.warmup, eeg_shape).result()
 
     # ——— request decoding ———
 
@@ -158,9 +197,10 @@ class EEGDecodeServer:
         if "octet-stream" in content_type:
             with np.load(io.BytesIO(body), allow_pickle=False) as z:
                 out = {k: z[k] for k in z.files}
-            # k rides along as a 0-d array
-            if "k" in out:
-                out["k"] = int(np.asarray(out["k"]))
+            # scalars ride along as 0-d arrays
+            for k in ("k", "seed"):
+                if k in out:
+                    out[k] = int(np.asarray(out[k]))
             return out
         req = json.loads(body.decode("utf-8"))
         if "eeg" in req:
@@ -194,7 +234,15 @@ class EEGDecodeServer:
         eeg, sids = self._require(req, "eeg", "subject_ids")
         eeg = np.asarray(eeg, np.float32)
         rows = {"eeg": eeg, "sids": self._row_sids(eeg, sids)}
-        scores, idx = self._coalescer.submit(rows, k=int(req.get("k", 5)))
+        if name == "reconstruction":
+            rows["row_seeds"] = _default_row_seeds(eeg.shape[0],
+                                                   int(req.get("seed", 0)))
+            (images,) = self._coalescers[name].submit(rows)
+            buf = io.BytesIO()
+            np.savez(buf, images=np.asarray(images, np.float32))
+            return buf.getvalue(), "application/octet-stream"
+        scores, idx = self._coalescers[name].submit(rows,
+                                                    k=int(req.get("k", 5)))
         return (
             json.dumps(
                 {"scores": np.asarray(scores).tolist(),

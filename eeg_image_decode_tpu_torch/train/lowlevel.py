@@ -20,11 +20,17 @@ True), so the transposed convolutions round where the JAX reference does;
 and under cuDNN's ``deterministic=True``, so a run and its resumed copy
 take the same algorithms and give the same bits. Plain PyTorch: no TPU
 kernel lies on this path.
+
+With :meth:`LowLevelTrainer.set_preview_decoder` the trainer decodes a few
+predicted latents through a frozen SDXL VAE (``gen/vae.py``) to PNGs every
+``preview_every`` epochs and after the last, as the reference does during
+training (``:309-323,375-397``): ``preview_dir/epoch_%04d/%02d.png``.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import numpy as np
@@ -70,6 +76,7 @@ class LowLevelTrainer:
             time_proj_dim=cfg.time_proj_dim,
             latent_channels=cfg.latent_shape[0])).to(self.device)
         self.state: TrainState | None = None
+        self._preview: dict | None = None
         #: the last epoch's per-step losses and, on a CUDA device,
         #: CUDA-event step times (ms)
         self.last_steps: dict = {}
@@ -89,13 +96,33 @@ class LowLevelTrainer:
         self.state = TrainState(model=self.model, optimizer=opt)
         return self.state
 
-    def set_preview_decoder(self, *args, **kwargs) -> None:
-        """The JAX trainer decodes sample predictions through a frozen SDXL
-        VAE during training; the port has no VAE yet (ROADMAP.md §1,
-        item 5)."""
-        raise NotImplementedError(
-            "training-time previews need the SDXL VAE, which is not ported "
-            "yet (ROADMAP.md §1, item 5)")
+    def set_preview_decoder(self, vae, *, preview_dir: str,
+                            preview_every: int = 10, n_previews: int = 4
+                            ) -> None:
+        """Install a frozen VAE (``gen/vae.py::VAE`` with weights, moved to
+        the trainer's device) so ``train()`` decodes the predictions of the
+        first ``n_previews`` training trials to PNGs every
+        ``preview_every`` epochs and after the last (the reference's
+        training-time sample decode)."""
+        self._preview = {"vae": vae.to(self.device).eval(),
+                         "dir": preview_dir, "every": max(1, preview_every),
+                         "n": n_previews}
+
+    @torch.no_grad()
+    def _write_previews(self, epoch: int, eeg: torch.Tensor) -> None:
+        from PIL import Image
+
+        p = self._preview
+        self.model.eval()
+        with torch.backends.cudnn.flags(**CUDNN_FLAGS):
+            lat = self.model(eeg[: p["n"]])
+        img = p["vae"].decode(lat.float())
+        imgs = torch.clamp(img * 0.5 + 0.5, 0.0, 1.0).permute(0, 2, 3, 1)
+        out = os.path.join(p["dir"], f"epoch_{epoch:04d}")
+        os.makedirs(out, exist_ok=True)
+        for i, im in enumerate(imgs.cpu().numpy()):
+            Image.fromarray((im * 255).astype(np.uint8)).save(
+                os.path.join(out, f"{i:02d}.png"))
 
     def _as_nchw(self, latents: torch.Tensor) -> torch.Tensor:
         """NCHW (the cached torch layout) as it is; NHWC transposed."""
@@ -200,6 +227,8 @@ class LowLevelTrainer:
                             "epoch_time_s": time.perf_counter() - t0})
             if log_fn and epoch % max(1, epochs // 10) == 0:
                 log_fn(f"lowlevel epoch {epoch}: L1={loss:.4f}")
+            if self._preview and (epoch + 1) % self._preview["every"] == 0:
+                self._write_previews(epoch, eeg_all)
             if checkpointer is not None and (epoch + 1) % ckpt_every_epochs == 0:
                 checkpointer.save(epoch + 1, self.state)
                 save_history(checkpointer, history)
@@ -207,6 +236,9 @@ class LowLevelTrainer:
             if checkpointer.latest_step() != epochs:
                 checkpointer.save(epochs, self.state)
             save_history(checkpointer, history)
+        if (self._preview and epochs > start_epoch
+                and epochs % self._preview["every"] != 0):
+            self._write_previews(epochs - 1, eeg_all)  # final previews
         return history
 
     @torch.no_grad()

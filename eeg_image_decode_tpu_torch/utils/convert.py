@@ -23,8 +23,16 @@ change. The low-level encoder's (``models/lowlevel.py``, ``params`` and
 - ``proj_16/kernel`` and ``proj_out/kernel``, 1 × 1 ``Conv`` (1, 1, in, out)
   → ``F.conv2d``'s (out, in, 1, 1).
 
+The SDXL generator's tree (``{"unet": …, "vae": …}``, the JAX
+``--generator-params`` pickle) maps onto the port's UNet and VAE
+(``gen/unet.py``, ``gen/vae.py``), which carry diffusers' names: the flax
+module paths are renamed (``down_1_attn_0/block_0`` →
+``down_blocks.1.attentions.0.transformer_blocks.0``, …), dense kernels
+transposed to (out, in), conv kernels HWIO → OIHW, norm ``scale`` →
+``weight``; the keys come back under ``unet.`` and ``vae.``.
+
 :func:`flax_from_params` is the inverse for the trees the port pickles (the
-prior's and the low-level encoder's). :func:`load_numpy_pickle` reads such
+prior's, the low-level encoder's and the generator's). :func:`load_numpy_pickle` reads such
 a pickle, or the JAX package's, without importing JAX.
 
 A joint-training model (``ATMSConfig(joint_train=True)``) has
@@ -81,12 +89,133 @@ def _port_layout(key: str, a: np.ndarray) -> tuple[str, np.ndarray]:
     return key, a
 
 
+#: the SDXL generator's flax names → the port's (diffusers') names, applied
+#: in order to a dotted module path (the leaf excluded); ``_GEN_BACK`` is
+#: the inverse
+_UNET_NAMES = [
+    (r"^time_embed_(\d+)$", r"time_embedding.linear_\1"),
+    (r"^add_embed_(\d+)$", r"add_embedding.linear_\1"),
+    (r"^ip_image_proj$", "image_proj.proj"),
+    (r"^ip_norm$", "image_proj.norm"),
+    (r"^norm_out$", "conv_norm_out"),
+    (r"^(down|up)_(\d+)_res_(\d+)", r"\1_blocks.\2.resnets.\3"),
+    (r"^(down|up)_(\d+)_attn_(\d+)", r"\1_blocks.\2.attentions.\3"),
+    (r"^down_(\d+)_downsample$", r"down_blocks.\1.downsamplers.0.conv"),
+    (r"^up_(\d+)_upsample$", r"up_blocks.\1.upsamplers.0.conv"),
+    (r"^mid_res_(\d+)", r"mid_block.resnets.\1"),
+    (r"^mid_attn", "mid_block.attentions.0"),
+    (r"\.block_(\d+)\.", r".transformer_blocks.\1."),
+    (r"\.to_out$", ".to_out.0"),
+    (r"\.ff\.proj_in$", ".ff.net.0.proj"),
+    (r"\.ff\.proj_out$", ".ff.net.2"),
+    (r"\.ip_to_([kv])$", r".to_\1_ip"),
+]
+_VAE_NAMES = [
+    (r"^(encoder|decoder)\.(down|up)_(\d+)_res_(\d+)",
+     r"\1.\2_blocks.\3.resnets.\4"),
+    (r"^encoder\.down_(\d+)_downsample$",
+     r"encoder.down_blocks.\1.downsamplers.0.conv"),
+    (r"^decoder\.up_(\d+)_upsample$",
+     r"decoder.up_blocks.\1.upsamplers.0.conv"),
+    (r"^(encoder|decoder)\.mid_res_(\d+)", r"\1.mid_block.resnets.\2"),
+    (r"^(encoder|decoder)\.mid_attn\.norm$",
+     r"\1.mid_block.attentions.0.group_norm"),
+    (r"^(encoder|decoder)\.mid_attn", r"\1.mid_block.attentions.0"),
+    (r"^(encoder|decoder)\.norm_out$", r"\1.conv_norm_out"),
+    (r"\.to_out$", ".to_out.0"),
+    (r"\.shortcut$", ".conv_shortcut"),
+]
+_GEN_BACK = {
+    "unet": [
+        (r"^time_embedding\.linear_(\d+)$", r"time_embed_\1"),
+        (r"^add_embedding\.linear_(\d+)$", r"add_embed_\1"),
+        (r"^image_proj\.proj$", "ip_image_proj"),
+        (r"^image_proj\.norm$", "ip_norm"),
+        (r"^conv_norm_out$", "norm_out"),
+        (r"^down_blocks\.(\d+)\.downsamplers\.0\.conv$", r"down_\1_downsample"),
+        (r"^up_blocks\.(\d+)\.upsamplers\.0\.conv$", r"up_\1_upsample"),
+        (r"^(down|up)_blocks\.(\d+)\.resnets\.(\d+)", r"\1_\2_res_\3"),
+        (r"^(down|up)_blocks\.(\d+)\.attentions\.(\d+)", r"\1_\2_attn_\3"),
+        (r"^mid_block\.resnets\.(\d+)", r"mid_res_\1"),
+        (r"^mid_block\.attentions\.0", "mid_attn"),
+        (r"\.transformer_blocks\.(\d+)\.", r".block_\1."),
+        (r"\.to_out\.0$", ".to_out"),
+        (r"\.ff\.net\.0\.proj$", ".ff.proj_in"),
+        (r"\.ff\.net\.2$", ".ff.proj_out"),
+        (r"\.to_([kv])_ip$", r".ip_to_\1"),
+    ],
+    "vae": [
+        (r"^encoder\.down_blocks\.(\d+)\.downsamplers\.0\.conv$",
+         r"encoder.down_\1_downsample"),
+        (r"^decoder\.up_blocks\.(\d+)\.upsamplers\.0\.conv$",
+         r"decoder.up_\1_upsample"),
+        (r"^(encoder|decoder)\.(down|up)_blocks\.(\d+)\.resnets\.(\d+)",
+         r"\1.\2_\3_res_\4"),
+        (r"^(encoder|decoder)\.mid_block\.resnets\.(\d+)", r"\1.mid_res_\2"),
+        (r"^(encoder|decoder)\.mid_block\.attentions\.0\.group_norm$",
+         r"\1.mid_attn.norm"),
+        (r"^(encoder|decoder)\.mid_block\.attentions\.0", r"\1.mid_attn"),
+        (r"^(encoder|decoder)\.conv_norm_out$", r"\1.norm_out"),
+        (r"\.to_out\.0$", ".to_out"),
+        (r"\.conv_shortcut$", ".shortcut"),
+    ],
+}
+_GEN_NAMES = {"unet": _UNET_NAMES, "vae": _VAE_NAMES}
+
+
+def _rename(path: str, rules) -> str:
+    for pattern, repl in rules:
+        path = re.sub(pattern, repl, path)
+    return path
+
+
+def generator_arrays_from_flax(tree: dict) -> dict[str, np.ndarray]:
+    """The JAX generator's ``{"unet": …, "vae": …}`` param tree → the
+    port's keys under ``unet.`` / ``vae.`` and numpy views in the port's
+    layouts (no copy is made): dense kernels (in, out) → (out, in)
+    weights, conv kernels HWIO → OIHW, norm ``scale`` → ``weight``."""
+    out = {}
+    for part in ("unet", "vae"):
+        for key, a in _flatten(tree.get(part, {}), sep=".").items():
+            path, leaf = key.rsplit(".", 1)
+            if leaf == "kernel":
+                a = a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1))
+            name = f"{part}.{_rename(path, _GEN_NAMES[part])}." + (
+                "bias" if leaf == "bias" else "weight")
+            out[name] = a
+    return out
+
+
+def _flax_from_generator(state_dict: dict) -> dict:
+    out: dict = {}
+    for key, v in state_dict.items():
+        a = np.array(v.detach().float().cpu().numpy() if torch.is_tensor(v)
+                     else v, dtype=np.float32)
+        part, rest = key.split(".", 1)
+        path, leaf = rest.rsplit(".", 1)
+        if leaf == "weight" and a.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf = "kernel"
+            a = a.T if a.ndim == 2 else np.transpose(a, (2, 3, 1, 0))
+        node = out.setdefault(part, {})
+        for p in _rename(path, _GEN_BACK[part]).split("."):
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(a)
+    return out
+
+
 def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX variables (ATM-S, the diffusion prior or the low-level encoder)
-    → the port's ``state_dict`` (fp32 tensors).
+    """JAX variables (ATM-S, the diffusion prior, the low-level encoder, or
+    the SDXL generator's ``{"unet": …, "vae": …}`` tree) → the port's
+    ``state_dict`` (fp32 tensors; the generator's keys under ``unet.`` and
+    ``vae.``, in diffusers' names).
 
     Load it with ``model.load_state_dict(sd, strict=True)`` into the port's
     model of the same configuration."""
+    if "unet" in variables or "vae" in variables:
+        return {k: torch.from_numpy(np.array(a, dtype=np.float32))
+                for k, a in generator_arrays_from_flax(variables).items()}
     flat = _flatten(variables.get("params", {}), sep=".")
     flat.update(_flatten(variables.get("batch_stats", {}), sep="."))
     sd = {}
@@ -101,7 +230,12 @@ def flax_from_params(state_dict: dict) -> dict:
     the low-level encoder's ``state_dict``: ``{"params": tree,
     "batch_stats": tree}`` of fp32 numpy arrays in the JAX layouts (BatchNorm
     ``mean`` / ``var`` buffers go to ``batch_stats``). The ATM-S tsconv
-    kernels do not map back from their keys alone and are refused."""
+    kernels do not map back from their keys alone and are refused. A
+    generator ``state_dict`` (keys under ``unet.`` / ``vae.``) maps back to
+    the JAX generator's ``{"unet": …, "vae": …}`` tree."""
+    if state_dict and all(k.startswith(("unet.", "vae."))
+                          for k in state_dict):
+        return _flax_from_generator(state_dict)
     out: dict = {"params": {}, "batch_stats": {}}
     for key, v in state_dict.items():
         if key.endswith(("temporal_conv_kernel", "spatial_conv.kernel",

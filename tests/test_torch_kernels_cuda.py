@@ -8,7 +8,9 @@ no JAX, so it runs on a GPU host without JAX or the test suite's conftest:
 Shapes: a small one with ragged widths (not multiples of 4, 16 or 32) and
 the full ATM-S serving width; float32 and bfloat16. At the end, the CLIP
 towers of ``cli features`` (plain PyTorch, no kernel of the port) in
-bfloat16 against float32, and the command itself, on the card.
+bfloat16 against float32, and the command itself, on the card; the prior
+and low-level steps against the CPU; the tiny SDXL generator against the
+CPU, and a bfloat16 reconstruct through the encoder's kernels.
 """
 
 import dataclasses
@@ -803,3 +805,80 @@ def test_lowlevel_step_on_card_matches_cpu(cuda):
     moved = cpu32.model.state_dict()
     for n, v in card.model.state_dict().items():
         assert _rel(v, moved[n]) <= 1e-6, n
+
+
+def _tiny_generator(device, dtype, seed=0):
+    from eeg_image_decode_tpu_torch.gen.sdxl import (
+        Generator4Embeds,
+        GeneratorConfig,
+    )
+
+    gen = Generator4Embeds(GeneratorConfig.tiny(), dtype=dtype, device=device)
+    gen.init_random(seed=seed)
+    return gen
+
+
+@pytest.mark.cuda
+def test_tiny_generator_on_card_matches_cpu(cuda):
+    """The tiny UNet, VAE and the 4-step generation in fp32 (no TF32) on the
+    card against the same weights and draws on the CPU: ε and the decoded
+    images at 1e-4 of their scale, the generated images at 1e-4."""
+    cpu = _tiny_generator("cpu", torch.float32, seed=5)
+    card = _tiny_generator(cuda, torch.float32)
+    card.load_state_dicts(unet=cpu.unet.state_dict(),
+                          vae=cpu.vae.state_dict())
+    rng = np.random.default_rng(6)
+    lat = torch.from_numpy(rng.normal(size=(3, 4, 8, 8)).astype(np.float32))
+    t = torch.tensor([999, 500, 1])
+    ctx = torch.from_numpy(rng.normal(size=(3, 4, 64)).astype(np.float32))
+    emb = torch.from_numpy(rng.normal(size=(3, 64)).astype(np.float32))
+    tids = torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 3)
+    with torch.no_grad():
+        want = cpu.unet(lat, t, ctx, None, tids, emb)
+        got = card.unet(lat.to(cuda), t.to(cuda), ctx.to(cuda), None,
+                        tids.to(cuda), emb.to(cuda)).cpu()
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+        want = cpu.vae.decode(lat)
+        got = card.vae.decode(lat.to(cuda)).cpu()
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    noise = torch.from_numpy(rng.normal(size=(5, 3, 4, 8, 8)).astype(
+        np.float32))
+    kw = dict(init_noise=noise[0], step_noises=noise[1:], guidance_scale=2.0)
+    want = cpu.generate(emb, **kw)
+    got = card.generate(emb.to(cuda), **kw).cpu()
+    assert got.shape == (3, 16, 16, 3)
+    assert (got - want).abs().max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_reconstruct_bf16_on_card(cuda):
+    """``ReconstructionService`` in bf16 on the card (the full-width ATM-S
+    encoder through its forward kernels, a small prior, the tiny generator):
+    images finite in [0, 1], a row alone against the same row in a padded
+    batch ≤ 2/255, and the attention and tsconv kernels launched."""
+    from eeg_image_decode_tpu_torch.core.config import ATMSConfig, PriorConfig
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.serve import ReconstructionService
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
+                          device=cuda, seed=0)
+    pipe = PriorPipe(PriorConfig(embed_dim=64, cond_dim=1024,
+                                 hidden_dims=(64, 32), time_embed_dim=32,
+                                 num_inference_steps=4), device=cuda)
+    pipe.init(total_steps=1, seed=0)
+    svc = ReconstructionService(model, pipe,
+                                _tiny_generator(cuda, torch.bfloat16),
+                                max_batch=4, device=cuda)
+    eeg = np.random.default_rng(7).normal(size=(5, 63, 250)).astype(
+        np.float32)
+    _build.reset_launches()
+    out = svc.reconstruct(eeg, 0, seed=3)
+    assert _build.LAUNCHES["attention_fwd"] and _build.LAUNCHES["tsconv_fwd"]
+    assert out.shape == (5, 16, 16, 3) and np.isfinite(out).all()
+    assert out.min() >= 0 and out.max() <= 1
+    alone = svc.reconstruct(eeg[4:5], 0, row_seeds=[[3, 4]])
+    assert np.abs(alone - out[4:5]).max() <= 2 / 255
+    assert set(svc.stage_ms) == set(svc.STAGES)
+    assert all(v > 0 for v in svc.stage_ms.values())

@@ -260,7 +260,10 @@ def test_cli_train_lowlevel_resumes_and_refuses(tmp_path):
     np.savez(per_image, latents=lat[:2])
     with pytest.raises(ValueError, match="20 EEG trials against 2 latents"):
         cli.main([*common, "--latents", per_image, "--output-dir", out])
-    for flag in (["--mesh"], ["--preview-dir", str(tmp_path / "p")],
-                 ["--vae-params", "vae.pkl"]):
-        with pytest.raises(SystemExit, match="ROADMAP"):
+    for flag, match in ((["--mesh"], "ROADMAP"),
+                        (["--preview-dir", str(tmp_path / "p")],
+                         "needs --vae-params"),
+                        (["--vae-params", "vae.pkl"],
+                         "read only with --preview-dir")):
+        with pytest.raises(SystemExit, match=match):
             cli.main([*common, *flag, "--output-dir", out])

@@ -113,7 +113,7 @@ def test_package_imports_without_jax(tmp_path):
     also when ``cli features --tiny`` runs (its pickle reader, towers,
     tokenizer, image reader and cache writer), a plot is drawn, and the
     diffusion prior and the low-level encoder train, sample and round-trip
-    their files."""
+    their files, and a reconstruction runs through the generator."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
@@ -179,6 +179,29 @@ def test_package_imports_without_jax(tmp_path):
         "model=EncoderLowLevel(time_proj_dim=2, stage_channels=(4,) * 6))\n"
         "t.train(r.normal(size=(4, 63, 250)), r.normal(size=(4, 4, 64, 64)), "
         "epochs=1, batch_size=2, log_fn=None)\n"
+        "import torch\n"
+        "from eeg_image_decode_tpu_torch.gen.sdxl import "
+        "Generator4Embeds, GeneratorConfig\n"
+        "import eeg_image_decode_tpu_torch.gen.convert\n"
+        "import eeg_image_decode_tpu_torch.gen.text_encoder\n"
+        "import eeg_image_decode_tpu_torch.ops.euler\n"
+        "import eeg_image_decode_tpu_torch.server\n"
+        "from eeg_image_decode_tpu_torch.serve import ReconstructionService\n"
+        "from eeg_image_decode_tpu_torch.models.registry import "
+        "build_encoder\n"
+        "from eeg_image_decode_tpu_torch.core.config import ATMSConfig\n"
+        "g = Generator4Embeds(GeneratorConfig.tiny(), dtype=torch.float32, "
+        "device='cpu')\n"
+        "g.init_random(0)\n"
+        "pp = PriorPipe(PriorConfig(embed_dim=64, cond_dim=1024, "
+        "hidden_dims=(64, 32), time_embed_dim=32, num_inference_steps=2), "
+        "device='cpu')\n"
+        "pp.init(1)\n"
+        "svc = ReconstructionService(build_encoder('atms', "
+        "config=ATMSConfig(), device='cpu'), pp, g, max_batch=1, "
+        "device='cpu')\n"
+        "assert svc.reconstruct(r.normal(size=(1, 63, 250)), 0).shape == "
+        "(1, 16, 16, 3)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'eeg_image_decode_tpu')]\n"

@@ -99,6 +99,13 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    ``cli generate`` at full SDXL-turbo width on the run's 20 exported test
    features and the ``train-prior`` pickle: two seeds from noise, and one
    from those latents (``--init-latents``, strength 0.5); 512 × 512 PNGs.
+   Then ``cli train-adapter --images-dir`` on 40 written JPEGs through a
+   seeded ``git_vit_l_14`` pickle (bf16 grids into the
+   ``ViT-L-14-GIT-grid`` cache, a held-out MSE), ``cli caption
+   --eeg-features`` on those 20 test features and the ``train-prior``
+   pickle through a seeded full-width GIT pickle, the trained projector and
+   the 30,522-id stand-in WordPiece vocabulary (20 lines), and ``cli serve
+   --git-params`` once (one ``/v1/caption`` request, then it stops).
 7. ``cli features`` at the published OpenCLIP ViT-H/14 widths in bf16
    (vision 32 × 1280, text 24 × 1024) from seeded random weights, written
    as the ``--clip-params`` pickle and read back: a 200-concept
@@ -155,7 +162,31 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    encoder, prior, UNet steps and VAE decode, with the device's busy
    time and idle share in a traced one. No TPU kernel lies inside
    the generator (the JAX UNet, VAE and scheduler are plain XLA).
-11. One JSON line listing the kernels, then the result line
+11. Captioning at full width (``GITConfig.git_large_coco()``: 1024 wide,
+   6 layers, 16 heads, 30,522 ids, ≈ 140 M parameters, and a full-width
+   ``PixelProjector``, fp32 without TF32, filled on the card from
+   ``SEED``): parameter count and weight memory; one decoder forward (B 16,
+   257 + 26 tokens) and one 16-row greedy decode of 25 new tokens alone
+   (CUDA events, operations from PyTorch's FLOP counter, TFLOP/s, the
+   largest kernels). Then ``CaptionService`` (phase 4's trained encoder,
+   phase 8's trained prior at 50 steps and guidance 5.0, ``max_batch`` 16,
+   the stand-in vocabulary) behind the HTTP daemon: requests of 1, 16 and
+   20 rows, three each (p50 and captions/s; the HTTP captions equal the
+   service's ids decoded; a (seed, row) gives the same ids at the same
+   offset in every size), the attention and tsconv launches of those
+   requests (into the main path), the prior embeddings equal to
+   ``ReconstructionService``'s for the same (seed, row) within
+   ``REBATCH_TOL``, two requests the coalescer merges (rows agreeing with
+   the same requests alone are counted; where ids differ, the first step
+   that differs and its top-2 logit gaps), and a 16-row request's device
+   ms split into encoder, prior, projector and decode, with the device's
+   busy time and idle share in a traced one. Last, ``train_pixel_projector``
+   for one epoch at full size (16,540 × 1024 embeddings and 16,540 × 257 ×
+   1024 fp32 grids, 17.4 GB, drawn on the card; B 32, bf16 products): the
+   loss finite and falling, the step p50, the epoch seconds, the peak
+   memory. No TPU kernel lies inside GIT, the projector or the adapter
+   trainer (the JAX modules are plain XLA).
+12. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -171,6 +202,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -2652,6 +2684,489 @@ def generation_path(torch, card: str, encoder, prior, eeg: np.ndarray,
     return row
 
 
+# ——— phase 6, captioning: cli train-adapter, cli caption, cli serve ———
+
+#: images of ``cli train-adapter --images-dir`` (at least one batch of 32)
+ADAPTER_CLI_IMAGES = 40
+
+
+def caption_cli_path(torch, tmp: str, pairs_path: str, prior_pkl: str,
+                     feats: str) -> dict:
+    """``cli train-adapter --images-dir`` on 40 written JPEGs through a
+    seeded ``git_vit_l_14`` pickle (bf16 grids into the JAX cache file),
+    then ``cli caption --eeg-features`` on phase 6's exported test features
+    and the ``train-prior`` pickle through a seeded full-width GIT pickle,
+    the trained projector and the 30,522-id stand-in vocabulary (20
+    lines), then ``cli serve --git-params`` once: the daemon it builds
+    answers one ``/v1/caption`` request and stops."""
+    import pickle
+
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_wordpiece_vocab,
+    )
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPVisionConfig,
+        CLIPVisionTower,
+    )
+    from eeg_image_decode_tpu_torch.models.git_caption import (
+        GITCaptioner,
+        GITConfig,
+    )
+    from eeg_image_decode_tpu_torch.server import EEGDecodeServer
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        git_tree_from_state_dict,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import (
+        clip_tree_from_state_dict,
+    )
+
+    t0 = time.perf_counter()
+    images = os.path.join(tmp, "adapter_images")
+    write_image_tree(images, ADAPTER_CLI_IMAGES, SEED + 5)
+    emb = np.random.default_rng(SEED + 5).normal(
+        size=(ADAPTER_CLI_IMAGES, 1024)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    emb_path = os.path.join(tmp, "adapter_embeds.npz")
+    np.savez(emb_path, img_features=emb)
+    vcfg = CLIPVisionConfig.git_vit_l_14()
+    with torch.device("cuda"):
+        tower = CLIPVisionTower(vcfg, seed=SEED + 6)
+    vision_pkl = os.path.join(tmp, "git_vit_l_14.pkl")
+    with open(vision_pkl, "wb") as f:
+        pickle.dump(clip_tree_from_state_dict(tower.state_dict(), "vision",
+                                              vcfg.heads), f, protocol=4)
+    del tower
+    gcfg = GITConfig.git_large_coco()
+    with torch.device("cuda"):
+        git = GITCaptioner(gcfg).init_random(SEED + 8)
+    git_pkl = os.path.join(tmp, "git_large_coco.pkl")
+    with open(git_pkl, "wb") as f:
+        pickle.dump(git_tree_from_state_dict(git.state_dict(), gcfg.n_heads),
+                    f, protocol=4)
+    del git
+    vocab = write_synthetic_wordpiece_vocab(os.path.join(tmp, "wordpiece"))
+    write_s = time.perf_counter() - t0
+
+    cache = os.path.join(tmp, "grid_cache")
+    proj_pkl = os.path.join(tmp, "pixel_projector.pkl")
+    t0 = time.perf_counter()
+    adapter, _ = run_cli(["train-adapter", "--embeddings", emb_path,
+                          "--images-dir", images, "--git-vision-params",
+                          vision_pkl, "--test-embeddings", emb_path,
+                          "--test-images-dir", images, "--cache-dir", cache,
+                          "--epochs", "2", "--batch-size", "8", "--out",
+                          proj_pkl])
+    adapter_s = time.perf_counter() - t0
+    names = sorted(os.listdir(cache))
+    with np.load(os.path.join(cache, names[-1])) as z:
+        grids = z["grids"]
+    if (len(names) != 2 or not all(n.startswith("ViT-L-14-GIT-grid_features_")
+                                   for n in names)
+            or grids.shape != (ADAPTER_CLI_IMAGES, 257, 1024)
+            or not np.isfinite(grids).all()
+            or not np.isfinite([adapter["final_train_loss"],
+                                adapter["test_mse"]]).all()):
+        raise RuntimeError(f"cli train-adapter: {adapter}, cache {names}, "
+                           f"grids {grids.shape}")
+
+    out = os.path.join(tmp, "semantic_level_caption.txt")
+    t0 = time.perf_counter()
+    caption, _ = run_cli(["caption", "--eeg-features", pairs_path,
+                          "--prior-params", prior_pkl, "--git-params",
+                          git_pkl, "--projector-params", proj_pkl,
+                          "--vocab", vocab, "--out", out])
+    caption_s = time.perf_counter() - t0
+    with open(out) as f:
+        lines = f.read().splitlines()
+    with np.load(pairs_path) as z:
+        n_test = len(z["eeg_features_test"])
+    if len(lines) != n_test or caption["captions"] != n_test:
+        raise RuntimeError(f"cli caption: {len(lines)} lines for {n_test} "
+                           f"test rows: {caption}")
+
+    served = {}
+
+    def serve_once(server, host="127.0.0.1", port=8080):
+        port = server.start(host=host, port=0)
+        eeg = np.random.default_rng(SEED + 9).normal(
+            size=(2, 63, 250)).astype(np.float32)
+        try:
+            served.update(_post(
+                f"http://127.0.0.1:{port}/v1/caption",
+                _npz(eeg=eeg, subject_ids=np.zeros(2, np.int32),
+                     seed=np.int64(SEED)), "application/octet-stream"))
+        finally:
+            server.stop()
+
+    t0 = time.perf_counter()
+    with mock.patch.object(EEGDecodeServer, "serve_forever", serve_once), \
+            contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["serve", "--features", feats, "--prior-params", prior_pkl,
+                  "--git-params", git_pkl, "--projector-params", proj_pkl,
+                  "--vocab", vocab])
+    serve_s = time.perf_counter() - t0
+    if len(served.get("captions", [])) != 2:
+        raise RuntimeError(f"cli serve --git-params answered {served}")
+    row = {"phase": "caption_cli", "train_adapter": adapter,
+           "grid_caches": names, "caption": caption,
+           "caption_lines": len(lines), "first_caption": lines[0][:120],
+           "serve_captions": [c[:120] for c in served["captions"]],
+           "write_s": write_s, "train_adapter_s": adapter_s,
+           "caption_s": caption_s, "serve_s": serve_s}
+    emit(row)
+    return row
+
+
+# ——— phase 11: GIT captioning at full width ———
+
+#: rows per caption chunk (the JAX ``serve --gen-batch`` default)
+CAPTION_BATCH = 16
+#: request sizes of the latency table, and requests per size
+CAPTION_SIZES, CAPTION_REPS = (1, 16, 20), 3
+#: the adapter's full-size split: THINGS' 16,540 training images
+ADAPTER_IMAGES = 16540
+
+
+def _tokens_gap(torch, svc, emb_row, tokens_row, step: int) -> float:
+    """The top-2 logit gap of one row at decode step ``step`` (the
+    position ``step - 1`` of its prefix), from its prior embedding."""
+    with torch.inference_mode():
+        vis = svc.projector(torch.as_tensor(emb_row[None]).cuda())
+        ids = torch.as_tensor(tokens_row[None, :step]).cuda()
+        top = torch.topk(svc.captioner(vis, ids)[0, step - 1], 2).values
+    return float(top[0] - top[1])
+
+
+def _prior_embeds(torch, svc, eeg, sids, *, seed=0, row_seeds=None
+                  ) -> np.ndarray:
+    """The prior's CLIP embeddings the service conditions its captions on,
+    chunked and padded as its ``tokens`` chunks them."""
+    from eeg_image_decode_tpu_torch.serve import (
+        _padded_chunks,
+        _prior_embeddings,
+    )
+
+    out = []
+    with torch.inference_mode():
+        for chunk, m in _padded_chunks(eeg, sids, row_seeds, seed,
+                                       svc.max_batch):
+            out.append(_prior_embeddings(svc.model, svc.prior, *chunk,
+                                         svc.device, [[]])[:m])
+    return torch.cat(out).cpu().numpy()
+
+
+def caption_path(torch, card: str, encoder, prior, eeg: np.ndarray,
+                 main_launches: dict) -> dict:
+    """``GITConfig.git_large_coco()`` and a full-width ``PixelProjector`` in
+    fp32 from the seeded init on the card; one decoder forward and one
+    greedy decode alone at B 16; then ``CaptionService`` (phase 4's trained
+    encoder, phase 8's trained prior, ``max_batch`` 16, 25 new tokens, the
+    30,522-id stand-in vocabulary) behind the HTTP daemon: requests of 1,
+    16 and 20 rows, two requests the coalescer merges, and the prior
+    embeddings against ``ReconstructionService``'s."""
+    import threading
+
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_wordpiece_vocab,
+    )
+    from eeg_image_decode_tpu_torch.data.tokenizers import WordPieceTokenizer
+    from eeg_image_decode_tpu_torch.models.git_caption import (
+        GITCaptioner,
+        GITConfig,
+        PixelProjector,
+    )
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.serve import (
+        CaptionService,
+        ReconstructionService,
+        _default_row_seeds,
+    )
+    from eeg_image_decode_tpu_torch.server import EEGDecodeServer
+
+    gcfg = GITConfig.git_large_coco()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        git = GITCaptioner(gcfg).init_random(SEED).eval()
+        proj = PixelProjector(gcfg.num_visual_tokens, prior.cfg.embed_dim,
+                              gcfg.visual_dim).init_random(SEED + 1).eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = {"git": sum(p.numel() for p in git.parameters()),
+              "git_blocks": sum(p.numel() for p in
+                                git.git.encoder.parameters()),
+              "projector": sum(p.numel() for p in proj.parameters())}
+    weights_gb = torch.cuda.memory_allocated() / 1e9 - base_gb
+
+    # the stages alone at B 16: 257 visual + 26 text tokens, 25 new tokens
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    emb = torch.randn(CAPTION_BATCH, prior.cfg.embed_dim, generator=g,
+                      device="cuda")
+    emb = emb / emb.norm(dim=1, keepdim=True)
+    buf = min(gcfg.max_text_len, 25 + 1)
+    ids = torch.randint(0, gcfg.vocab_size, (CAPTION_BATCH, buf),
+                        generator=g, device="cuda")
+    with torch.inference_mode():
+        vis = proj(emb)
+
+    def forward():
+        with torch.inference_mode():
+            git(vis, ids)
+
+    def decode():
+        git.generate(vis, max_new_tokens=25)
+
+    stages = {"forward_ms_b16": cuda_ms(torch, forward, reps=5),
+              "decode_ms_b16": cuda_ms(torch, decode, reps=3),
+              "forward_flops_b16": _flops(torch, forward),
+              "decode_flops_b16": _flops(torch, decode)}
+    for k in ("forward", "decode"):
+        stages[f"{k}_tflops_per_s"] = (stages[f"{k}_flops_b16"]
+                                       / (stages[f"{k}_ms_b16"] / 1e3) / 1e12)
+        stages[f"{k}_fp32_bound_ms"] = (stages[f"{k}_flops_b16"]
+                                        / PEAK_FLOPS["float32"] * 1e3)
+    stages["forward_top_device_ms_b16"] = top_kernels(torch, forward, n=6)
+    stages["decode_top_device_ms_b16"] = top_kernels(torch, decode, n=6)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_caption_") as tmp:
+        tok = WordPieceTokenizer.from_file(write_synthetic_wordpiece_vocab(
+            tmp))
+    svc = CaptionService(encoder, prior, git, proj, tok,
+                         max_batch=CAPTION_BATCH, max_new_tokens=25,
+                         device="cuda")
+    server = EEGDecodeServer(caption=svc)
+    t0 = time.perf_counter()
+    server.warmup((eeg.shape[1], eeg.shape[2]))  # on its device thread
+    warmup_s = time.perf_counter() - t0
+    port = server.start(port=0)
+    url = f"http://127.0.0.1:{port}/v1/caption"
+    sids = np.zeros(len(eeg), np.int32)
+
+    def request(lo, n, seed):
+        return _post(url, _npz(eeg=eeg[lo:lo + n], subject_ids=sids[:n],
+                               seed=np.int64(seed)),
+                     "application/octet-stream")["captions"]
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        latency, answers = {}, {}
+        for n in CAPTION_SIZES:
+            times = []
+            for _ in range(CAPTION_REPS):
+                t0 = time.perf_counter()
+                answers[n] = request(0, n, SEED)
+                times.append(time.perf_counter() - t0)
+            p50 = float(np.median(times))
+            latency[str(n)] = {"http_p50_s": p50,
+                               "http_min_s": float(np.min(times)),
+                               "captions_per_s": n / p50}
+        launches = dict(_build.LAUNCHES)
+        add_launches(main_launches, launches)
+        if not (launches["attention_fwd"] and launches["tsconv_fwd"]):
+            raise RuntimeError(f"the caption path launched no forward "
+                               f"kernel: {launches}")
+
+        # the same (seed, row) at the same offset in every request size
+        tokens = {}
+        for n in CAPTION_SIZES:  # the service called directly: no HTTP
+            t0 = time.perf_counter()
+            tokens[n] = svc.tokens(eeg[:n], sids[:n], seed=SEED)
+            latency[str(n)]["direct_s"] = time.perf_counter() - t0
+            if answers[n] != [tok.decode(r) for r in tokens[n]]:
+                raise RuntimeError(f"{n}-row request: HTTP captions differ "
+                                   "from the service's ids")
+        same_offset = (np.array_equal(tokens[1], tokens[16][:1])
+                       and np.array_equal(tokens[16], tokens[20][:16]))
+        if not same_offset:
+            raise RuntimeError("a (seed, row) gave other token ids at the "
+                               "same offset in another request size")
+        if (tokens[20].shape != (20, 26) or (tokens[20][:, 0]
+                                             != gcfg.bos_token_id).any()):
+            raise RuntimeError(f"token ids {tokens[20].shape}")
+
+        # the prior's embeddings: the reconstruction service's for the
+        # same (seed, row) (its generator stage handing them back)
+        class _Echo:
+            def generate(self, embeds, decode=False, row_keys=None):
+                return embeds
+
+            def decode(self, latents):
+                return latents
+
+        recon = ReconstructionService(encoder, prior, _Echo(),
+                                      max_batch=CAPTION_BATCH, device="cuda")
+        emb20 = _prior_embeds(torch, svc, eeg[:20], sids[:20], seed=SEED)
+        prior_vs_recon = float(np.abs(
+            emb20 - recon.reconstruct(eeg[:20], sids[:20], seed=SEED)).max())
+        if prior_vs_recon > REBATCH_TOL:
+            raise RuntimeError(f"caption and reconstruction priors differ "
+                               f"by {prior_vs_recon}")
+
+        # two requests the coalescer merges (rows at other offsets)
+        results = {}
+        pending = server._coalescers["caption"]
+
+        def client(name, lo, n, seed):
+            results[name] = request(lo, n, seed)
+
+        threads = [threading.Thread(target=client, args=a) for a in
+                   (("a", 0, 3, SEED + 1), ("b", 3, 5, SEED + 2))]
+        with server._device_lock:
+            for th in threads:
+                th.start()
+            deadline = time.perf_counter() + 120
+            while len(pending._pending) < 2:
+                if time.perf_counter() > deadline:
+                    raise RuntimeError("the two requests never queued")
+                time.sleep(0.01)
+            # the merged batch takes the queue's order
+            order = [int(it["rows"]["row_seeds"][0, 0])
+                     for it in pending._pending]
+        for th in threads:
+            th.join(timeout=600)
+        spans = {SEED + 1: ("a", 0, 3), SEED + 2: ("b", 3, 5)}
+        merged = [spans[seed] + (seed,) for seed in order]
+        rows = np.concatenate([np.arange(lo, lo + n)
+                               for _, lo, n, _ in merged])
+        merged_rs = np.concatenate([_default_row_seeds(n, seed)
+                                    for _, _, n, seed in merged])
+        merged_tok = svc.tokens(eeg[rows], sids[rows], row_seeds=merged_rs)
+        merged_emb = _prior_embeds(torch, svc, eeg[rows], sids[rows],
+                                   row_seeds=merged_rs)
+        agree, differ, emb_diff, at = 0, [], 0.0, 0
+        for name, lo, n, seed in merged:
+            got_tok, got_emb = merged_tok[at:at + n], merged_emb[at:at + n]
+            at += n
+            if results[name] != [tok.decode(r) for r in got_tok]:
+                raise RuntimeError(f"coalesced request {name}: HTTP "
+                                   "captions differ from the merged ids")
+            alone_tok = svc.tokens(eeg[lo:lo + n], sids[:n], seed=seed)
+            alone_emb = _prior_embeds(torch, svc, eeg[lo:lo + n], sids[:n],
+                                      seed=seed)
+            emb_diff = max(emb_diff, float(np.abs(alone_emb
+                                                  - got_emb).max()))
+            for j in range(n):
+                a, b = alone_tok[j], got_tok[j]
+                if np.array_equal(a, b):
+                    agree += 1
+                    continue
+                step = int(np.nonzero(a != b)[0][0])
+                differ.append({
+                    "request": name, "row": j, "first_step": step,
+                    "embed_max_abs_diff": float(np.abs(
+                        alone_emb[j] - got_emb[j]).max()),
+                    "top2_gap_alone": _tokens_gap(torch, svc, alone_emb[j],
+                                                  a, step),
+                    "top2_gap_merged": _tokens_gap(torch, svc, got_emb[j],
+                                                   b, step)})
+
+        # the device split of a 16-row request (CUDA events per stage)
+        direct, splits = [], []
+        for _ in range(CAPTION_REPS):
+            t0 = time.perf_counter()
+            svc.tokens(eeg[:CAPTION_BATCH], sids[:CAPTION_BATCH], seed=SEED)
+            direct.append(time.perf_counter() - t0)
+            splits.append(dict(svc.stage_ms))
+        split = {k: float(np.median([s[k] for s in splits]))
+                 for k in svc.STAGES}
+        census = top_kernels(torch, lambda: svc.tokens(
+            eeg[:CAPTION_BATCH], sids[:CAPTION_BATCH], seed=SEED), n=6)
+        busy_ms, launches_16 = census.pop("all"), census.pop("launches")
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        server.stop()
+
+    row = {"phase": "caption", "card": card, "dtype": "float32",
+           "params": counts, "weights_gb": weights_gb, "build_s": build_s,
+           "stages": stages, "max_batch": CAPTION_BATCH,
+           "max_new_tokens": 25, "vocab": len(tok.vocab),
+           "prior_steps": prior.cfg.num_inference_steps,
+           "prior_guidance": prior.cfg.guidance_scale,
+           "warmup_s": warmup_s, "latency": latency,
+           "direct_p50_s_16": float(np.median(direct)),
+           "device_ms_16": split,
+           "device_ms_16_total": float(sum(split.values())),
+           "launches_16": launches_16, "device_busy_ms_16": busy_ms,
+           "idle_share_16": 1.0 - busy_ms / (float(np.median(direct)) * 1e3),
+           "top_device_ms_16": census, "launches": launches,
+           "same_offset_ids_equal": same_offset,
+           "prior_vs_reconstruction_max_abs_diff": prior_vs_recon,
+           "coalesced_order": [name for name, *_ in merged],
+           "coalesced_rows_agree": agree, "coalesced_rows": 8,
+           "coalesced_embed_max_abs_diff": emb_diff,
+           "coalesced_differ": differ,
+           "first_captions": [c[:120] for c in answers[16][:2]],
+           "serve_peak_mem_gb": serve_peak_gb}
+    emit(row)
+    return row
+
+
+def adapter_path(torch, card: str) -> dict:
+    """``train_pixel_projector`` at full width for one epoch: 16,540 unit
+    1024-d embeddings and 16,540 × 257 × 1024 fp32 grids (17.4 GB) drawn
+    on the card from ``SEED`` (each grid token a fixed squashing of its
+    embedding's channels plus noise: a target the adapter can learn),
+    batch 32, bf16 products; the loss finite and falling: the MSE of the
+    first 1,024 rows under the trained projector below that of its seeded
+    init. The step time is the epoch's CUDA-event time over its steps."""
+    from eeg_image_decode_tpu_torch.train.adapters import (
+        AdapterTrainConfig,
+        evaluate_pixel_projector,
+        init_pixel_projector,
+        train_pixel_projector,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    x = torch.randn(ADAPTER_IMAGES, 1024, generator=g, device="cuda")
+    x /= x.norm(dim=1, keepdim=True)
+    scale = torch.randn(257, 1, generator=g, device="cuda") * 32
+    shift = torch.randn(257, 1024, generator=g, device="cuda") * 0.1
+    y = torch.empty(ADAPTER_IMAGES, 257, 1024, device="cuda")
+    for lo in range(0, ADAPTER_IMAGES, 1024):
+        c = y[lo:lo + 1024]
+        torch.tanh(x[lo:lo + 1024, None, :] * scale + shift, out=c)
+        c.add_(torch.randn(c.shape, generator=g, device="cuda"), alpha=0.1)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    cfg = AdapterTrainConfig(epochs=1, seed=SEED)
+    init = init_pixel_projector(257, 1024, 1024, seed=cfg.seed,
+                                dtype=torch.bfloat16,
+                                device=torch.device("cuda")).eval()
+    mse_init = evaluate_pixel_projector(init, x[:1024], y[:1024])
+    del init
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    proj, losses = train_pixel_projector(x, y, cfg, device="cuda")
+    ev[1].record()
+    epoch_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    steps = ADAPTER_IMAGES // cfg.batch_size
+    mse_trained = evaluate_pixel_projector(proj, x[:1024], y[:1024])
+    row = {"phase": "adapter", "card": card, "dtype": "bfloat16",
+           "images": ADAPTER_IMAGES, "grid_gb": y.numel() * 4 / 1e9,
+           "data_s": data_s, "steps": steps,
+           "step_ms_mean": ev[0].elapsed_time(ev[1]) / steps,
+           "epoch_s": epoch_s, "epoch_loss": losses[0],
+           "mse_init_1024": mse_init, "mse_trained_1024": mse_trained,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(row)
+    del x, y, proj
+    torch.cuda.empty_cache()
+    if not (np.isfinite([losses[0], mse_trained]).all()
+            and mse_trained < mse_init and losses[0] < mse_init):
+        raise RuntimeError(f"adapter training: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2744,6 +3259,9 @@ def main() -> int:
         generate_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
                           os.path.join(tmp, "prior_cli",
                                        "diffusion_prior.pkl"), vae_pkl)
+        caption_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
+                         os.path.join(tmp, "prior_cli",
+                                      "diffusion_prior.pkl"), feats)
     features_path(torch, card)
     with work:
         _, prior = prior_path(torch, card, pairs, work.name)
@@ -2751,6 +3269,10 @@ def main() -> int:
         lowlevel_path(torch, card, eeg, work.name)
     del eeg
     generation_path(torch, card, encoder, prior, eeg_test, main_path)
+    gc.collect()  # the generator's 6 GB, held in the daemon's cycles
+    torch.cuda.empty_cache()
+    caption_path(torch, card, encoder, prior, eeg_test, main_path)
+    adapter_path(torch, card)
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

@@ -1,7 +1,7 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
 Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
 ``evaluate``, ``export-checkpoint``, ``train-prior``, ``train-lowlevel``,
-``latents`` and ``generate``.
+``latents``, ``generate``, ``caption`` and ``train-adapter``.
 
     python -m eeg_image_decode_tpu_torch.cli features \\
         --images-dir THINGS/images_set/test_images --split test \\
@@ -31,6 +31,13 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
     python -m eeg_image_decode_tpu_torch.cli generate \\
         --eeg-features feats.npz --prior-params runs/prior/diffusion_prior.pkl \\
         [--generator-params gen.pkl] [--init-latents lat.npz] --seeds 10
+    python -m eeg_image_decode_tpu_torch.cli train-adapter \\
+        --embeddings clip.npz --images-dir THINGS/images_set/training_images \\
+        --git-vision-params git_vit.pkl [--test-embeddings E --test-grids G]
+    python -m eeg_image_decode_tpu_torch.cli caption \\
+        --eeg-features feats.npz --prior-params diffusion_prior.pkl \\
+        --git-params git.pkl --projector-params runs/pixel_projector.pkl \\
+        --vocab vocab.txt --out semantic_level_caption.txt
 
 Dataset paths come from ``--data-config`` (the reference's
 ``data_config.json`` format) or ``--data-path``; ``--features`` is a cached
@@ -61,11 +68,21 @@ tree saved with ``utils/convert.py::save_flat_npz``; without either the
 weights are random, drawn from ``--seed`` (a smoke run). With
 ``--prior-params`` it also serves ``/v1/reconstruct``: that encoder → the
 prior → SDXL-turbo + IP-Adapter (``--generator-params``, the JAX
-generator's pickle, or seeded random weights) → the VAE decode.
-``generate`` renders the test classes' images from ``--eeg-features``
-through the prior and the generator; ``latents`` writes the SDXL-VAE latent
-cache of an image directory. Every command runs on the CUDA card
-(``--device cuda``, the default, raises without one).
+generator's pickle, or seeded random weights) → the VAE decode; with
+``--git-params`` (and ``--projector-params``, ``--vocab``) also
+``/v1/caption``: that encoder → the prior → ``PixelProjector`` → GIT's
+greedy decode → WordPiece. ``generate`` renders the test classes' images
+from ``--eeg-features`` through the prior and the generator; ``latents``
+writes the SDXL-VAE latent cache of an image directory.
+``train-adapter`` trains the ``PixelProjector`` (CLIP embedding → GIT's
+visual tokens) on ``--grids`` or on grids it encodes from ``--images-dir``
+through GIT's ViT-L/14 tower (``--git-vision-params``, the JAX tower's
+pickle) and pickles its JAX param tree; ``caption`` writes one caption
+per row of ``--embeddings``, or of the prior's samples for
+``--eeg-features``, through GIT (``--git-params``, the JAX decoder's
+pickle, and ``--projector-params``; seeded random weights without them).
+Every command runs on the CUDA card (``--device cuda``, the default,
+raises without one).
 """
 
 from __future__ import annotations
@@ -205,15 +222,97 @@ def build_reconstruction(args, model):
                                  device=args.device)
 
 
-def cmd_serve(args) -> None:
+def _captioner(args, embed_dim: int):
+    """(GIT, its PixelProjector) on ``--device``, both fp32 as the JAX CLI
+    runs them: the decoder's shape derived from ``--git-params`` (the JAX
+    decoder's pickle), the projector from ``--projector-params``; without
+    ``--git-params`` seeded random weights (0 and 1; a smoke run) at the
+    ``git_large_coco`` (``--tiny``: tiny) widths, the projector taking
+    ``embed_dim``-wide embeddings."""
+    from eeg_image_decode_tpu_torch.models.git_caption import (
+        GITCaptioner,
+        GITConfig,
+        PixelProjector,
+        git_config_from_params,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        load_numpy_pickle,
+        pixel_projector_state_dict_from_flax,
+    )
+
+    cfg = GITConfig.tiny() if args.tiny else GITConfig.git_large_coco()
+    dev = resolve_device(args.device)
+    if args.git_params:
+        if not args.projector_params:
+            raise SystemExit("--git-params needs --projector-params (the "
+                             "trained PixelProjector adapter; see "
+                             "train-adapter)")
+        tree = load_numpy_pickle(args.git_params)
+        proj_tree = load_numpy_pickle(args.projector_params)
+        # the decoder's shape from the weights: a base-shaped checkpoint
+        # must not run under a large-shaped model
+        cfg = git_config_from_params(
+            tree, max_text_len=cfg.max_text_len,
+            num_visual_tokens=cfg.num_visual_tokens,
+            bos_token_id=cfg.bos_token_id, eos_token_id=cfg.eos_token_id,
+            pad_token_id=cfg.pad_token_id)
+        embed_dim = int(np.shape(proj_tree["proj"]["kernel"])[0])
+    with torch.device(dev):
+        git = GITCaptioner(cfg)
+        proj = PixelProjector(cfg.num_visual_tokens, embed_dim,
+                              cfg.visual_dim)
+    if args.git_params:
+        git.load_params(tree)
+        proj.load_state_dict(pixel_projector_state_dict_from_flax(proj_tree),
+                             strict=True)
+    else:
+        git.init_random(0)
+        proj.init_random(1)
+    return git.eval(), proj.eval()
+
+
+def build_caption(args, model, prior):
+    """The caption service ``serve --git-params`` adds: ``model`` (the
+    retrieval service's encoder) → ``prior`` → the projector and GIT of
+    ``--projector-params`` / ``--git-params`` → ``--vocab``'s WordPiece,
+    ``--gen-batch`` rows per chunk, ``--max-new-tokens``."""
+    from eeg_image_decode_tpu_torch.data.tokenizers import WordPieceTokenizer
+    from eeg_image_decode_tpu_torch.serve import CaptionService
+
+    git, proj = _captioner(args, prior.cfg.embed_dim)
+    return CaptionService(model, prior, git, proj,
+                          WordPieceTokenizer.from_file(args.vocab),
+                          max_batch=args.gen_batch,
+                          max_new_tokens=args.max_new_tokens,
+                          device=args.device)
+
+
+def build_server(args) -> EEGDecodeServer:
+    """The daemon of ``serve``, its services warmed up on its device
+    thread: ``/v1/retrieve`` always, ``/v1/reconstruct`` with
+    ``--prior-params``, ``/v1/caption`` with ``--git-params``."""
+    if args.git_params and not args.prior_params:
+        raise SystemExit("--git-params needs --prior-params (captions "
+                         "sample CLIP embeddings from the prior)")
+    if args.git_params and not (args.projector_params and args.vocab):
+        raise SystemExit("--git-params needs --projector-params and "
+                         "--vocab to serve /v1/caption")
     retrieval = build_retrieval(args)
     reconstruction = (build_reconstruction(args, retrieval.model)
                       if args.prior_params else None)
+    caption = (build_caption(args, retrieval.model, reconstruction.prior)
+               if args.git_params else None)
     server = EEGDecodeServer(retrieval=retrieval,
-                             reconstruction=reconstruction)
+                             reconstruction=reconstruction, caption=caption)
     server.warmup((args.channels, args.timepoints))
-    routes = "/v1/retrieve" + (" and /v1/reconstruct" if reconstruction
-                               else "")
+    return server
+
+
+def cmd_serve(args) -> None:
+    server = build_server(args)
+    routes = ", ".join(r for r, on in (
+        ("/v1/retrieve", True), ("/v1/reconstruct", server.reconstruction),
+        ("/v1/caption", server.caption)) if on)
     print(f"serving {routes} on http://{args.host}:{args.port}", flush=True)
     server.serve_forever(host=args.host, port=args.port)
 
@@ -867,6 +966,187 @@ def cmd_generate(args):
     return row
 
 
+# ——— captioning: caption / train-adapter ———
+
+
+def cmd_caption(args):
+    """Batch semantic-level captioning (the reference's
+    ``GIT_caption_batch.ipynb`` cell 8 loop): CLIP embeddings
+    (``--embeddings``, or the prior's samples for ``--eeg-features``'
+    ``eeg_features_test``, one draw from ``--seed``) → ``PixelProjector`` →
+    GIT's greedy decode → one line per row in ``--out`` (WordPiece text
+    with ``--vocab``, else the raw ids). Chunks of ``--caption-batch`` rows,
+    the last one padded with its last row; prints one JSON row."""
+    if args.embeddings:
+        d = np.load(args.embeddings)
+        if hasattr(d, "files"):  # .npz: a named key, else the first array
+            embeds = d["clip_embeds" if "clip_embeds" in d.files
+                       else d.files[0]]
+        else:
+            embeds = d
+    elif args.eeg_features and args.prior_params:
+        with np.load(args.eeg_features) as d:
+            feats_test = d["eeg_features_test"]
+        pipe = _load_prior(args)
+        embeds = pipe.generate(feats_test, generator=torch.Generator(
+            device=pipe.device).manual_seed(args.seed))
+    else:
+        raise SystemExit("need --embeddings, or --eeg-features + "
+                         "--prior-params to sample CLIP embeddings from the "
+                         "prior")
+    embeds = torch.as_tensor(embeds, dtype=torch.float32)
+    git, proj = _captioner(args, embeds.shape[-1])
+    tokenizer = None
+    if args.vocab:
+        from eeg_image_decode_tpu_torch.data.tokenizers import (
+            WordPieceTokenizer,
+        )
+
+        tokenizer = WordPieceTokenizer.from_file(args.vocab)
+    from eeg_image_decode_tpu_torch.models.git_caption import (
+        caption_embeddings,
+    )
+
+    embeds = embeds.to(git.output.weight.device)
+    n = embeds.shape[0]
+    bs = min(args.caption_batch, n)
+    t0 = time.perf_counter()
+    lines: list[str] = []
+    for start in range(0, n, bs):
+        chunk = embeds[start:start + bs]
+        real = chunk.shape[0]
+        if real < bs:  # padded: every chunk has one shape
+            chunk = torch.cat([chunk, chunk[-1:].expand(bs - real, -1)])
+        lines.extend(caption_embeddings(
+            git, proj, chunk, tokenizer,
+            max_new_tokens=args.max_new_tokens)[:real])
+    device_s = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    row = {"captions": n, "out": args.out, "device_s": device_s}
+    print(json.dumps(row))
+    return row
+
+
+def _load_embedding_array(path: str) -> np.ndarray:
+    """(N, D) embeddings from ``.npy``/``.npz`` (a named key preferred)."""
+    d = np.load(path)
+    if hasattr(d, "files"):
+        key = next((k for k in ("img_features", "clip_embeds")
+                    if k in d.files), d.files[0])
+        return np.asarray(d[key], np.float32)
+    return np.asarray(d, np.float32)
+
+
+def _load_grid_array(path: str) -> np.ndarray:
+    """(N, T, D) GIT visual-token grids from ``.npy``/``.npz`` (key
+    ``grids`` preferred): one resolver for train and test grids."""
+    d = np.load(path)
+    if hasattr(d, "files"):
+        return np.asarray(d["grids" if "grids" in d.files else d.files[0]],
+                          np.float32)
+    return np.asarray(d, np.float32)
+
+
+def _git_grid_encoder(args):
+    """GIT's CLIP ViT-L/14 grid tower (``--tiny``: the tiny tower in fp32;
+    else bf16) on ``--device`` with ``--git-vision-params``, the JAX
+    tower's param tree as a pickle of numpy arrays."""
+    from eeg_image_decode_tpu_torch.data.features import CLIPFeatureEncoder
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPVisionConfig,
+        CLIPVisionTower,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import (
+        clip_state_dict_from_flax,
+        load_clip_params,
+    )
+
+    cfg = (CLIPVisionConfig.tiny() if args.tiny
+           else CLIPVisionConfig.git_vit_l_14())
+    dev = resolve_device(args.device)
+    with torch.device(dev):
+        tower = CLIPVisionTower(
+            cfg, dtype=torch.float32 if args.tiny else torch.bfloat16)
+    tower.load_state_dict(clip_state_dict_from_flax(
+        load_clip_params(args.git_vision_params), "vision"), strict=True)
+    return CLIPFeatureEncoder(tower, device=dev)
+
+
+def cmd_train_adapter(args):
+    """Train the PixelProjector captioning adapter (the reference's
+    ``Generation/image_adapter.ipynb``: ViT-H CLIP image embeddings → GIT's
+    frozen ViT-L visual-token grids, MSE, AdamW lr 1e-3, batch 32, 30
+    epochs, bf16), pickled as its JAX param tree (the
+    ``PixelProjector_best.bin`` analogue; either package reads it). Grid
+    targets come from ``--grids`` or are encoded from ``--images-dir``
+    through GIT's vision tower into the JAX cache file. Prints one JSON
+    row."""
+    import pickle
+
+    from eeg_image_decode_tpu_torch.data.features import (
+        load_or_compute_git_grids,
+    )
+    from eeg_image_decode_tpu_torch.train.adapters import (
+        AdapterTrainConfig,
+        evaluate_pixel_projector,
+        train_pixel_projector,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        pixel_projector_tree_from_state_dict,
+    )
+
+    encoder = None
+
+    def grids_of(images_dir: str, split: str) -> np.ndarray:
+        nonlocal encoder
+        encoder = encoder or _git_grid_encoder(args)
+        return load_or_compute_git_grids(
+            args.cache_dir, split, _list_image_files(images_dir),
+            encoder=encoder, batch_size=args.grid_batch)
+
+    embeds = _load_embedding_array(args.embeddings)
+    if args.grids:
+        grids = _load_grid_array(args.grids)
+    elif args.images_dir and args.git_vision_params:
+        grids = grids_of(args.images_dir, "train")
+    else:
+        raise SystemExit(
+            "need --grids g.npz, or --images-dir + --git-vision-params to "
+            "encode the GIT visual-token grids (see data.features."
+            "load_or_compute_git_grids)")
+    if grids.shape[0] != embeds.shape[0]:
+        raise SystemExit(
+            f"embeddings ({embeds.shape[0]}) and grids ({grids.shape[0]}) "
+            "counts differ — they must describe the same image list")
+    cfg = AdapterTrainConfig(epochs=args.epochs or 30,
+                             batch_size=args.batch_size or 32,
+                             lr=args.lr or 1e-3, seed=args.seed)
+    projector, losses = train_pixel_projector(embeds, grids, cfg,
+                                              device=args.device)
+    out = args.out or os.path.join(args.output_dir, "pixel_projector.pkl")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "wb") as f:
+        pickle.dump(pixel_projector_tree_from_state_dict(
+            projector.state_dict()), f)
+    result = {"out": out, "epochs": cfg.epochs,
+              "final_train_loss": losses[-1]}
+    if args.test_embeddings:
+        test_e = _load_embedding_array(args.test_embeddings)
+        if args.test_grids:
+            test_g = _load_grid_array(args.test_grids)
+        elif args.test_images_dir and args.git_vision_params:
+            test_g = grids_of(args.test_images_dir, "test")
+        else:
+            raise SystemExit(
+                "--test-embeddings needs --test-grids or --test-images-dir")
+        result["test_mse"] = evaluate_pixel_projector(projector, test_e,
+                                                      test_g)
+    print(json.dumps(result))
+    return result
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-config", default=None,
                    help="path to data_config.json (reference format)")
@@ -957,9 +1237,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--generator-params", default=None,
                    help="the JAX generator's {'unet', 'vae'} pickle of "
                         "numpy arrays; random weights if absent")
+    p.add_argument("--git-params", default=None,
+                   help="enable /v1/caption: the JAX GIT decoder's param "
+                        "pickle (needs --prior-params, --projector-params, "
+                        "--vocab)")
+    p.add_argument("--projector-params", default=None,
+                   help="trained PixelProjector adapter (train-adapter)")
+    p.add_argument("--vocab", default=None,
+                   help="WordPiece vocab.txt for caption detokenization")
+    p.add_argument("--max-new-tokens", type=int, default=25)
     p.add_argument("--tiny", action="store_true",
-                   help="tiny generator (fp32) and tiny-prior default "
-                        "(tests/smoke)")
+                   help="tiny generator (fp32), tiny GIT and tiny-prior "
+                        "defaults (tests/smoke)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
@@ -1139,6 +1428,65 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tiny generator config in fp32 (tests/smoke)")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser("caption", help="GIT semantic-level batch captioning")
+    p.add_argument("--embeddings", default=None,
+                   help=".npy/.npz of CLIP image embeddings to caption "
+                        "(skips prior sampling)")
+    p.add_argument("--eeg-features", default=None,
+                   help=".npz with eeg_features_test (train-retrieval "
+                        "--export-features)")
+    p.add_argument("--prior-params", default=None)
+    p.add_argument("--git-params", default=None,
+                   help="the JAX GIT decoder's param pickle; seeded random "
+                        "weights if absent")
+    p.add_argument("--projector-params", default=None,
+                   help="PixelProjector params (train-adapter's pickle)")
+    p.add_argument("--vocab", default=None,
+                   help="WordPiece vocab.txt; raw token ids if absent")
+    p.add_argument("--out", default="./semantic_level_caption.txt")
+    p.add_argument("--max-new-tokens", type=int, default=25)
+    p.add_argument("--caption-batch", type=int, default=32)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny GIT config (tests/smoke)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_caption)
+
+    p = sub.add_parser(
+        "train-adapter",
+        help="train the PixelProjector captioning adapter "
+             "(image_adapter.ipynb)")
+    p.add_argument("--embeddings", required=True,
+                   help=".npy/.npz of ViT-H CLIP image embeddings (the EEG "
+                        "encoder's target space)")
+    p.add_argument("--grids", default=None,
+                   help=".npz of GIT ViT-L visual-token grids (N, 257, 1024)")
+    p.add_argument("--images-dir", default=None,
+                   help="encode the grids from these images (needs "
+                        "--git-vision-params)")
+    p.add_argument("--git-vision-params", default=None,
+                   help="pickled JAX param tree of GIT's CLIP ViT-L vision "
+                        "tower (convert_hf_clip_vision)")
+    p.add_argument("--test-embeddings", default=None,
+                   help="held-out embeddings for a final test MSE")
+    p.add_argument("--test-grids", default=None)
+    p.add_argument("--test-images-dir", default=None)
+    p.add_argument("--cache-dir", default="cache")
+    p.add_argument("--grid-batch", type=int, default=20,
+                   help="vision-tower encode batch size")
+    p.add_argument("--epochs", type=int, default=None, help="default 30")
+    p.add_argument("--batch-size", type=int, default=None, help="default 32")
+    p.add_argument("--lr", type=float, default=None, help="default 1e-3")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=None,
+                   help="output pickle (default <output-dir>/"
+                        "pixel_projector.pkl)")
+    p.add_argument("--output-dir", default="./runs")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny vision config in fp32 (tests/smoke)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_train_adapter)
     return ap
 
 

@@ -17,6 +17,9 @@ ported (ROADMAP.md).
 :class:`VAELatentEncoder` and :func:`load_or_compute_vae_latents` fill the
 low-level pipeline's SDXL-VAE latent cache (``sdxl-vae-{size}``, the JAX
 cache name) through the port's VAE (``gen/vae.py``).
+:func:`load_or_compute_git_grids` fills the captioning adapter's target
+cache (``ViT-L-14-GIT-grid``, key ``grids``) through GIT's ViT-L/14 grid
+tower (``CLIPFeatureEncoder.encode_grids``).
 """
 
 from __future__ import annotations
@@ -265,3 +268,22 @@ def load_or_compute_vae_latents(cache_dir: str, split: str,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, latents=latents)
     return latents
+
+
+def load_or_compute_git_grids(cache_dir: str, split: str,
+                              image_paths: list[str], *,
+                              encoder: CLIPFeatureEncoder,
+                              batch_size: int = 20) -> np.ndarray:
+    """Content-keyed cache-or-encode of GIT visual-token grids (N, 257,
+    1024): the production step for the reference's external
+    ``ViT-L-14_features_GIT_{train,test}.pt`` caches
+    (``Generation/image_adapter.ipynb`` cell 1). ``encoder`` wraps GIT's
+    frozen CLIP ViT-L vision tower (``CLIPVisionConfig.git_vit_l_14()``);
+    the file is the JAX package's (``ViT-L-14-GIT-grid``), key ``grids``."""
+    path = cache_path(cache_dir, "ViT-L-14-GIT-grid", split, image_paths)
+    if os.path.exists(path):
+        return load_features(path)["grids"]
+    grids = encoder.encode_grids(image_paths, batch_size=batch_size)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, grids=grids)
+    return grids

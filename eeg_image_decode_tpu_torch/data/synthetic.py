@@ -244,3 +244,41 @@ def write_synthetic_clip_vocab(directory: str, texts: list[str], *,
     with open(merges_file, "w", encoding="utf-8") as f:
         f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
     return vocab_file, merges_file
+
+
+def write_synthetic_wordpiece_vocab(directory: str, texts=(), *,
+                                    vocab_size: int = 30522, pad_id: int = 0,
+                                    cls_id: int = 101, sep_id: int = 102
+                                    ) -> str:
+    """Write a WordPiece ``vocab.txt`` of ``vocab_size`` lines and return
+    its path: a stand-in for BERT's uncased vocabulary (GIT's) at its real
+    size, built without a download. ``[PAD]``, ``[CLS]`` and ``[SEP]`` sit
+    at the ids the GIT config decodes with (BERT's 0, 101, 102 by default),
+    ``[UNK]`` and ``[MASK]`` at the first free ids. Then the lowercased
+    words of ``texts``: every other one whole, the rest only as a 3-letter
+    head and a ``##`` tail, so that tokenizing them splits words; filler
+    pieces (``tok{i}`` and ``##{i}`` in turn) pad the ids between."""
+    from eeg_image_decode_tpu_torch.data.tokenizers import WordPieceTokenizer
+
+    special = {pad_id: "[PAD]", cls_id: "[CLS]", sep_id: "[SEP]"}
+    if len(special) != 3 or max(special) >= vocab_size:
+        raise ValueError(f"pad, cls and sep ids must differ and lie below "
+                         f"vocab_size={vocab_size}: {sorted(special)}")
+    words: list[str] = []
+    basic = WordPieceTokenizer(["[CLS]", "[SEP]"])._basic_tokenize
+    for i, w in enumerate(dict.fromkeys(
+            t for text in texts for t in basic(text))):
+        words += [w] if i % 2 == 0 or len(w) < 5 else [w[:3], "##" + w[3:]]
+    pieces = iter(["[UNK]", "[MASK]", *dict.fromkeys(words)])
+    lines = []
+    for i in range(vocab_size):
+        tok = special.get(i) or next(pieces, None)
+        lines.append(tok or (f"tok{i}" if i % 2 else f"##{i}"))
+    if next(pieces, None) is not None:
+        raise ValueError(f"the texts need more than vocab_size={vocab_size} "
+                         "ids")
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "vocab.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return path

@@ -1,17 +1,19 @@
-"""CLIP's byte-level BPE tokenizer (counterpart of
-``eeg_image_decode_tpu/data/tokenizers.py``: ``bytes_to_unicode``,
-``_whitespace_clean`` and ``CLIPBPETokenizer``, copied as they are).
+"""CLIP's byte-level BPE tokenizer and BERT's WordPiece tokenizer
+(counterpart of ``eeg_image_decode_tpu/data/tokenizers.py``:
+``bytes_to_unicode``, ``_whitespace_clean``, ``CLIPBPETokenizer`` and
+``WordPieceTokenizer``, copied as they are).
 
-Pure Python; the vocabulary loads from the standard checkpoint files
-(``vocab.json`` / ``merges.txt``). Output is a fixed-length int32 numpy
-array, padded with ``pad_id``. ``WordPieceTokenizer`` belongs to captioning
-and is not ported yet (ROADMAP.md).
+Pure Python; the vocabularies load from the standard checkpoint files
+(``vocab.json`` / ``merges.txt`` for BPE, ``vocab.txt`` for WordPiece, the
+GIT captioner's). Batched output is a fixed-length int32 numpy array,
+padded with ``pad_id``.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import unicodedata
 
 import numpy as np
 
@@ -156,3 +158,145 @@ class CLIPBPETokenizer:
         return (
             raw.decode("utf-8", errors="replace").replace("</w>", " ").strip()
         )
+
+
+# ———————————————————————————— WordPiece (BERT/GIT) ————————————————————————————
+
+
+def _is_punctuation(ch: str) -> bool:
+    cp = ord(ch)
+    if (33 <= cp <= 47) or (58 <= cp <= 64) or (91 <= cp <= 96) or (123 <= cp <= 126):
+        return True
+    return unicodedata.category(ch).startswith("P")
+
+
+def _is_chinese_char(cp: int) -> bool:
+    return (
+        0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+        or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+        or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+        or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F
+    )
+
+
+class WordPieceTokenizer:
+    """BERT-style tokenizer (basic split + WordPiece) for GIT captions.
+
+    Mirrors ``transformers.BertTokenizer`` with its defaults
+    (``do_lower_case=True``, accent stripping, greedy longest-match-first
+    WordPiece with ``##`` continuations); vocab loads from ``vocab.txt``.
+    """
+
+    def __init__(self, vocab: list[str] | dict[str, int], *,
+                 do_lower_case: bool = True, max_input_chars_per_word: int = 100):
+        if isinstance(vocab, dict):
+            self.vocab = dict(vocab)
+        else:
+            self.vocab = {tok: i for i, tok in enumerate(vocab)}
+        self.ids_to_tokens = {v: k for k, v in self.vocab.items()}
+        self.do_lower_case = do_lower_case
+        self.max_chars = max_input_chars_per_word
+        self.unk_token = "[UNK]"
+        self.cls_id = self.vocab["[CLS]"]
+        self.sep_id = self.vocab["[SEP]"]
+        self.pad_id = self.vocab.get("[PAD]", 0)
+
+    @classmethod
+    def from_file(cls, vocab_file: str, **kw) -> "WordPieceTokenizer":
+        with open(vocab_file, encoding="utf-8") as f:
+            vocab = [line.rstrip("\n") for line in f]
+        return cls(vocab, **kw)
+
+    # — basic tokenization —
+    def _clean(self, text: str) -> str:
+        out = []
+        for ch in text:
+            cp = ord(ch)
+            if cp == 0 or cp == 0xFFFD or unicodedata.category(ch) in ("Cc", "Cf"):
+                continue
+            out.append(" " if ch in (" ", "\t", "\n", "\r") or
+                       unicodedata.category(ch) == "Zs" else ch)
+        return "".join(out)
+
+    def _basic_tokenize(self, text: str) -> list[str]:
+        text = self._clean(text)
+        text = "".join(
+            f" {ch} " if _is_chinese_char(ord(ch)) else ch for ch in text
+        )
+        tokens = []
+        for tok in text.split():
+            if self.do_lower_case:
+                tok = tok.lower()
+                tok = "".join(
+                    ch for ch in unicodedata.normalize("NFD", tok)
+                    if unicodedata.category(ch) != "Mn"
+                )
+            # split on punctuation
+            cur = []
+            for ch in tok:
+                if _is_punctuation(ch):
+                    if cur:
+                        tokens.append("".join(cur))
+                        cur = []
+                    tokens.append(ch)
+                else:
+                    cur.append(ch)
+            if cur:
+                tokens.append("".join(cur))
+        return tokens
+
+    def _wordpiece(self, token: str) -> list[str]:
+        if len(token) > self.max_chars:
+            return [self.unk_token]
+        pieces, start = [], 0
+        while start < len(token):
+            end = len(token)
+            cur = None
+            while start < end:
+                sub = token[start:end]
+                if start > 0:
+                    sub = "##" + sub
+                if sub in self.vocab:
+                    cur = sub
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_token]
+            pieces.append(cur)
+            start = end
+        return pieces
+
+    def tokenize(self, text: str) -> list[str]:
+        out = []
+        for tok in self._basic_tokenize(text):
+            out.extend(self._wordpiece(tok))
+        return out
+
+    def encode(self, text: str, *, max_length: int | None = None) -> list[int]:
+        """[CLS] + WordPiece ids + [SEP] (BERT single-sequence format)."""
+        ids = [self.vocab.get(t, self.vocab[self.unk_token])
+               for t in self.tokenize(text)]
+        ids = [self.cls_id] + ids + [self.sep_id]
+        if max_length is not None and len(ids) > max_length:
+            ids = ids[: max_length - 1] + [self.sep_id]
+        return ids
+
+    def __call__(self, texts: str | list[str], *, max_length: int = 64
+                 ) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.full((len(texts), max_length), self.pad_id, np.int32)
+        for i, t in enumerate(texts):
+            ids = self.encode(t, max_length=max_length)
+            out[i, : len(ids)] = ids
+        return out
+
+    def decode(self, ids) -> str:
+        toks = []
+        for i in ids:
+            tok = self.ids_to_tokens.get(int(i), self.unk_token)
+            if tok in ("[CLS]", "[SEP]", "[PAD]"):
+                continue
+            toks.append(tok)
+        text = " ".join(toks).replace(" ##", "")
+        return text.strip()

@@ -13,8 +13,12 @@ chunked by ``max_batch`` and each chunk is padded to the smallest bucket of
 attention and tsconv kernels on the card) → the diffusion prior's CFG
 sampling → SDXL-turbo + IP-Adapter (``gen/sdxl.py``) → the VAE decode.
 Every draw is per row, keyed by the row's (seed, row) pair, so a row's
-image does not depend on the batch it rides in. The caption service is not
-ported yet (ROADMAP.md).
+image does not depend on the batch it rides in.
+
+:class:`CaptionService` is EEG → captions: the same encoder forward and
+prior sampling (the same ``PRIOR_DOMAIN`` row keys, so a (seed, row) samples
+the same CLIP embedding in both services) → ``PixelProjector`` → GIT's
+greedy decode (``models/git_caption.py``) → WordPiece.
 """
 
 from __future__ import annotations
@@ -204,28 +208,17 @@ class ReconstructionService:
     def _chunk(self, eeg: np.ndarray, sids: np.ndarray,
                row_seeds: np.ndarray, events: list) -> torch.Tensor:
         dev = self.device
-
-        def mark():
-            if dev.type == "cuda":
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                events[-1].append(ev)
-
         events.append([])
-        mark()
-        feats, _ = self.model(torch.from_numpy(eeg).to(dev),
-                              torch.from_numpy(sids).to(dev))
-        feats = feats.float()
-        mark()
-        embeds = self.prior.generate(feats, row_keys=torch.from_numpy(
-            _row_keys(row_seeds, PRIOR_DOMAIN)).to(dev))
-        mark()
+        _mark(dev, events)
+        embeds = _prior_embeddings(self.model, self.prior, eeg, sids,
+                                   row_seeds, dev, events)
+        _mark(dev, events)
         latents = self.generator.generate(
             embeds, decode=False,
             row_keys=torch.from_numpy(_row_keys(row_seeds, SDXL_DOMAIN)))
-        mark()
+        _mark(dev, events)
         imgs = self.generator.decode(latents)
-        mark()
+        _mark(dev, events)
         return imgs
 
     def reconstruct(self, eeg: np.ndarray, subject_ids: np.ndarray | int, *,
@@ -237,24 +230,133 @@ class ReconstructionService:
         row-index) pairs; default ``(seed, 0..B-1)``), so the same request
         and seed give the same images alone, coalesced, or split across
         chunks."""
-        eeg, subject_ids = _check_request(eeg, subject_ids)
-        n = eeg.shape[0]
-        row_seeds = _check_row_seeds(row_seeds, n, seed)
         out, events = [], []
-        for start in range(0, n, self.max_batch):
-            sl = slice(start, start + self.max_batch)
-            m = eeg[sl].shape[0]
-            pad = self.max_batch - m
-            imgs = self._chunk(
-                np.pad(eeg[sl], ((0, pad), (0, 0), (0, 0))),
-                np.pad(subject_ids[sl], (0, pad)),
-                np.pad(row_seeds[sl], ((0, pad), (0, 0))), events)
+        for chunk, m in _padded_chunks(eeg, subject_ids, row_seeds, seed,
+                                       self.max_batch):
             # device results stay queued; one readback after the loop
-            out.append(imgs[:m])
+            out.append(self._chunk(*chunk, events)[:m])
         images = torch.cat(out).cpu().numpy()
         if self.device.type == "cuda":
-            self.stage_ms = {
-                name: float(sum(ev[i].elapsed_time(ev[i + 1])
-                                for ev in events))
-                for i, name in enumerate(self.STAGES)}
+            self.stage_ms = _stage_ms(self.STAGES, events)
         return images
+
+
+class CaptionService:
+    """EEG epochs → caption strings (the reference's semantic-level
+    pipeline as a service) on ``device`` (default: the CUDA card; raises
+    without one).
+
+    ``model``: an eval-mode ``ContrastiveModel``; ``prior_pipe``: a trained
+    or loaded ``PriorPipe``; ``captioner``: a ``GITCaptioner`` and
+    ``projector``: a ``PixelProjector``, both with weights; ``tokenizer``: a
+    ``WordPieceTokenizer``. Each chunk of ``max_batch`` rows (the last one
+    padded up, as the JAX service pads) runs encoder → prior CFG sampling
+    (per-row keys in ``PRIOR_DOMAIN``, the reconstruction service's) →
+    projector → greedy decode; the token ids are read back once after the
+    loop. On a CUDA device ``stage_ms`` holds the device milliseconds of
+    the last call's stages, summed over its chunks (CUDA events):
+    ``encoder``, ``prior``, ``projector`` and ``decode``."""
+
+    STAGES = ("encoder", "prior", "projector", "decode")
+
+    def __init__(self, model: torch.nn.Module, prior_pipe, captioner,
+                 projector, tokenizer, *, max_batch: int = 32,
+                 max_new_tokens: int = 25,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.prior = prior_pipe
+        self.captioner = captioner.to(self.device).eval()
+        self.projector = projector.to(self.device).eval()
+        self.tokenizer = tokenizer
+        self.max_batch = max_batch
+        self.max_new_tokens = max_new_tokens
+        self.stage_ms: dict[str, float] = {}
+
+    def warmup(self, eeg_shape: tuple[int, int]) -> None:
+        """One chunk before accepting traffic (see
+        :meth:`ReconstructionService.warmup`)."""
+        c, t = eeg_shape
+        self.caption(np.zeros((1, c, t), np.float32), np.zeros(1, np.int32))
+
+    @torch.inference_mode()
+    def _chunk(self, eeg: np.ndarray, sids: np.ndarray,
+               row_seeds: np.ndarray, events: list) -> torch.Tensor:
+        dev = self.device
+        events.append([])
+        _mark(dev, events)
+        embeds = _prior_embeddings(self.model, self.prior, eeg, sids,
+                                   row_seeds, dev, events)
+        _mark(dev, events)
+        grids = self.projector(embeds)
+        _mark(dev, events)
+        tokens = self.captioner.generate(grids,
+                                         max_new_tokens=self.max_new_tokens)
+        _mark(dev, events)
+        return tokens
+
+    def tokens(self, eeg: np.ndarray, subject_ids: np.ndarray | int, *,
+               seed: int = 0, row_seeds: np.ndarray | None = None
+               ) -> np.ndarray:
+        """(B, C, T) EEG → (B, buffer) int64 GIT token ids: BOS, the greedy
+        ids, EOS, then ``pad_token_id``. The prior's noise is per ROW (see
+        :meth:`ReconstructionService.reconstruct`) and the decode is
+        greedy, so the same request and seed give the same ids alone,
+        coalesced or split across chunks."""
+        out, events = [], []
+        for chunk, m in _padded_chunks(eeg, subject_ids, row_seeds, seed,
+                                       self.max_batch):
+            out.append(self._chunk(*chunk, events)[:m])
+        tokens = torch.cat(out).cpu().numpy()
+        if self.device.type == "cuda":
+            self.stage_ms = _stage_ms(self.STAGES, events)
+        return tokens
+
+    def caption(self, eeg: np.ndarray, subject_ids: np.ndarray | int, *,
+                seed: int = 0, row_seeds: np.ndarray | None = None
+                ) -> list[str]:
+        """(B, C, T) EEG → B caption strings (:meth:`tokens`, decoded)."""
+        return [self.tokenizer.decode(row) for row in self.tokens(
+            eeg, subject_ids, seed=seed, row_seeds=row_seeds)]
+
+
+def _padded_chunks(eeg, subject_ids, row_seeds, seed: int, max_batch: int):
+    """Validate a request and yield ((eeg, sids, row_seeds) padded to
+    ``max_batch`` rows, real rows) per chunk: every chunk has one shape."""
+    eeg, subject_ids = _check_request(eeg, subject_ids)
+    n = eeg.shape[0]
+    row_seeds = _check_row_seeds(row_seeds, n, seed)
+    for start in range(0, n, max_batch):
+        sl = slice(start, start + max_batch)
+        m = eeg[sl].shape[0]
+        pad = max_batch - m
+        yield (np.pad(eeg[sl], ((0, pad), (0, 0), (0, 0))),
+               np.pad(subject_ids[sl], (0, pad)),
+               np.pad(row_seeds[sl], ((0, pad), (0, 0)))), m
+
+
+def _prior_embeddings(model, prior, eeg: np.ndarray, sids: np.ndarray,
+                      row_seeds: np.ndarray, dev: torch.device,
+                      events: list) -> torch.Tensor:
+    """The encoder's eval forward (an event after it), then the prior's CFG
+    sampling with per-row keys in ``PRIOR_DOMAIN``: the CLIP embeddings of
+    a chunk, shared by the reconstruction and caption services."""
+    feats, _ = model(torch.from_numpy(eeg).to(dev),
+                     torch.from_numpy(sids).to(dev))
+    _mark(dev, events)
+    return prior.generate(feats.float(), row_keys=torch.from_numpy(
+        _row_keys(row_seeds, PRIOR_DOMAIN)).to(dev))
+
+
+def _mark(dev: torch.device, events: list) -> None:
+    """A CUDA event into the current chunk's list (nothing off the card)."""
+    if dev.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1].append(ev)
+
+
+def _stage_ms(stages: tuple, events: list) -> dict[str, float]:
+    """Device ms of each stage, summed over the chunks' event lists."""
+    return {name: float(sum(ev[i].elapsed_time(ev[i + 1]) for ev in events))
+            for i, name in enumerate(stages)}

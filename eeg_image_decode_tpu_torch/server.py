@@ -1,9 +1,9 @@
-"""HTTP serving daemon (counterpart of ``eeg_image_decode_tpu/server.py``),
-with the retrieval and reconstruction services wired:
+"""HTTP serving daemon (counterpart of ``eeg_image_decode_tpu/server.py``)
+for the retrieval, reconstruction and caption services:
 
     POST /v1/retrieve     → {"scores": [[...]], "indices": [[...]]}
     POST /v1/reconstruct  → .npz bytes {"images": (B, H, W, 3) float32}
-    POST /v1/caption      → 501 (service not ported yet)
+    POST /v1/caption      → {"captions": ["..."]}
     GET  /healthz         → {"ok": true, "services": [...]}
 
 Request bodies are either JSON (``{"eeg": [[[...]]], "subject_ids": [...],
@@ -24,9 +24,9 @@ Design notes:
   ``scripts/profile_torch_reconstruct.py``).
   :meth:`EEGDecodeServer.warmup` warms the services on that thread.
 - One ``_Coalescer`` per service batches the requests that queue while the
-  card is busy into one dispatch. A reconstruction request's rows carry
-  their (seed, row) pairs, so a row's image does not depend on what it was
-  coalesced with.
+  card is busy into one dispatch. A reconstruction or caption request's
+  rows carry their (seed, row) pairs, so a row's image or caption does not
+  depend on what it was coalesced with.
 """
 
 from __future__ import annotations
@@ -143,19 +143,19 @@ def _slice_rows(out: tuple, lo: int, hi: int) -> tuple:
 
 
 class EEGDecodeServer:
-    """The retrieval and reconstruction services behind one HTTP daemon.
+    """The retrieval, reconstruction and caption services behind one HTTP
+    daemon.
 
-    ``retrieval``: a :class:`eeg_image_decode_tpu_torch.serve.RetrievalService`
-    or None; ``reconstruction``: a
-    :class:`eeg_image_decode_tpu_torch.serve.ReconstructionService` or None.
-    An absent service's route answers 501 (service not configured), as the
-    JAX daemon does; the caption route always does (not ported yet).
+    ``retrieval``, ``reconstruction``, ``caption``: a ``RetrievalService``,
+    ``ReconstructionService`` and ``CaptionService`` of
+    :mod:`eeg_image_decode_tpu_torch.serve`, or None. An absent service's
+    route answers 501 (service not configured), as the JAX daemon does.
     """
 
-    def __init__(self, *, retrieval=None, reconstruction=None):
+    def __init__(self, *, retrieval=None, reconstruction=None, caption=None):
         self.retrieval = retrieval
         self.reconstruction = reconstruction
-        self.caption = None
+        self.caption = caption
         self._device_lock = threading.Lock()
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -180,13 +180,17 @@ class EEGDecodeServer:
                 lambda rows: (self.reconstruction.reconstruct(
                     rows["eeg"], rows["sids"], row_seeds=rows["row_seeds"]),
                 )), self._device_lock),
+            "caption": _Coalescer(on_device(
+                lambda rows: (np.asarray(self.caption.caption(
+                    rows["eeg"], rows["sids"], row_seeds=rows["row_seeds"]),
+                    dtype=object),)), self._device_lock),
         }
 
     def warmup(self, eeg_shape: tuple[int, int]) -> None:
         """Each configured service's ``warmup`` on the device thread, so
         the per-thread state it builds (cuDNN's plans, cuBLAS's handles)
         is the one requests use."""
-        for svc in (self.retrieval, self.reconstruction):
+        for svc in (self.retrieval, self.reconstruction, self.caption):
             if svc is not None:
                 self._device.submit(svc.warmup, eeg_shape).result()
 
@@ -234,12 +238,15 @@ class EEGDecodeServer:
         eeg, sids = self._require(req, "eeg", "subject_ids")
         eeg = np.asarray(eeg, np.float32)
         rows = {"eeg": eeg, "sids": self._row_sids(eeg, sids)}
-        if name == "reconstruction":
+        if name != "retrieval":
             rows["row_seeds"] = _default_row_seeds(eeg.shape[0],
                                                    int(req.get("seed", 0)))
-            (images,) = self._coalescers[name].submit(rows)
+            (out,) = self._coalescers[name].submit(rows)
+            if name == "caption":
+                return (json.dumps({"captions": [str(c) for c in out]}
+                                   ).encode(), "application/json")
             buf = io.BytesIO()
-            np.savez(buf, images=np.asarray(images, np.float32))
+            np.savez(buf, images=np.asarray(out, np.float32))
             return buf.getvalue(), "application/octet-stream"
         scores, idx = self._coalescers[name].submit(rows,
                                                     k=int(req.get("k", 5)))

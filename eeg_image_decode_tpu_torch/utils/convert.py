@@ -48,6 +48,17 @@ the CLI's ``serve --weights``.
 ``state_dict`` to the reference's ``ATMS_retrieval.py`` layout and back
 (the JAX ``utils/convert.py`` maps of the same names, written against the
 port's keys).
+
+The GIT captioner's tree (the JAX ``GITCaptioner`` params, the
+``--git-params`` pickle) maps onto the port's decoder, which carries
+transformers' ``GitForCausalLM`` names (``git_state_dict_from_flax`` and
+back, ``git_tree_from_state_dict``): flax's attention kernels, q/k/v
+(d, heads, head_dim) and out (heads, head_dim, d), fold to (d, d) torch
+weights. The ``PixelProjector`` tree (the ``--projector-params`` pickle,
+what ``train-adapter`` writes) keeps the JAX names
+(``pixel_projector_state_dict_from_flax`` and back);
+``convert_pixel_projector`` reads the reference's ``Sequential``
+(``PixelProjector_best.bin``: indices 1, 2, 4 and 5).
 """
 
 from __future__ import annotations
@@ -507,3 +518,139 @@ def convert_atms_state_dict(sd: dict) -> dict[str, torch.Tensor]:
     ln(f"{e}proj_eeg.ln", "proj_eeg.2")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+# ——— the GIT captioner and its PixelProjector (models/git_caption.py) ———
+
+
+def _np32(v) -> np.ndarray:
+    return np.array(v.detach().float().cpu().numpy() if torch.is_tensor(v)
+                    else v, dtype=np.float32)
+
+
+def _dense_ln_from_flax(out: dict, prefix: str, leaf: dict) -> None:
+    """A flax Dense (kernel (in, out)) or LayerNorm (scale) leaf → torch
+    ``weight`` (out, in) / ``weight`` and ``bias``."""
+    if "kernel" in leaf:
+        out[f"{prefix}.weight"] = np.asarray(leaf["kernel"]).T
+    else:
+        out[f"{prefix}.weight"] = leaf["scale"]
+    out[f"{prefix}.bias"] = leaf["bias"]
+
+
+def _dense_ln_to_flax(sd: dict, prefix: str, *, norm: bool) -> dict:
+    w = _np32(sd[f"{prefix}.weight"])
+    return {"scale" if norm else "kernel":
+            w if norm else np.ascontiguousarray(w.T),
+            "bias": _np32(sd[f"{prefix}.bias"])}
+
+
+#: the JAX GIT tree's names → the port's (transformers') module names
+_GIT_TOP = {"embed_ln": "git.embeddings.LayerNorm",
+            "visual_proj": "git.visual_projection.visual_projection.0",
+            "visual_ln": "git.visual_projection.visual_projection.1",
+            "lm_head": "output"}
+_GIT_LAYER = {"ln_attn": "attention.output.LayerNorm",
+              "ff1": "intermediate.dense", "ff2": "output.dense",
+              "ln_ff": "output.LayerNorm"}
+
+
+def git_state_dict_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``GITCaptioner`` param tree (nested dicts of numpy arrays)
+    → the port decoder's ``state_dict`` (fp32; load it strictly)."""
+    out = {"git.embeddings.word_embeddings.weight":
+           tree["token_embed"]["embedding"],
+           "git.embeddings.position_embeddings.weight":
+           tree["pos_embed"]["embedding"]}
+    for name, prefix in _GIT_TOP.items():
+        _dense_ln_from_flax(out, prefix, tree[name])
+    i = 0
+    while f"layer_{i}" in tree:
+        layer, p = tree[f"layer_{i}"], f"git.encoder.layer.{i}"
+        attn = layer["attn"]
+        d = np.shape(attn["query"]["kernel"])[0]
+        for n in ("query", "key", "value"):
+            out[f"{p}.attention.self.{n}.weight"] = np.asarray(
+                attn[n]["kernel"]).reshape(d, d).T
+            out[f"{p}.attention.self.{n}.bias"] = np.asarray(
+                attn[n]["bias"]).reshape(d)
+        out[f"{p}.attention.output.dense.weight"] = np.asarray(
+            attn["out"]["kernel"]).reshape(d, d).T
+        out[f"{p}.attention.output.dense.bias"] = attn["out"]["bias"]
+        for name, suffix in _GIT_LAYER.items():
+            _dense_ln_from_flax(out, f"{p}.{suffix}", layer[name])
+        i += 1
+    return {k: torch.from_numpy(_np32(v)) for k, v in out.items()}
+
+
+def git_tree_from_state_dict(sd: dict, n_heads: int) -> dict:
+    """Inverse of :func:`git_state_dict_from_flax`: the port decoder's (or
+    a ``GitForCausalLM``'s decoder) ``state_dict`` → the JAX tree, fp32
+    numpy (the layout the JAX ``convert_git_causal_lm`` writes)."""
+    tree = {"token_embed": {"embedding": _np32(
+                sd["git.embeddings.word_embeddings.weight"])},
+            "pos_embed": {"embedding": _np32(
+                sd["git.embeddings.position_embeddings.weight"])}}
+    for name, prefix in _GIT_TOP.items():
+        tree[name] = _dense_ln_to_flax(sd, prefix, norm=name.endswith("ln"))
+    i = 0
+    while f"git.encoder.layer.{i}.intermediate.dense.weight" in sd:
+        p = f"git.encoder.layer.{i}"
+        d = np.shape(sd[f"{p}.attention.self.query.weight"])[0]
+        hd = d // n_heads
+
+        def fold(n):
+            return {"kernel": np.ascontiguousarray(_np32(
+                        sd[f"{p}.attention.self.{n}.weight"]).T.reshape(
+                            d, n_heads, hd)),
+                    "bias": _np32(sd[f"{p}.attention.self.{n}.bias"]
+                                  ).reshape(n_heads, hd)}
+
+        layer = {"attn": {n: fold(n) for n in ("query", "key", "value")}}
+        layer["attn"]["out"] = {
+            "kernel": np.ascontiguousarray(_np32(
+                sd[f"{p}.attention.output.dense.weight"]).T.reshape(
+                    n_heads, hd, d)),
+            "bias": _np32(sd[f"{p}.attention.output.dense.bias"])}
+        for name, suffix in _GIT_LAYER.items():
+            layer[name] = _dense_ln_to_flax(sd, f"{p}.{suffix}",
+                                            norm=name.startswith("ln"))
+        tree[f"layer_{i}"] = layer
+        i += 1
+    return tree
+
+
+_PROJECTOR = ("expand", "ln_tokens", "proj", "ln")
+
+
+def pixel_projector_state_dict_from_flax(tree: dict
+                                         ) -> dict[str, torch.Tensor]:
+    """The JAX ``PixelProjector`` params (``expand``, ``ln_tokens``,
+    ``proj``, ``ln``) → the port's ``state_dict`` (fp32; load strictly)."""
+    out: dict = {}
+    for name in _PROJECTOR:
+        _dense_ln_from_flax(out, name, tree[name])
+    return {k: torch.from_numpy(_np32(v)) for k, v in out.items()}
+
+
+def pixel_projector_tree_from_state_dict(sd: dict) -> dict:
+    """Inverse of :func:`pixel_projector_state_dict_from_flax`: the JAX
+    tree of fp32 numpy arrays (what ``train-adapter`` pickles)."""
+    return {name: _dense_ln_to_flax(sd, name, norm=name.startswith("ln"))
+            for name in _PROJECTOR}
+
+
+def convert_pixel_projector(sd: dict) -> dict[str, torch.Tensor]:
+    """The reference's ``PixelProjector_best.bin`` (a torch ``Sequential``:
+    1 = Linear(1, 257), 2 = LayerNorm(257), 4 = Linear(1024, 1024),
+    5 = LayerNorm(1024); 0 and 3 are parameter-free rearranges) → the
+    port's ``state_dict`` (fp32; load strictly)."""
+    names = {"1": "expand", "2": "ln_tokens", "4": "proj", "5": "ln"}
+    out = {}
+    for k, v in sd.items():
+        idx, leaf = k.split(".", 1)
+        if idx not in names:
+            raise ValueError(f"{k}: not a key of the reference "
+                             "PixelProjector (Sequential indices 1, 2, 4, 5)")
+        out[f"{names[idx]}.{leaf}"] = torch.from_numpy(_np32(v))
+    return out

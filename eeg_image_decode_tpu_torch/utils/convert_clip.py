@@ -18,8 +18,9 @@ and layouts, so two sources load into them:
 
 :func:`clip_tree_from_state_dict` is the way back, with which a smoke run
 or a test writes a ``--clip-params`` pickle from the port's towers.
-``convert_hf_clip_vision`` (transformers layout) serves GIT captioning and
-is not ported yet (ROADMAP.md).
+:func:`convert_hf_clip_vision` takes a transformers ``CLIPVisionModel``
+dict, or GIT's vision tower (``git.image_encoder.*`` with that prefix
+stripped), into the vision tower: the grid tower of ``train-adapter``.
 """
 
 from __future__ import annotations
@@ -164,6 +165,48 @@ def openclip_state_dicts(sd: dict) -> tuple[dict, dict]:
         else:
             text[k] = v
     return _tensors(vision), _tensors(text)
+
+
+def convert_hf_clip_vision(sd: dict, cfg) -> dict[str, torch.Tensor]:
+    """A transformers ``CLIPVisionModel(WithProjection)`` state dict, or
+    GIT's ``git.image_encoder`` one with that prefix stripped → the port
+    vision tower's ``state_dict`` (fp32) for ``cfg`` (a
+    ``CLIPVisionConfig``; ``cfg.layers`` blocks are read). q, k and v
+    stack into ``in_proj``; transformers keeps CLIP's ``pre_layrnorm``
+    typo. ``visual_projection.weight`` exists only on the WithProjection
+    variant; grid consumers never use ``proj``, so an identity fills in
+    when it is absent (width must equal embed_dim)."""
+    sd = _tensors(sd)
+    v = "vision_model"
+    out = {
+        "conv1.weight": sd[f"{v}.embeddings.patch_embedding.weight"],
+        "class_embedding": sd[f"{v}.embeddings.class_embedding"].reshape(-1),
+        "positional_embedding": sd[f"{v}.embeddings.position_embedding.weight"],
+    }
+    if "visual_projection.weight" in sd:
+        out["proj"] = sd["visual_projection.weight"].T.contiguous()
+    elif cfg.width == cfg.embed_dim:
+        out["proj"] = torch.eye(cfg.width)
+    else:
+        raise ValueError("a projection-free checkpoint needs width == "
+                         f"embed_dim (grid consumers never use proj); got "
+                         f"{cfg.width} and {cfg.embed_dim}")
+    renames = [("ln_pre", f"{v}.pre_layrnorm"),
+               ("ln_post", f"{v}.post_layernorm")]
+    for i in range(cfg.layers):
+        hf, p = f"{v}.encoder.layers.{i}", f"transformer.resblocks.{i}"
+        for leaf in ("weight", "bias"):
+            out[f"{p}.attn.in_proj_{leaf}"] = torch.cat(
+                [sd[f"{hf}.self_attn.{n}_proj.{leaf}"] for n in "qkv"])
+        renames += [(f"{p}.attn.out_proj", f"{hf}.self_attn.out_proj"),
+                    (f"{p}.ln_1", f"{hf}.layer_norm1"),
+                    (f"{p}.ln_2", f"{hf}.layer_norm2"),
+                    (f"{p}.mlp.c_fc", f"{hf}.mlp.fc1"),
+                    (f"{p}.mlp.c_proj", f"{hf}.mlp.fc2")]
+    for port, hf in renames:
+        out[f"{port}.weight"] = sd[f"{hf}.weight"]
+        out[f"{port}.bias"] = sd[f"{hf}.bias"]
+    return out
 
 
 def load_clip_params(path: str) -> dict:

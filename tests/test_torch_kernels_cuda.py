@@ -10,7 +10,9 @@ the full ATM-S serving width; float32 and bfloat16. At the end, the CLIP
 towers of ``cli features`` (plain PyTorch, no kernel of the port) in
 bfloat16 against float32, and the command itself, on the card; the prior
 and low-level steps against the CPU; the tiny SDXL generator against the
-CPU, and a bfloat16 reconstruct through the encoder's kernels.
+CPU, and a bfloat16 reconstruct through the encoder's kernels; the tiny GIT
+captioner against the CPU, and a caption service through the encoder's
+kernels.
 """
 
 import dataclasses
@@ -880,5 +882,90 @@ def test_reconstruct_bf16_on_card(cuda):
     assert out.min() >= 0 and out.max() <= 1
     alone = svc.reconstruct(eeg[4:5], 0, row_seeds=[[3, 4]])
     assert np.abs(alone - out[4:5]).max() <= 2 / 255
+    assert set(svc.stage_ms) == set(svc.STAGES)
+    assert all(v > 0 for v in svc.stage_ms.values())
+
+
+def _tiny_captioner(device):
+    from eeg_image_decode_tpu_torch.models.git_caption import (
+        GITCaptioner,
+        GITConfig,
+        PixelProjector,
+    )
+
+    torch.manual_seed(0)
+    git = GITCaptioner(GITConfig.tiny()).init_random(3)
+    # larger weights than N(0, 0.02): the logits' gaps well above fp32
+    # rounding, so the greedy ids must agree
+    with torch.no_grad():
+        for p in git.parameters():
+            if p.ndim == 2:
+                p.mul_(10)
+    proj = PixelProjector(3, 64, 16).init_random(4)
+    return git.to(device), proj.to(device)
+
+
+@pytest.mark.cuda
+def test_tiny_captioner_on_card_matches_cpu(cuda):
+    """GIT's fp32 logits on the card against the CPU (≤ 1e-4 of max|logit|:
+    the products' summation order), the greedy ids equal."""
+    git, proj = _tiny_captioner(cuda)
+    emb = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(4, 64)).astype(np.float32))
+    ids = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 64, size=(4, 6)))
+    with torch.no_grad():
+        vis = proj(emb.to(cuda))
+        got = git(vis, ids.to(cuda)).cpu()
+        tokens = git.generate(vis, max_new_tokens=6).cpu()
+    git_cpu, proj_cpu = git.cpu(), proj.cpu()
+    with torch.no_grad():
+        vis_cpu = proj_cpu(emb)
+        want = git_cpu(vis_cpu, ids)
+        want_tokens = git_cpu.generate(vis_cpu, max_new_tokens=6)
+    torch.testing.assert_close(vis.cpu(), vis_cpu, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(tokens, want_tokens)
+
+
+@pytest.mark.cuda
+def test_caption_service_on_card(cuda, tmp_path):
+    """``CaptionService`` on the card (the full-width bf16 ATM-S encoder
+    through its forward kernels, a small prior, the tiny GIT): a row alone
+    and in a padded batch give the same ids at the same offset, the
+    attention and tsconv kernels are launched, and the stage split is
+    recorded."""
+    from eeg_image_decode_tpu_torch.core.config import ATMSConfig, PriorConfig
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_wordpiece_vocab,
+    )
+    from eeg_image_decode_tpu_torch.data.tokenizers import WordPieceTokenizer
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.serve import CaptionService
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    model = build_encoder("atms", config=ATMSConfig(), dtype=torch.bfloat16,
+                          device=cuda, seed=0)
+    pipe = PriorPipe(PriorConfig(embed_dim=64, cond_dim=1024,
+                                 hidden_dims=(64, 32), time_embed_dim=32,
+                                 num_inference_steps=4), device=cuda)
+    pipe.init(total_steps=1, seed=0)
+    tok = WordPieceTokenizer.from_file(write_synthetic_wordpiece_vocab(
+        str(tmp_path), vocab_size=64, cls_id=1, sep_id=2))
+    svc = CaptionService(model, pipe, *_tiny_captioner(cuda), tok,
+                         max_batch=4, max_new_tokens=6, device=cuda)
+    eeg = np.random.default_rng(7).normal(size=(5, 63, 250)).astype(
+        np.float32)
+    _build.reset_launches()
+    tokens = svc.tokens(eeg, 0, seed=3)
+    assert _build.LAUNCHES["attention_fwd"] and _build.LAUNCHES["tsconv_fwd"]
+    assert tokens.shape == (5, 7) and (tokens[:, 0] == 1).all()
+    # row 4 rides at offset 0 of the second chunk: alone it does too
+    alone = svc.tokens(eeg[4:5], 0, row_seeds=[[3, 4]])
+    np.testing.assert_array_equal(alone, tokens[4:5])
+    assert svc.caption(eeg[:2], 0, seed=3) == [tok.decode(r)
+                                               for r in tokens[:2]]
     assert set(svc.stage_ms) == set(svc.STAGES)
     assert all(v > 0 for v in svc.stage_ms.values())

@@ -113,7 +113,8 @@ def test_package_imports_without_jax(tmp_path):
     also when ``cli features --tiny`` runs (its pickle reader, towers,
     tokenizer, image reader and cache writer), a plot is drawn, and the
     diffusion prior and the low-level encoder train, sample and round-trip
-    their files, and a reconstruction runs through the generator."""
+    their files, a reconstruction runs through the generator, and a row is
+    captioned through the GIT decoder (no transformers either)."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
@@ -202,8 +203,23 @@ def test_package_imports_without_jax(tmp_path):
         "device='cpu')\n"
         "assert svc.reconstruct(r.normal(size=(1, 63, 250)), 0).shape == "
         "(1, 16, 16, 3)\n"
+        "from eeg_image_decode_tpu_torch.models.git_caption import "
+        "GITCaptioner, GITConfig, PixelProjector\n"
+        "from eeg_image_decode_tpu_torch.serve import CaptionService\n"
+        "from eeg_image_decode_tpu_torch.data.tokenizers import "
+        "WordPieceTokenizer\n"
+        "from eeg_image_decode_tpu_torch.data.synthetic import "
+        "write_synthetic_wordpiece_vocab\n"
+        "import eeg_image_decode_tpu_torch.train.adapters\n"
+        "gc = GITConfig.tiny()\n"
+        "tok = WordPieceTokenizer.from_file(write_synthetic_wordpiece_vocab("
+        "d, vocab_size=64, cls_id=1, sep_id=2))\n"
+        "cs = CaptionService(svc.model, pp, GITCaptioner(gc).init_random(0), "
+        "PixelProjector(3, 64, 16).init_random(1), tok, max_batch=1, "
+        "device='cpu')\n"
+        "assert len(cs.caption(r.normal(size=(1, 63, 250)), 0)) == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', "
         "'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -186,7 +186,33 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    loss finite and falling, the step p50, the epoch seconds, the peak
    memory. No TPU kernel lies inside GIT, the projector or the adapter
    trainer (the JAX modules are plain XLA).
-12. One JSON line listing the kernels, then the result line
+12. The reconstruction metric table at full backbone width, fp32 without
+   TF32: AlexNet, InceptionV3, EfficientNet-B1 and ResNet-50 (SwAV) with
+   seeded weights written as the JAX ``--backbone-params`` pickle, and the
+   CLIP ViT-L/14 vision tower (``CLIPVisionConfig.vit_l_14()``) as the
+   ``--clip-params`` pickle. Inside phase 6's directory: ``cli metrics`` on
+   its ``cli generate`` tree (``--gen-seed`` 0 and 1) against its 20 written
+   JPEGs (copied flat, in concept order: the loader reads ground truth
+   from a flat directory, as the reference does), each table with 14 rows
+   in JAX's order, finite, PixCorr and SSIM in [−1, 1], the 2-way rows in
+   [0, 1], the CSV equal to the printed row; then the 20 JPEGs written as
+   a generate tree against a flat copy of themselves (PixCorr and SSIM
+   ≥ 0.9999, every distance ≤ 1e-5, every 2-way row 1.0; the seeded
+   generator's near-flat images lie closer together than float32 resolves
+   in the pooled extractors, so their tree cannot hold the 2-way rows);
+   the command's seconds, and the host's PNG/JPEG decode and resize ms per
+   image beside the device's table on the same pairs.
+   The six extractors' features for 4 of those pairs on the card against
+   the same modules on the CPU (max |Δ| ≤ 1e-4 · max |CPU feature|), and
+   PixCorr and SSIM (≤ 1e-5). Then the full-size table: 200 pairs at
+   425 × 425 drawn on the card from ``SEED`` (uniform images, the ground
+   truth those plus 0.05 · N(0, 1), clipped), with per extractor its
+   CUDA-event ms over both batches, its operations from PyTorch's FLOP
+   counter, TFLOP/s against the fp32 peak and its largest kernels; the
+   PixCorr and SSIM ms, the table's total, the peak memory and the
+   parameter counts. No TPU kernel lies on this path (the JAX metric
+   modules are plain XLA).
+13. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -3167,6 +3193,247 @@ def adapter_path(torch, card: str) -> dict:
     return row
 
 
+# ——— phase 12: the reconstruction metric table at full backbone width ———
+
+#: the table's rows, in JAX ``cmd_metrics``' order
+METRIC_ROWS = ["pixcorr", "ssim"] + [
+    f"{p}_{k}" for k in ("alexnet2", "alexnet5", "inception", "effnet",
+                         "swav", "clip") for p in ("2way", "dist")]
+#: the reference's 200 test concepts at the CLI's default ``--image-size``
+METRIC_PAIRS, METRIC_SIZE = 200, 425
+
+
+def write_metric_pickles(torch, tmp: str) -> dict:
+    """Seeded AlexNet, InceptionV3, EfficientNet-B1 and ResNet-50 as the JAX
+    ``--backbone-params`` pickle (``{alexnet, inception, effnet, swav}``
+    flax trees) and the ViT-L/14 vision tower, filled on the card, as the
+    ``--clip-params`` pickle; their sizes (BN statistics included)."""
+    import pickle
+
+    from eeg_image_decode_tpu_torch.eval import backbones as bb
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPVisionConfig,
+        CLIPVisionTower,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        backbone_tree_from_state_dict,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import (
+        clip_tree_from_state_dict,
+    )
+
+    t0 = time.perf_counter()
+    trees, params = {}, {}
+    for i, (kind, make) in enumerate(bb.BACKBONES.items()):
+        sd = bb.init_random(make(), SEED + 120 + i).state_dict()
+        trees[kind] = backbone_tree_from_state_dict(kind, sd)
+        params[kind] = sum(v.numel() for k, v in sd.items()
+                           if not k.endswith("num_batches_tracked"))
+    out = {"backbone_params": os.path.join(tmp, "metric_backbones.pkl"),
+           "clip_params": os.path.join(tmp, "metric_clip_l14.pkl")}
+    with open(out["backbone_params"], "wb") as f:
+        pickle.dump(trees, f)
+    cfg = CLIPVisionConfig.vit_l_14()
+    with torch.device("cuda"):
+        tower = CLIPVisionTower(cfg, seed=SEED + 125)
+    params["clip"] = sum(p.numel() for p in tower.parameters())
+    with open(out["clip_params"], "wb") as f:
+        pickle.dump(clip_tree_from_state_dict(tower.state_dict(), "vision",
+                                              cfg.heads), f)
+    del tower
+    out.update(params=params, write_s=time.perf_counter() - t0,
+               pickle_mb={k: os.path.getsize(out[k]) / 1e6
+                          for k in ("backbone_params", "clip_params")})
+    return out
+
+
+def _metrics_cli(argv: list[str]) -> dict:
+    """``cli metrics`` in this process: the JSON row it prints first."""
+    from eeg_image_decode_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["metrics", *argv])
+    return json.loads(buf.getvalue().splitlines()[0])
+
+
+def check_metric_table(table: dict, what: str) -> None:
+    """14 rows in JAX's order, finite, correlations in [−1, 1], the 2-way
+    rows in [0, 1]."""
+    vals = np.array([table.get(k, np.nan) for k in METRIC_ROWS])
+    bad = (list(table) != METRIC_ROWS or not np.isfinite(vals).all()
+           or any(not -1 <= table[k] <= 1 for k in ("pixcorr", "ssim"))
+           or any(not 0 <= v <= 1 for k, v in table.items()
+                  if k.startswith("2way")))
+    if bad:
+        raise RuntimeError(f"metric table ({what}): {table}")
+
+
+def metrics_cli_path(torch, card: str, tmp: str, pk: dict) -> dict:
+    """``cli metrics`` on phase 6's ``cli generate`` tree (two seeds)
+    against its 20 written JPEGs; the JPEGs (as a generate tree) against
+    a flat copy of themselves; all through the
+    pickles of :func:`write_metric_pickles`. The host's decode and resize
+    beside the device's table; the six extractors on the card against the
+    CPU."""
+    import shutil
+
+    from PIL import Image
+
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.eval.recon_metrics import (
+        pixcorr,
+        reconstruction_metrics,
+        ssim,
+    )
+
+    gen_dir = os.path.join(tmp, "generated_noise")
+    # the ground truth flat, in concept order (a THINGS-layout tree would
+    # read as a generate tree), and written as a generate tree
+    # (class_XXXX/0.png)
+    gt_dir, gt_tree = (os.path.join(tmp, d) for d in (
+        "gt_flat", "gt_as_generate_tree"))
+    os.makedirs(gt_dir)
+    images = os.path.join(tmp, "gen_images")
+    for i, concept in enumerate(sorted(os.listdir(images))):
+        (name,) = os.listdir(os.path.join(images, concept))
+        shutil.copy(os.path.join(images, concept, name),
+                    os.path.join(gt_dir, f"{concept}.jpg"))
+        os.makedirs(os.path.join(gt_tree, f"class_{i:04d}"))
+        with Image.open(os.path.join(images, concept, name)) as im:
+            im.save(os.path.join(gt_tree, f"class_{i:04d}", "0.png"))
+    weights = ["--backbone-params", pk["backbone_params"], "--clip-params",
+               pk["clip_params"]]
+    tables, cli_s = {}, {}
+    for run, (tree, gen_seed, gt) in {
+            "seed0": (gen_dir, 0, gt_dir), "seed1": (gen_dir, 1, gt_dir),
+            "self_distinct": (gt_tree, 0, gt_dir)}.items():
+        out = os.path.join(tmp, f"metrics_{run}.csv")
+        t0 = time.perf_counter()
+        table = _metrics_cli(["--generated", tree, "--gen-seed",
+                              str(gen_seed), "--ground-truth", gt, *weights,
+                              "--out", out])
+        cli_s[run] = time.perf_counter() - t0
+        check_metric_table(table, run)
+        with open(out) as f:
+            lines = f.read().splitlines()
+        csv_rows = dict(ln.split(",") for ln in lines[1:])
+        if (lines[0] != "metric,value" or list(csv_rows) != list(table)
+                or any(float(v) != table[k] for k, v in csv_rows.items())):
+            raise RuntimeError(f"cli metrics {run}: the CSV {lines} is not "
+                               f"the printed row {table}")
+        tables[run] = table
+
+    # a tree against itself: aligned pairs score 1 and distance 0, and on
+    # distinct images every 2-way row is 1.0
+    own = tables["self_distinct"]
+    identity_ok = (own["pixcorr"] >= 0.9999 and own["ssim"] >= 0.9999
+                   and all(v <= 1e-5 for k, v in own.items()
+                           if k.startswith("dist"))
+                   and all(v == 1.0 for k, v in own.items()
+                           if k.startswith("2way")))
+
+    # the host's part (PIL decode + bilinear resize to 425) and the
+    # device's (the table on those pairs) apart
+    t0 = time.perf_counter()
+    gen = cli._load_image_batch(gen_dir, seed=0, size=METRIC_SIZE)
+    gt = cli._load_image_batch(gt_dir, seed=0, size=METRIC_SIZE)
+    load_ms = (time.perf_counter() - t0) * 1e3 / (len(gen) + len(gt))
+    extractors = cli.build_metric_extractors(pk["backbone_params"],
+                                             pk["clip_params"], "cuda")
+    gen_c, gt_c = (torch.from_numpy(a).cuda() for a in (gen, gt))
+    table_ms = cuda_ms(torch, lambda: reconstruction_metrics(
+        gen_c, gt_c, extractors), reps=3)
+    again = reconstruction_metrics(gen_c, gt_c, extractors)
+    cli_gap = max(abs(again[k] - tables["seed0"][k]) for k in again)
+
+    # the card against the CPU: the same modules, 4 pairs
+    cpu = cli.build_metric_extractors(pk["backbone_params"],
+                                      pk["clip_params"], "cpu")
+    rel = {}
+    for name, fn in extractors.items():
+        errs = []
+        for batch in (gen[:4], gt[:4]):
+            want = cpu[name](torch.from_numpy(batch))
+            got = fn(torch.from_numpy(batch).cuda()).cpu()
+            errs.append(float((got - want).abs().max())
+                        / float(want.abs().max()))
+        rel[name] = max(errs)
+    g4, t4 = torch.from_numpy(gen[:4]), torch.from_numpy(gt[:4])
+    pix_ssim = {f"{name}_abs_err": abs(float(fn(g4.cuda(), t4.cuda()))
+                                       - float(fn(g4, t4)))
+                for name, fn in (("pixcorr", pixcorr), ("ssim", ssim))}
+    del cpu
+    gc.collect()
+    row = {"phase": "metrics_cli", "card": card, "pairs": len(gen),
+           "image_size": METRIC_SIZE, "tables": tables, "cli_s": cli_s,
+           "identity_ok": identity_ok,
+           "host_decode_resize_ms_per_image": load_ms,
+           "device_table_ms": table_ms,
+           "table_minus_cli_max_abs": cli_gap,
+           "card_vs_cpu_rel_err": rel, **pix_ssim}
+    emit(row)
+    if (not identity_ok or cli_gap > 1e-5
+            or any(v > 1e-4 for v in rel.values())
+            or any(v > 1e-5 for v in pix_ssim.values())):
+        raise RuntimeError(f"cli metrics: {row}")
+    return row
+
+
+def metrics_path(torch, card: str, pk: dict) -> dict:
+    """The full-size table: ``METRIC_PAIRS`` pairs at ``METRIC_SIZE`` drawn
+    on the card, all six extractors, with each extractor's time, operations
+    and largest kernels."""
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.eval.recon_metrics import (
+        pixcorr,
+        reconstruction_metrics,
+        ssim,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    extractors = cli.build_metric_extractors(pk["backbone_params"],
+                                             pk["clip_params"], "cuda")
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    shape = (METRIC_PAIRS, METRIC_SIZE, METRIC_SIZE, 3)
+    gen = torch.rand(shape, generator=g, device="cuda")
+    gt = (gen + 0.05 * torch.randn(shape, generator=g, device="cuda")
+          ).clamp_(0, 1)
+    t0 = time.perf_counter()
+    table = reconstruction_metrics(gen, gt, extractors)  # cold
+    first_s = time.perf_counter() - t0
+    check_metric_table(table, "full size")
+    total_ms = cuda_ms(torch, lambda: reconstruction_metrics(
+        gen, gt, extractors), reps=3)
+    per = {}
+    for name, fn in extractors.items():
+        def both(fn=fn):
+            return fn(gen), fn(gt)
+        ms = cuda_ms(torch, both, reps=3)
+        flops = _flops(torch, both)
+        per[name] = {"ms": ms, "tflop": flops / 1e12,
+                     "tflops_per_s": flops / ms / 1e9,
+                     "fp32_peak_share": flops / ms / 1e-3 / PEAK_FLOPS[
+                         "float32"],
+                     "top_kernels": top_kernels(torch, both, n=5)}
+    row = {"phase": "metrics", "card": card, "dtype": "float32",
+           "pairs": METRIC_PAIRS, "image_size": METRIC_SIZE,
+           "table": table, "first_call_s": first_s, "total_ms": total_ms,
+           "extractors": per,
+           "pixcorr_ms": cuda_ms(torch, lambda: pixcorr(gen, gt), reps=5),
+           "ssim_ms": cuda_ms(torch, lambda: ssim(gen, gt), reps=5),
+           "weights_gb": weights_gb,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": pk["params"]}
+    emit(row)
+    if table["2way_alexnet2"] < 0.5 or table["pixcorr"] < 0.9:
+        raise RuntimeError(f"full-size metric table: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3262,6 +3529,10 @@ def main() -> int:
         caption_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
                          os.path.join(tmp, "prior_cli",
                                       "diffusion_prior.pkl"), feats)
+        metric_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
+        pickles = write_metric_pickles(torch, metric_dir.name)
+        emit({"phase": "metric_pickles", **pickles})
+        metrics_cli_path(torch, card, tmp, pickles)
     features_path(torch, card)
     with work:
         _, prior = prior_path(torch, card, pairs, work.name)
@@ -3273,6 +3544,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     caption_path(torch, card, encoder, prior, eeg_test, main_path)
     adapter_path(torch, card)
+    del encoder, prior
+    gc.collect()
+    torch.cuda.empty_cache()
+    with metric_dir:
+        metrics_path(torch, card, pickles)
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

@@ -1,7 +1,7 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
 Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
 ``evaluate``, ``export-checkpoint``, ``train-prior``, ``train-lowlevel``,
-``latents``, ``generate``, ``caption`` and ``train-adapter``.
+``latents``, ``generate``, ``caption``, ``train-adapter`` and ``metrics``.
 
     python -m eeg_image_decode_tpu_torch.cli features \\
         --images-dir THINGS/images_set/test_images --split test \\
@@ -38,6 +38,10 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
         --eeg-features feats.npz --prior-params diffusion_prior.pkl \\
         --git-params git.pkl --projector-params runs/pixel_projector.pkl \\
         --vocab vocab.txt --out semantic_level_caption.txt
+    python -m eeg_image_decode_tpu_torch.cli metrics \\
+        --generated generated/ --ground-truth THINGS/test_images_flat \\
+        --backbone-params backbones.pkl --clip-params clip_l14.pkl \\
+        --out table.csv
 
 Dataset paths come from ``--data-config`` (the reference's
 ``data_config.json`` format) or ``--data-path``; ``--features`` is a cached
@@ -81,6 +85,9 @@ pickle) and pickles its JAX param tree; ``caption`` writes one caption
 per row of ``--embeddings``, or of the prior's samples for
 ``--eeg-features``, through GIT (``--git-params``, the JAX decoder's
 pickle, and ``--projector-params``; seeded random weights without them).
+``metrics`` scores ``generate``'s tree (or a flat image directory, or an
+``.npy``) against the ground-truth images: PixCorr, SSIM and a 2-way and a
+distance row per backbone of ``--backbone-params`` and for ``--clip-params``.
 Every command runs on the CUDA card (``--device cuda``, the default,
 raises without one).
 """
@@ -93,6 +100,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -1147,6 +1155,152 @@ def cmd_train_adapter(args):
     return result
 
 
+def _load_image_batch(path: str, *, seed: int, size: int,
+                      class_names: list[str] | None = None) -> np.ndarray:
+    """Images in [0, 1] NHWC (numpy) from a ``.npy``/``.npz`` array, a
+    ``cmd_generate`` output tree (``class_XXXX/<seed>.png`` in sorted
+    order, or ``<class-name>/<seed>.png`` in ``class_names`` order, the
+    reference's ``generated_imgs/sub-08/<class>/<j>.png`` layout), or a
+    flat directory of images (sorted by file name, the reference's ground
+    truth order). Files are read and resized by PIL (bilinear) on the host;
+    an array is resized as ``jax.image.resize`` does."""
+    from PIL import Image
+
+    from eeg_image_decode_tpu_torch.eval.recon_metrics import resize_bilinear
+
+    def load_one(p: str) -> np.ndarray:
+        with Image.open(p) as im:
+            img = im.convert("RGB").resize((size, size), Image.BILINEAR)
+        return np.asarray(img, np.float32) / 255.0
+
+    if os.path.isfile(path):
+        arr = np.load(path)
+        if hasattr(arr, "files"):  # .npz: its first array
+            with arr as z:
+                arr = z[z.files[0]]
+        arr = np.asarray(arr, np.float32)
+        if arr.max() > 1.5:
+            arr = arr / 255.0
+        if arr.shape[1] != size:
+            arr = resize_bilinear(torch.from_numpy(arr), size).numpy()
+        return arr
+    if class_names is not None:
+        # directories in test-class order: THINGS class names do not sort
+        # in index order
+        missing = [c for c in class_names
+                   if not os.path.isdir(os.path.join(path, c))]
+        if missing:
+            raise SystemExit(
+                f"{len(missing)} class dirs from --class-names missing under "
+                f"{path} (first: {missing[0]!r})")
+        return np.stack([load_one(os.path.join(path, c, f"{seed}.png"))
+                         for c in class_names])
+    entries = sorted(os.listdir(path))
+    class_dirs = [e for e in entries if os.path.isdir(os.path.join(path, e))]
+    if class_dirs:  # the cmd_generate layout
+        return np.stack([load_one(os.path.join(path, c, f"{seed}.png"))
+                         for c in class_dirs])
+    files = [e for e in entries
+             if e.lower().endswith((".png", ".jpg", ".jpeg"))]
+    if not files:
+        raise SystemExit(f"no images found under {path}")
+    return np.stack([load_one(os.path.join(path, f)) for f in files])
+
+
+def build_metric_extractors(backbone_params: str | None,
+                            clip_params: str | None, device
+                            ) -> dict[str, Callable]:
+    """The extractors of ``cli metrics`` on ``device``, in the table's
+    order: ``alexnet2``, ``alexnet5`` (one AlexNet), ``inception``,
+    ``effnet``, ``swav`` for the trees the ``--backbone-params`` pickle
+    holds (the JAX ``{alexnet, inception, effnet, swav}`` flax trees), and
+    ``clip`` for the ``--clip-params`` pickle (the JAX ViT-L/14 vision
+    tree); each backbone loaded strictly."""
+    from eeg_image_decode_tpu_torch.eval.backbones import (
+        BACKBONES,
+        make_imagenet_extractor,
+    )
+    from eeg_image_decode_tpu_torch.eval.recon_metrics import (
+        make_clip_extractor,
+    )
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPVisionConfig,
+        CLIPVisionTower,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert import (
+        backbone_state_dict_from_flax,
+        load_numpy_pickle,
+    )
+    from eeg_image_decode_tpu_torch.utils.convert_clip import (
+        clip_state_dict_from_flax,
+    )
+
+    def loaded(make, state_dict):
+        with torch.device("meta"):
+            module = make()
+        module.load_state_dict(state_dict, strict=True, assign=True)
+        return module.to(device).eval()
+
+    extractors = {}
+    if backbone_params:
+        bp = load_numpy_pickle(backbone_params)
+        models = {kind: loaded(BACKBONES[kind],
+                               backbone_state_dict_from_flax(kind, bp[kind]))
+                  for kind in ("alexnet", "inception", "effnet", "swav")
+                  if kind in bp}
+        if "alexnet" in models:  # one AlexNet serves both rows
+            for kind in ("alexnet2", "alexnet5"):
+                extractors[kind] = make_imagenet_extractor(
+                    kind, models["alexnet"])
+        for kind in ("inception", "effnet", "swav"):
+            if kind in models:
+                extractors[kind] = make_imagenet_extractor(kind, models[kind])
+    if clip_params:
+        tower = loaded(lambda: CLIPVisionTower(CLIPVisionConfig.vit_l_14()),
+                       clip_state_dict_from_flax(
+                           load_numpy_pickle(clip_params), "vision"))
+        extractors["clip"] = make_clip_extractor(tower)
+    return extractors
+
+
+def cmd_metrics(args):
+    """The reconstruction metric table (ref ``Reconstruction_Metrics_ATM.
+    ipynb`` cells 8-24): PixCorr and SSIM always; a 2-way and a distance
+    row for each extractor of :func:`build_metric_extractors`. Prints the
+    JSON row, and writes ``metric,value`` lines to ``--out``."""
+    from eeg_image_decode_tpu_torch.eval.recon_metrics import (
+        reconstruction_metrics,
+    )
+
+    device = resolve_device(args.device)
+    class_names = None
+    if args.class_names:
+        with open(args.class_names) as f:
+            class_names = [line.rstrip("\n") for line in f if line.strip()]
+    gen = _load_image_batch(args.generated, seed=args.gen_seed,
+                            size=args.image_size, class_names=class_names)
+    gt = _load_image_batch(args.ground_truth, seed=0, size=args.image_size)
+    if gen.shape[0] != gt.shape[0]:
+        raise SystemExit(
+            f"generated ({gen.shape[0]}) and ground-truth ({gt.shape[0]}) "
+            "image counts differ — metrics need aligned pairs")
+    extractors = build_metric_extractors(args.backbone_params,
+                                         args.clip_params, device)
+    out = reconstruction_metrics(torch.from_numpy(gen).to(device),
+                                 torch.from_numpy(gt).to(device),
+                                 extractors or None)
+    print(json.dumps(out))
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("metric,value\n")
+            for k, v in out.items():
+                f.write(f"{k},{v}\n")
+        print(f"wrote {args.out}")
+    return out
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-config", default=None,
                    help="path to data_config.json (reference format)")
@@ -1487,6 +1641,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="tiny vision config in fp32 (tests/smoke)")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_train_adapter)
+
+    p = sub.add_parser("metrics", help="reconstruction metric table")
+    p.add_argument("--generated", required=True,
+                   help="cmd_generate output dir, flat image dir, or .npy")
+    p.add_argument("--ground-truth", required=True,
+                   help="flat image dir (sorted) or .npy, aligned with "
+                        "--generated")
+    p.add_argument("--gen-seed", type=int, default=0,
+                   help="which per-class seed image to score")
+    p.add_argument("--class-names", default=None,
+                   help="file with one THINGS class name per test class: "
+                        "read <generated>/<class-name>/<seed>.png in this "
+                        "order (the reference's generated_imgs layout; point "
+                        "--generated at the <sub> level)")
+    p.add_argument("--image-size", type=int, default=425,
+                   help="common resize before scoring (MindEye protocol)")
+    p.add_argument("--backbone-params", default=None,
+                   help="pickle {alexnet/inception/effnet/swav: flax params} "
+                        "of numpy arrays (the JAX eval.backbones converters)")
+    p.add_argument("--clip-params", default=None,
+                   help="JAX CLIP ViT-L/14 vision-tower params (pickle)")
+    p.add_argument("--out", default=None, help="CSV output path")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_metrics)
     return ap
 
 

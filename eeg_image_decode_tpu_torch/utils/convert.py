@@ -59,6 +59,15 @@ what ``train-adapter`` writes) keeps the JAX names
 (``pixel_projector_state_dict_from_flax`` and back);
 ``convert_pixel_projector`` reads the reference's ``Sequential``
 (``PixelProjector_best.bin``: indices 1, 2, 4 and 5).
+
+The metric backbones' trees (the JAX ``--backbone-params`` pickle's
+``alexnet``, ``inception``, ``effnet`` and ``swav`` entries) map onto the
+port's modules of ``eval/backbones.py``, which carry torchvision's names
+(``backbone_state_dict_from_flax`` and back,
+``backbone_tree_from_state_dict``): flax module paths renamed
+(``layer2_0/c/bn`` → ``layer2.0.bn3``, ``stage2_1/dw_conv`` →
+``features.2.1.block.1.0``, …), conv kernels HWIO → OIHW, ``FrozenBN``
+leaves → BatchNorm's; both refuse a missing or extra key.
 """
 
 from __future__ import annotations
@@ -654,3 +663,126 @@ def convert_pixel_projector(sd: dict) -> dict[str, torch.Tensor]:
                              "PixelProjector (Sequential indices 1, 2, 4, 5)")
         out[f"{names[idx]}.{leaf}"] = torch.from_numpy(_np32(v))
     return out
+
+
+# ——— the metric backbones (eval/backbones.py) ———
+
+_BN_LEAVES = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+              "running_var": "var"}
+
+
+def _swav_flax_name(name: str) -> str:
+    """``layer2.0.conv3`` → ``layer2_0/c/conv``, ``layer2.0.downsample.1``
+    → ``layer2_0/down/bn``; ``conv1`` and ``bn1`` keep their names."""
+    parts = name.split(".")
+    if len(parts) == 1:
+        return name
+    layer, block, unit, *rest = parts
+    if unit == "downsample":
+        return f"{layer}_{block}/down/" + ("conv" if rest[0] == "0" else "bn")
+    return f"{layer}_{block}/{'abc'[int(unit[-1]) - 1]}/{unit[:-1]}"
+
+
+def _effnet_flax_name(name: str) -> str:
+    """``features.0.0`` → ``stem_conv``, ``features.8.1`` → ``head_bn``,
+    ``features.2.1.block.{u}.{0,1}`` → ``stage2_1/{expand,dw,project}_{conv,
+    bn}``, ``features.2.1.block.{u}.fc1`` → ``stage2_1/se_fc1``."""
+    from eeg_image_decode_tpu_torch.eval.backbones import _EFFNET_B1_STAGES
+
+    p = name.split(".")
+    if p[1] in ("0", "8"):
+        return ("stem" if p[1] == "0" else "head") + (
+            "_conv" if p[2] == "0" else "_bn")
+    stage = int(p[1])
+    units = ("expand", "dw", "se", "project")
+    if _EFFNET_B1_STAGES[stage - 1][0] == 1:
+        units = units[1:]
+    unit, leaf = units[int(p[4])], p[5]
+    if unit == "se":
+        return f"stage{stage}_{p[2]}/se_{leaf}"
+    return f"stage{stage}_{p[2]}/{unit}_" + ("conv" if leaf == "0" else "bn")
+
+
+#: ``--backbone-params`` key → the port module name → the flax module path
+_BACKBONE_FLAX_NAMES = {
+    "alexnet": lambda name: f"conv{name.split('.')[1]}",
+    "swav": _swav_flax_name,
+    "inception": lambda name: name.replace(".", "/"),
+    "effnet": _effnet_flax_name,
+}
+
+
+def _backbone_key_map(kind: str) -> dict[str, tuple[str, bool]]:
+    """The port backbone's ``state_dict`` keys (``num_batches_tracked``
+    left out) → (the flax leaf path, whether it is a conv kernel)."""
+    from eeg_image_decode_tpu_torch.eval.backbones import (
+        BACKBONES,
+        FrozenBatchNorm2d,
+    )
+
+    if kind not in BACKBONES:
+        raise ValueError(f"backbone kind must be one of {sorted(BACKBONES)},"
+                         f" not {kind!r}")
+    with torch.device("meta"):
+        model = BACKBONES[kind]()
+    rename = _BACKBONE_FLAX_NAMES[kind]
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, FrozenBatchNorm2d):
+            for leaf, flax_leaf in _BN_LEAVES.items():
+                out[f"{name}.{leaf}"] = (f"{rename(name)}/{flax_leaf}", False)
+        elif isinstance(m, torch.nn.Conv2d):
+            out[f"{name}.weight"] = (f"{rename(name)}/kernel", True)
+            if m.bias is not None:
+                out[f"{name}.bias"] = (f"{rename(name)}/bias", False)
+    return out
+
+
+def _same_keys(what: str, got, want) -> None:
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"{what}: missing {missing[:5]} ({len(missing)}), "
+                       f"unexpected {extra[:5]} ({len(extra)})")
+
+
+def backbone_state_dict_from_flax(kind: str, tree: dict
+                                  ) -> dict[str, torch.Tensor]:
+    """A JAX metric backbone's param tree (``kind``: ``alexnet``,
+    ``inception``, ``effnet`` or ``swav``, the ``--backbone-params``
+    pickle's keys) → the port module's ``state_dict`` (fp32; load it with
+    ``strict=True``). Conv kernels HWIO → OIHW (the depthwise kernel's
+    I = 1 included); ``FrozenBN`` ``scale``/``bias``/``mean``/``var`` →
+    ``weight``/``bias``/``running_mean``/``running_var``. A missing or
+    extra leaf raises and names it."""
+    flat = _flatten(tree)
+    keys = _backbone_key_map(kind)
+    _same_keys(f"{kind} flax tree", flat, [p for p, _ in keys.values()])
+    out = {}
+    for key, (path, conv) in keys.items():
+        a = np.asarray(flat[path], np.float32)
+        out[key] = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(a, (3, 2, 0, 1)) if conv else a))
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = (
+                torch.tensor(0))
+    return out
+
+
+def backbone_tree_from_state_dict(kind: str, sd: dict) -> dict:
+    """Inverse of :func:`backbone_state_dict_from_flax`: the port module's
+    ``state_dict`` (``num_batches_tracked`` ignored) → the JAX param tree
+    as fp32 numpy (the layout the JAX ``convert_*`` functions write)."""
+    keys = _backbone_key_map(kind)
+    _same_keys(f"{kind} state_dict",
+               [k for k in sd if not k.endswith(".num_batches_tracked")],
+               keys)
+    tree: dict = {}
+    for key, (path, conv) in keys.items():
+        a = _np32(sd[key])
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(
+            np.transpose(a, (2, 3, 1, 0)) if conv else a)
+    return tree

@@ -12,7 +12,8 @@ bfloat16 against float32, and the command itself, on the card; the prior
 and low-level steps against the CPU; the tiny SDXL generator against the
 CPU, and a bfloat16 reconstruct through the encoder's kernels; the tiny GIT
 captioner against the CPU, and a caption service through the encoder's
-kernels.
+kernels; the reconstruction metric table with all four backbones and a tiny
+CLIP tower against the CPU.
 """
 
 import dataclasses
@@ -969,3 +970,61 @@ def test_caption_service_on_card(cuda, tmp_path):
                                                for r in tokens[:2]]
     assert set(svc.stage_ms) == set(svc.STAGES)
     assert all(v > 0 for v in svc.stage_ms.values())
+
+
+@pytest.mark.cuda
+def test_metric_table_on_card_matches_cpu(cuda):
+    """``reconstruction_metrics`` on 8 small pairs with the four seeded
+    backbones (resized to 64-96 px here, not their published sizes) and a
+    tiny ViT-L-style CLIP tower: every feature within 1e-4 of its largest
+    CPU value, PixCorr and SSIM within 1e-5, the 2-way rows equal, the
+    distances within 1e-5."""
+    from eeg_image_decode_tpu_torch.eval import backbones as bb
+    from eeg_image_decode_tpu_torch.eval.recon_metrics import (
+        make_clip_extractor,
+        reconstruction_metrics,
+    )
+    from eeg_image_decode_tpu_torch.models.clip_vit import (
+        CLIPVisionConfig,
+        CLIPVisionTower,
+    )
+
+    sizes = {"alexnet": 64, "inception": 96, "effnet": 80, "swav": 72}
+
+    def extractors(device):
+        out = {}
+        for kind, size in sizes.items():
+            model = bb.init_random(bb.BACKBONES[kind](), 0).to(device).eval()
+
+            def extract(images, model=model, size=size, kind=kind):
+                with torch.no_grad():
+                    x = bb.imagenet_preprocess(images, size).permute(
+                        0, 3, 1, 2).contiguous()
+                    y = model(x)
+                y = y["f11"] if kind == "alexnet" else y
+                return y.reshape(len(images), -1)
+            out[kind] = extract
+        tower = CLIPVisionTower(CLIPVisionConfig.tiny("quick_gelu"), seed=1)
+        out["clip"] = make_clip_extractor(tower.to(device).eval())
+        return out
+
+    rng = np.random.default_rng(11)
+    gen = rng.uniform(size=(8, 64, 64, 3)).astype(np.float32)
+    gt = np.clip(gen + 0.05 * rng.normal(size=gen.shape), 0, 1).astype(
+        np.float32)
+    on_card, on_cpu = extractors(cuda), extractors("cpu")
+    for name in on_cpu:
+        got = on_card[name](torch.from_numpy(gen).to(cuda)).cpu()
+        want = on_cpu[name](torch.from_numpy(gen))
+        assert float((got - want).abs().max()) <= (
+            1e-4 * float(want.abs().max())), name
+    got = reconstruction_metrics(torch.from_numpy(gen).to(cuda),
+                                 torch.from_numpy(gt).to(cuda), on_card)
+    want = reconstruction_metrics(torch.from_numpy(gen),
+                                  torch.from_numpy(gt), on_cpu)
+    assert list(got) == list(want) and len(got) == 12
+    for k in want:
+        if k.startswith("2way"):
+            assert got[k] == want[k], k
+        else:
+            assert abs(got[k] - want[k]) <= 1e-5, (k, got[k], want[k])

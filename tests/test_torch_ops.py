@@ -114,7 +114,9 @@ def test_package_imports_without_jax(tmp_path):
     tokenizer, image reader and cache writer), a plot is drawn, and the
     diffusion prior and the low-level encoder train, sample and round-trip
     their files, a reconstruction runs through the generator, and a row is
-    captioned through the GIT decoder (no transformers either)."""
+    captioned through the GIT decoder (no transformers either), and ``cli
+    metrics`` scores a tiny tree through a seeded AlexNet (no torchvision
+    either)."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
@@ -218,9 +220,26 @@ def test_package_imports_without_jax(tmp_path):
         "PixelProjector(3, 64, 16).init_random(1), tok, max_batch=1, "
         "device='cpu')\n"
         "assert len(cs.caption(r.normal(size=(1, 63, 250)), 0)) == 1\n"
+        "import eeg_image_decode_tpu_torch.eval.recon_metrics\n"
+        "import eeg_image_decode_tpu_torch.eval.backbones as bb\n"
+        "from eeg_image_decode_tpu_torch.utils.convert import "
+        "backbone_tree_from_state_dict\n"
+        "os.makedirs(d + '/gt')\n"
+        "for i in range(3):\n"
+        "    os.makedirs(d + f'/gen/class_{i:04d}')\n"
+        "    Image.new('RGB', (24, 24), (40 * i, 9, 0)).save("
+        "d + f'/gen/class_{i:04d}/0.png')\n"
+        "    Image.new('RGB', (30, 30), (9, 40 * i, 0)).save("
+        "d + f'/gt/{i}.png')\n"
+        "pickle.dump({'alexnet': backbone_tree_from_state_dict('alexnet', "
+        "bb.init_random(bb.AlexNetFeatures(), 0).state_dict())}, "
+        "open(d + '/bb.pkl', 'wb'))\n"
+        "cli.main(['metrics', '--generated', d + '/gen', '--ground-truth', "
+        "d + '/gt', '--image-size', '16', '--backbone-params', "
+        "d + '/bb.pkl', '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', "
-        "'eeg_image_decode_tpu')]\n"
+        "'torchvision', 'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,

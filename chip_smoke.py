@@ -212,7 +212,28 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    PixCorr and SSIM ms, the table's total, the peak memory and the
    parameter counts. No TPU kernel lies on this path (the JAX metric
    modules are plain XLA).
-13. One JSON line listing the kernels, then the result line
+13. The encoder zoo: each of the nine encoders besides ATM-S (NICE,
+   EEGNetV4, ATM-E, MLP, ShallowFBCSPNet, EEGConformer, MetaEEG, ATCNet,
+   EEGITNet) at its defaults, the published widths, in bf16 on the card
+   from ``SEED``: its parameter count equal to the flax tree's
+   (``ZOO_PARAMS``); ``ContrastiveTrainer`` at B 1024 on phase 4's
+   resident split, NICE for one epoch (64 steps) and ``evaluate()``, each
+   other encoder for ``ZOO_STEPS`` steps; the step p50 (CUDA events, the
+   first 3 left out), samples/s, peak memory and the loss (finite; NICE's
+   last 8 steps under its first 8); the eval forward on 4 rows, the card
+   in fp32 without TF32 against the CPU within ``ZOO_CPU_TOL`` · max |CPU|
+   and bf16 against fp32 at per-row cosine ≥ ``ZOO_COSINE``. NICE's first
+   step's gradients through the tsconv kernels against the plain versions
+   (seed mode, one generator seed; ``GRAD_TOL``), and its epoch's and
+   evaluation's launch counts (from 0) showing both tsconv kernels once per
+   step; the other eight reach no kernel (the JAX modules are plain XLA)
+   and must launch none. Then NICE through the CLI on phase 6's tree:
+   ``train-retrieval --encoder nice`` for two epochs and ``--resume-dir``
+   for a third, ``evaluate`` equal to the trainer's last row, ``serve
+   --run-dir --encoder nice`` answering an 8-row ``/v1/retrieve`` equal to
+   ``top_k`` called directly, and ``cli smoke`` (JAX's keys, values in
+   [0, 1]). NICE's launches count into the main path.
+14. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -249,6 +270,13 @@ REPS = 25
 #: H100 SXM published peaks (NVIDIA data sheet, dense), at a 700 W limit
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+#: the nine zoo encoders' parameter counts at their defaults, logit scale
+#: included: the flax trees' (``jax.eval_shape``; this host has no JAX, so
+#: ``tests/test_torch_zoo.py`` holds these numbers to the trees)
+ZOO_PARAMS = {"nice": 2630833, "eegnetv4": 1186833, "atme": 4519690,
+              "mlp": 3425460, "shallowfbcspnet": 886845,
+              "eegconformer": 635273, "metaeeg": 1828428, "atcnet": 49889,
+              "eegitnet": 218037}
 
 
 def emit(obj) -> None:
@@ -1435,10 +1463,11 @@ GRAD_TOL = 5e-2
 
 def grad_check(torch, trainer, seeded: bool = False) -> dict:
     """The same step through the kernels and through the plain versions:
-    the batch and either pinned masks at the seven sites, or (``seeded``)
-    the trainer's own seed mode with the same generator seed on both sides.
-    A pinned ``proj`` mask routes around the fused head, so the fused-head
-    model is checked seeded."""
+    the batch and either pinned masks at ATM-S's seven sites, or
+    (``seeded``) the trainer's own seed mode with the same generator seed
+    on both sides. A pinned ``proj`` mask routes around the fused head, so
+    the fused-head model is checked seeded; so is NICE (phase 13), whose
+    dropout sites draw from that generator on both sides."""
     from eeg_image_decode_tpu_torch.ops import _build
     from eeg_image_decode_tpu_torch.ops.attention import draw_keep_masks
     from eeg_image_decode_tpu_torch.train.contrastive import batch_loss
@@ -1493,12 +1522,13 @@ def grad_check(torch, trainer, seeded: bool = False) -> dict:
     qkv = [k for k in norms if k.split(".")[-2] in ("q_proj", "k_proj",
                                                     "v_proj")
            and k.endswith("bias")]
-    bias_scale = max(norms[k] for k in qkv)
+    bias_scale = max((norms[k] for k in qkv), default=0.0)
     rel = {k: (grads_k[k] - grads_p[k]).norm().item()
            / max(bias_scale if k in qkv else norms[k], 1e-30)
            for k in grads_p}
     worst = max(rel, key=rel.get)
     row = {"phase": "train_grad_check", "dtype": "bfloat16",
+           "encoder": type(model.encoder).__name__,
            "dropout": "seed mode, one generator seed" if seeded
            else "seven pinned masks",
            "loss_kernels": loss_k, "loss_plain": loss_p,
@@ -3434,6 +3464,210 @@ def metrics_path(torch, card: str, pk: dict) -> dict:
     return row
 
 
+# ——— phase 13: the encoder zoo ———
+
+ZOO = tuple(ZOO_PARAMS)
+#: training steps of each zoo encoder but NICE, which trains one epoch
+ZOO_STEPS = 8
+#: the card's fp32 eval features against the CPU's on the same seeded
+#: weights (TF32 off): max |Δ| over max |CPU feature|
+ZOO_CPU_TOL = 1e-4
+#: bf16 against fp32 eval features on the card: per-row cosine at least
+ZOO_COSINE = 0.99
+
+
+def zoo_forward_check(torch, name: str, rows) -> dict:
+    """The encoder's eval forward on ``rows`` (a CPU tensor) with seeded
+    weights at its defaults: the card in fp32 without TF32 against the
+    CPU, and the card in bf16 against the card in fp32."""
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    with torch.no_grad():
+        cpu, _ = build_encoder(name, device="cpu", seed=SEED)(rows)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            card, _ = build_encoder(name, device="cuda", seed=SEED)(
+                rows.cuda())
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+        half, _ = build_encoder(name, dtype=torch.bfloat16, device="cuda",
+                                seed=SEED)(rows.cuda())
+    card, half = card.float().cpu(), half.float().cpu()
+    err = float((card - cpu).abs().max() / cpu.abs().max())
+    cos = torch.nn.functional.cosine_similarity(half, card, dim=1)
+    if not (err <= ZOO_CPU_TOL and bool(torch.isfinite(half).all())
+            and float(cos.min()) >= ZOO_COSINE):
+        raise RuntimeError(f"{name}: eval forward, card fp32 against CPU "
+                           f"{err} (≤ {ZOO_CPU_TOL}), bf16 cosine "
+                           f"{cos.tolist()} (≥ {ZOO_COSINE})")
+    return {"fp32_card_vs_cpu": err, "bf16_cosine_min": float(cos.min())}
+
+
+def zoo_train_path(torch, card: str, name: str, train, test,
+                   main_launches: dict) -> dict:
+    """``build_encoder(name)`` at its defaults in bf16 on the card and
+    ``ContrastiveTrainer`` at B 1024 on phase 4's resident split: NICE one
+    epoch and ``evaluate()`` (its first step's gradients through the
+    tsconv kernels held against the plain versions before it), each other
+    encoder ``ZOO_STEPS`` steps of epoch 0's permutation."""
+    from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+        epoch_permutation,
+    )
+
+    model = build_encoder(name, dtype=torch.bfloat16, device="cuda",
+                          seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != ZOO_PARAMS[name]:
+        raise RuntimeError(f"{name}: {n_params} parameters, the flax tree "
+                           f"has {ZOO_PARAMS[name]}")
+    tcfg = ContrastiveTrainConfig()
+    trainer = ContrastiveTrainer(model, tcfg, train, test, device="cuda")
+    grad = grad_check(torch, trainer, seeded=True) if name == "nice" else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if name == "nice":
+        metrics = trainer.train_epoch(0)
+        losses = trainer.last_steps["step_loss"]
+        step_ms = trainer.last_steps["step_ms"]
+    else:
+        perm = torch.as_tensor(epoch_permutation(
+            train.n, TRAIN_BATCH, tcfg.seed, 0)[:ZOO_STEPS], device="cuda")
+        out = trainer.epoch_fn(trainer.state, trainer.data, perm,
+                               torch.Generator(device="cuda").manual_seed(
+                                   tcfg.seed))
+        losses, step_ms = out["step_loss"].tolist(), out["step_ms"]
+        metrics = {"loss": float(np.mean(losses))}
+    train_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p50 = float(np.median(step_ms[3:]))
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"{name}: non-finite training loss {losses}")
+    row = {"phase": "zoo", "encoder": name, "card": card,
+           "dtype": "bfloat16", "batch": TRAIN_BATCH, "params": n_params,
+           "params_flax": ZOO_PARAMS[name], "steps": len(losses),
+           "loss_mean": metrics["loss"], "loss_first": losses[0],
+           "loss_last": losses[-1], "step_ms_p50": p50,
+           "samples_per_s": TRAIN_BATCH / (p50 / 1e3), "train_s": train_s,
+           "peak_mem_gb": peak, "launches_train": launches}
+    if name == "nice":
+        first8, last8 = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+        n_steps = len(losses)
+        _build.reset_launches()
+        row["eval"] = trainer.evaluate(0)
+        eval_launches = dict(_build.LAUNCHES)
+        if not (last8 < first8 and launches["tsconv_fwd"] == n_steps
+                and launches["tsconv_bwd"] == n_steps
+                and eval_launches["tsconv_fwd"] > 0
+                and all(np.isfinite(v) for v in row["eval"].values())):
+            raise RuntimeError(f"nice: loss first 8 {first8}, last 8 {last8}"
+                               f"; launches {launches}, in the evaluation "
+                               f"{eval_launches}; {row['eval']}")
+        row.update(loss_first8=first8, loss_last8=last8,
+                   launches_eval=eval_launches,
+                   grad_check_worst_rel_l2=grad["worst_rel_l2"],
+                   grad_check_worst_param=grad["worst_param"])
+        add_launches(main_launches, launches)
+        add_launches(main_launches, eval_launches)
+    elif any(launches.values()):
+        raise RuntimeError(f"{name} reaches no kernel, yet launched "
+                           f"{launches}")
+    del trainer, model
+    row.update(zoo_forward_check(torch, name, test.eeg[:4].cpu()))
+    emit(row)
+    return row
+
+
+def zoo_cli_path(torch, root: str, feats: str, tmp: str,
+                 main_launches: dict) -> dict:
+    """NICE through the CLI on phase 6's tree: ``train-retrieval --encoder
+    nice`` for two epochs and ``--resume-dir`` for a third, ``evaluate``
+    (equal to the trainer's last row), ``serve --run-dir --encoder nice``
+    answering one 8-row ``/v1/retrieve`` (equal to ``top_k`` called
+    directly), then ``cli smoke``."""
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.server import EEGDecodeServer
+
+    ks, seed = "2,4,10,20", 7
+    common = ["--data-path", root, "--features", feats, "--eval-ks", ks,
+              "--subjects", "sub-01", "--encoder", "nice"]
+    train_args = [*common, "--batch-size", "256", "--seed", str(seed)]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    row2, run_dir = run_cli(["train-retrieval", *train_args, "--epochs",
+                             "2", "--output-dir",
+                             os.path.join(tmp, "zoo_runs")])
+    row3, _ = run_cli(["train-retrieval", *train_args, "--epochs", "3",
+                       "--resume-dir", run_dir])
+    scored, _ = run_cli(["evaluate", *common, "--run-dir", run_dir,
+                         "--seed", str(seed + 104729 * 2)])
+    train_s = time.perf_counter() - t0
+    tops = [k for k in row3 if k.startswith("top")]
+    differ = {k: (scored.get(k), row3[k]) for k in tops
+              if scored.get(k) != row3[k]}
+
+    eeg = np.random.default_rng(SEED + 13).normal(
+        size=(8, 63, 250)).astype(np.float32)
+    sids = np.zeros(8, np.int32)
+    served = {}
+
+    def serve_once(server, host="127.0.0.1", port=8080):
+        port = server.start(host=host, port=0)
+        try:
+            served["http"] = _post(
+                f"http://127.0.0.1:{port}/v1/retrieve",
+                _npz(eeg=eeg, subject_ids=sids, k=np.int64(5)),
+                "application/octet-stream")
+            served["direct"] = server.retrieval.top_k(eeg, sids, k=5)
+        finally:
+            server.stop()
+
+    t0 = time.perf_counter()
+    with mock.patch.object(EEGDecodeServer, "serve_forever", serve_once), \
+            contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["serve", "--run-dir", run_dir, "--encoder", "nice",
+                  "--features", feats])
+    serve_s = time.perf_counter() - t0
+    scores, idx = served["direct"]
+    same = (np.array_equal(np.asarray(served["http"]["indices"]), idx)
+            and np.array_equal(np.asarray(served["http"]["scores"],
+                                          np.float32), scores))
+    t0 = time.perf_counter()
+    smoke, _ = run_cli(["smoke"])
+    smoke_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, launches)
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt")))
+    row = {"phase": "zoo_cli", "encoder": "nice",
+           "epochs": [row2["epoch"], row3["epoch"]],
+           "loss": [row2["loss"], row3["loss"]], "checkpoints": ckpts,
+           "evaluate": scored, "evaluate_equals_trainer": not differ,
+           "serve_equals_top_k": same, "serve_indices": idx.tolist(),
+           "smoke": smoke, "launches": launches, "train_evaluate_s": train_s,
+           "serve_s": serve_s, "smoke_s": smoke_s}
+    emit(row)
+    smoke_ok = (sorted(smoke) == ["top1_k16", "top1_k2"]
+                and all(np.isfinite(v) and 0.0 <= v <= 1.0
+                        for v in smoke.values()))
+    if (differ or not same or not smoke_ok or row3["epoch"] != 2
+            or ckpts != ["2", "3"] or scored["step"] != 3
+            or not (launches["tsconv_fwd"] and launches["tsconv_bwd"])):
+        raise RuntimeError(f"zoo cli path: {row}")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3513,32 +3747,31 @@ def main() -> int:
     add_launches(main_path, export_launches)
     fused_joint_path(torch, card, train, test, train_row["step_ms_p50"],
                      main_path)
-    eeg = train.eeg
     eeg_test = test.eeg[:40].cpu().numpy()
-    del train, test
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        _, run_dir, root, feats = cli_path(torch, main_path, tmp)
-        export_path(torch, run_dir, root, feats, main_path)
-        prior_cli_path(torch, os.path.join(tmp, "cli_pairs.npz"), tmp)
-        vae_pkl = os.path.join(tmp, "vae.pkl")
-        emit({"phase": "vae_pickle", **write_vae_pickle(torch, vae_pkl)})
-        lowlevel_cli_path(torch, root, tmp, vae_pkl)
-        generate_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
-                          os.path.join(tmp, "prior_cli",
-                                       "diffusion_prior.pkl"), vae_pkl)
-        caption_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
-                         os.path.join(tmp, "prior_cli",
-                                      "diffusion_prior.pkl"), feats)
-        metric_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
-        pickles = write_metric_pickles(torch, metric_dir.name)
-        emit({"phase": "metric_pickles", **pickles})
-        metrics_cli_path(torch, card, tmp, pickles)
+    # phase 6's tree and phase 4's split stay for phase 13
+    cli_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    tmp = cli_dir.name
+    _, run_dir, root, feats = cli_path(torch, main_path, tmp)
+    export_path(torch, run_dir, root, feats, main_path)
+    prior_cli_path(torch, os.path.join(tmp, "cli_pairs.npz"), tmp)
+    vae_pkl = os.path.join(tmp, "vae.pkl")
+    emit({"phase": "vae_pickle", **write_vae_pickle(torch, vae_pkl)})
+    lowlevel_cli_path(torch, root, tmp, vae_pkl)
+    generate_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
+                      os.path.join(tmp, "prior_cli", "diffusion_prior.pkl"),
+                      vae_pkl)
+    caption_cli_path(torch, tmp, os.path.join(tmp, "cli_pairs.npz"),
+                     os.path.join(tmp, "prior_cli", "diffusion_prior.pkl"),
+                     feats)
+    metric_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_metrics_")
+    pickles = write_metric_pickles(torch, metric_dir.name)
+    emit({"phase": "metric_pickles", **pickles})
+    metrics_cli_path(torch, card, tmp, pickles)
     features_path(torch, card)
     with work:
         _, prior = prior_path(torch, card, pairs, work.name)
         del pairs
-        lowlevel_path(torch, card, eeg, work.name)
-    del eeg
+        lowlevel_path(torch, card, train.eeg, work.name)
     generation_path(torch, card, encoder, prior, eeg_test, main_path)
     gc.collect()  # the generator's 6 GB, held in the daemon's cycles
     torch.cuda.empty_cache()
@@ -3549,6 +3782,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with metric_dir:
         metrics_path(torch, card, pickles)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for name in ZOO:
+        zoo_train_path(torch, card, name, train, test, main_path)
+    del train, test
+    with cli_dir:
+        zoo_cli_path(torch, root, feats, tmp, main_path)
+    emit({"phase": "zoo_total", "s": time.perf_counter() - t0})
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

@@ -1,7 +1,8 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
 Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
 ``evaluate``, ``export-checkpoint``, ``train-prior``, ``train-lowlevel``,
-``latents``, ``generate``, ``caption``, ``train-adapter`` and ``metrics``.
+``latents``, ``generate``, ``caption``, ``train-adapter``, ``metrics`` and
+``smoke``.
 
     python -m eeg_image_decode_tpu_torch.cli features \\
         --images-dir THINGS/images_set/test_images --split test \\
@@ -12,6 +13,9 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
         --subjects all --test-subject sub-01 ...
     python -m eeg_image_decode_tpu_torch.cli train-retrieval \\
         --resume-dir runs/contrast/atms/sub-01/<run> ...
+    python -m eeg_image_decode_tpu_torch.cli train-retrieval --encoder nice \\
+        --data-path DATA --features clip.npz --subjects sub-01
+    python -m eeg_image_decode_tpu_torch.cli smoke
     python -m eeg_image_decode_tpu_torch.cli evaluate \\
         --run-dir runs/contrast/atms/sub-01/<run> ...
     python -m eeg_image_decode_tpu_torch.cli serve \\
@@ -88,6 +92,13 @@ pickle, and ``--projector-params``; seeded random weights without them).
 ``metrics`` scores ``generate``'s tree (or a flat image directory, or an
 ``.npy``) against the ground-truth images: PixCorr, SSIM and a 2-way and a
 distance row per backbone of ``--backbone-params`` and for ``--clip-params``.
+``--encoder`` takes any name of ``models/registry.py::ENCODERS``
+(``atms``, the default, built from its ``ATMSConfig`` flags; ``nice``,
+``eegnetv4``, ``atme``, ``mlp``, ``shallowfbcspnet``, ``eegconformer``,
+``metaeeg``, ``atcnet``, ``eegitnet`` at their defaults) in
+``train-retrieval``, ``train-recon``, ``evaluate`` and ``serve``;
+``export-checkpoint`` is ATM-S's only. ``smoke`` is JAX's synthetic end to
+end run: NICE, then the prior, then the prior's samples scored.
 Every command runs on the CUDA card (``--device cuda``, the default,
 raises without one).
 """
@@ -115,7 +126,10 @@ from eeg_image_decode_tpu_torch.core.config import (
 )
 from eeg_image_decode_tpu_torch.data.features import load_features
 from eeg_image_decode_tpu_torch.data.things_eeg import build_retrieval_data
-from eeg_image_decode_tpu_torch.models.registry import build_encoder
+from eeg_image_decode_tpu_torch.models.registry import (
+    build_encoder,
+    encoder_key,
+)
 from eeg_image_decode_tpu_torch.serve import RetrievalService
 from eeg_image_decode_tpu_torch.server import EEGDecodeServer
 from eeg_image_decode_tpu_torch.train.contrastive import (
@@ -133,6 +147,18 @@ from eeg_image_decode_tpu_torch.utils.device import resolve_device
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def _build_model(args, *, device, **atms_fields):
+    """``--encoder`` as the JAX CLI builds it: ``atms`` from an
+    ``ATMSConfig`` (``--joint`` and ``atms_fields``), any other name at its
+    module's defaults (JAX ``cli.py:222-227``), in ``--dtype`` with seeded
+    random weights."""
+    kw = dict(dtype=_DTYPES[args.dtype], device=device, seed=args.seed)
+    if encoder_key(args.encoder) == "atms":
+        return build_encoder("atms", config=ATMSConfig(
+            joint_train=args.joint, **atms_fields), **kw)
+    return build_encoder(args.encoder, **kw)
+
+
 def build_retrieval(args) -> RetrievalService:
     """The retrieval service ``serve`` puts behind the daemon (which warms
     it up on its device thread):
@@ -141,10 +167,9 @@ def build_retrieval(args) -> RetrievalService:
     if args.weights and args.run_dir:
         raise SystemExit("give --run-dir (a run of train-retrieval) or "
                          "--weights (JAX variables), not both")
-    cfg = ATMSConfig(joint_train=args.joint, exact_gelu=args.exact_gelu,
-                     fused_projection=True if args.fused_projection else "auto")
-    model = build_encoder(args.encoder, config=cfg, dtype=_DTYPES[args.dtype],
-                          device=args.device, seed=args.seed)
+    model = _build_model(
+        args, device=args.device, exact_gelu=args.exact_gelu,
+        fused_projection=True if args.fused_projection else "auto")
     if args.weights:
         model.load_state_dict(params_from_flax(load_flat_npz(args.weights)),
                               strict=True)
@@ -468,10 +493,7 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
         seed=args.seed,
         eval_ks=_eval_ks(args),
     )
-    model = build_encoder(args.encoder,
-                          config=ATMSConfig(joint_train=args.joint),
-                          dtype=_DTYPES[args.dtype], device=args.device,
-                          seed=args.seed)
+    model = _build_model(args, device=args.device)
 
     test_subject = sweep_subject if protocol == "cross" else args.test_subject
     if protocol == "cross" or getattr(args, "cross_subject", False):
@@ -554,11 +576,8 @@ def cmd_evaluate(args):
         text_features=test_txt, exclude_subject=args.test_subject,
         average_test_reps=not args.no_average)
     device = resolve_device(args.device)
-    model = build_encoder(
-        args.encoder,
-        config=ATMSConfig(joint_train=args.joint,
-                          exact_gelu=getattr(args, "exact_gelu", False)),
-        dtype=_DTYPES[args.dtype], device=device, seed=args.seed)
+    model = _build_model(args, device=device,
+                         exact_gelu=getattr(args, "exact_gelu", False))
     ks = _eval_ks(args)
     step = _restore_run(args, model)
     eval_fn = make_eval_features_fn(model)
@@ -683,6 +702,17 @@ def cmd_export_checkpoint(args):
     try:
         ckpt.restore(args.step, state)
     except RuntimeError as e:  # load_state_dict: missing or unexpected keys
+        step = ckpt.latest_step() if args.step is None else args.step
+        held = torch.load(os.path.join(ckpt_dir, str(step), "state.pt"),
+                          map_location="cpu", weights_only=True)["model"]
+        if not any(k.startswith("encoder.embedding.") for k in held):
+            tops = sorted({k.split(".")[1] for k in held
+                           if k.startswith("encoder.")})
+            raise SystemExit(
+                f"export-checkpoint writes ATM-S's reference layout, and "
+                f"the run under {args.run_dir} is not ATM-S's (its encoder "
+                f"holds {tops}): the reference has no such file for the "
+                "other encoders") from None
         raise SystemExit(f"could not restore {args.run_dir} "
                          f"(joint={args.joint}): {e}") from None
     # reference ModuleList sizes: ATMS_retrieval.py:172 (2) against
@@ -1301,6 +1331,53 @@ def cmd_metrics(args):
     return out
 
 
+def cmd_smoke(args):
+    """The JAX ``smoke`` command: a synthetic end-to-end run. NICE (its
+    head to 64-d) trains 4 epochs with the reconstruction objective on 16
+    classes × 4 images × 2 repetitions; the diffusion prior trains 300
+    epochs on its train features against the scaled image features; the
+    prior's samples for the test features are scored 2- and 16-way.
+    Prints one JSON row with JAX's keys."""
+    from eeg_image_decode_tpu_torch.core.config import PriorConfig
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_retrieval_data,
+    )
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    device = resolve_device(args.device)
+    train, test = make_synthetic_retrieval_data(
+        n_classes=16, images_per_class=4, train_reps=2, clip_dim=64,
+        snr=2.0, device=device)
+    # the generation path trains the encoder with the reconstruction
+    # objective (ref Generation/ATMS_reconstruction.py:227-228)
+    cfg = ContrastiveTrainConfig(batch_size=32, epochs=4, lr=1e-3,
+                                 eval_ks=(2, 16), recon_loss=True)
+    trainer = ContrastiveTrainer(
+        build_encoder("nice", proj_dim=64, device=device), cfg, train, test,
+        device=device)
+    trainer.fit()
+    feats_test, _ = trainer.eval_fn(trainer.test_eeg,
+                                    trainer.test_subject_ids)
+    feats_train, _ = trainer.eval_fn(trainer.data.eeg,
+                                      trainer.data.subject_ids)
+    scale = train.img_features.abs().max()
+    h = train.img_features[train.img_idx.long()] / scale
+    pipe = PriorPipe(PriorConfig(
+        embed_dim=64, cond_dim=64, hidden_dims=(256, 128, 64),
+        time_embed_dim=64, epochs=300, batch_size=64, lr=1e-3,
+        warmup_steps=100, num_inference_steps=50, guidance_scale=5.0,
+    ), device=device)
+    pipe.train(feats_train, h, log_fn=None)
+    gen = pipe.generate(feats_test, generator=torch.Generator(
+        device=device).manual_seed(0))
+    out = retrieval_eval(
+        gen, test.img_features / scale, test.labels, ks=(2, 16),
+        generator=torch.Generator(device=device).manual_seed(1))
+    row = {k: float(v) for k, v in out.items()}
+    print(json.dumps(row))
+    return row
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-config", default=None,
                    help="path to data_config.json (reference format)")
@@ -1665,6 +1742,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="CSV output path")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser("smoke", help="synthetic end-to-end check")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_smoke)
     return ap
 
 

@@ -1,7 +1,11 @@
 """Shared building blocks (counterpart of
 ``eeg_image_decode_tpu/models/layers.py``): the ATM-S tsconv stack,
-projection head and raw logit scale, and the diffusion prior's
-:class:`MLPBlock`.
+projection head and raw logit scale, the diffusion prior's
+:class:`MLPBlock`, and what flax gives the encoder zoo (``models/nice.py``,
+``eegnetv4.py``, ``atm_e.py``, ``baselines.py``): :class:`Conv` (flax
+``nn.Conv``'s kernel layout run by ``F.conv1d`` / ``F.conv2d``),
+:class:`LayerNorm`, :class:`BatchNorm` over any feature axis, and
+:class:`MultiHeadDotProductAttention`.
 
 Parameters keep the JAX package's names and layouts (dense kernels are
 (d_in, d_out)); ``utils/convert.py`` maps a JAX variable tree onto them.
@@ -65,14 +69,18 @@ def check_fused(value, name: str) -> None:
 
 class Dense(nn.Module):
     """``kernel`` (d_in, d_out) and ``bias`` at the paths flax's Dense uses;
-    ``h @ kernel`` in h's dtype (fp32 accumulation) plus the bias in it."""
+    ``h @ kernel`` in h's dtype (fp32 accumulation) plus the bias in it.
+    ``dtype`` casts h first, as flax's ``Dense(dtype=…)`` casts its input."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
         self.bias = nn.Parameter(torch.zeros(d_out))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        if dtype is not None:
+            h = h.to(dtype)
         return torch.matmul(h, self.kernel.to(h.dtype)) + self.bias.to(h.dtype)
 
 
@@ -92,6 +100,15 @@ def layer_norm_fast(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
     return (h32 - mu) * (torch.rsqrt(var + 1e-6) * ln.scale) + ln.bias
 
 
+class LayerNorm(LNParams):
+    """flax ``nn.LayerNorm(dtype=jnp.float32)`` over the last axis: eps
+    1e-6 (not torch's 1e-5), the fast variance of :func:`layer_norm_fast`,
+    fp32 out."""
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        return layer_norm_fast(h, self)
+
+
 def layer_norm(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
     """flax ``LayerNorm(dtype=float32)`` through ``F.layer_norm`` (eps
     1e-6, fp32 out): one launch each way where :func:`layer_norm_fast`
@@ -102,27 +119,34 @@ def layer_norm(h: torch.Tensor, ln: LNParams) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last axis,
-    normalised in fp32 and returned in the input's dtype.
+    """flax ``BatchNorm(momentum, epsilon)`` (defaults 0.9 and 1e-5) over
+    the feature ``axis`` (the last by default; ``axis=1`` for an NCHW
+    tensor), normalised in fp32 and returned in ``dtype`` (default: the
+    input's; flax's ``BatchNorm(dtype=jnp.float32)`` returns fp32).
 
-    Eval: the running statistics. Train: the batch statistics in fp32 with
-    the fast variance max(E[x²] − E[x]², 0) (flax ``_compute_stats``), and
-    the running statistics move to ``0.9·old + 0.1·batch`` with the biased
-    batch variance. This is not ``torch.nn.BatchNorm``, whose running
-    variance is the unbiased one, with momentum 0.1 on the new value."""
+    Eval: the running statistics. Train: the batch statistics over every
+    other axis in fp32 with the fast variance max(E[x²] − E[x]², 0) (flax
+    ``_compute_stats``), and the running statistics move to
+    ``momentum·old + (1 − momentum)·batch`` with the biased batch variance.
+    This is not ``torch.nn.BatchNorm``, whose running variance is the
+    unbiased one, with momentum 0.1 on the new value."""
 
-    momentum = 0.9
-
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
         super().__init__()
+        self.momentum = momentum
+        self.eps = eps
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, *,
+                axis: int = -1,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        axis = axis % x.ndim
         if train:
-            x32 = x.float().reshape(-1, x.shape[-1])
+            x32 = x.float().movedim(axis, -1).reshape(-1, x.shape[axis])
             mean = x32.mean(0)
             var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
             with torch.no_grad():
@@ -131,8 +155,13 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + 1e-5) * self.scale
-        return ((x - mean) * mul + self.bias).to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        bias = self.bias
+        if axis != x.ndim - 1:
+            shape = [1] * x.ndim
+            shape[axis] = -1
+            mean, mul, bias = (v.reshape(shape) for v in (mean, mul, bias))
+        return ((x - mean) * mul + bias).to(dtype or x.dtype)
 
 
 class TSConv(nn.Module):
@@ -275,6 +304,138 @@ class MLPBlock(nn.Module):
         x = F.silu(layer_norm(self.Dense_0(x), self.LayerNorm_0))
         return dropout(x, self.dropout, train=train, mask=dropout_mask,
                        generator=generator)
+
+
+def same_padding(kernel: int, dilation: int = 1) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one axis at stride 1: the total
+    (k − 1)·dilation, ⌊total/2⌋ low and the rest high."""
+    total = (kernel - 1) * dilation
+    return total // 2, total - total // 2
+
+
+def conv(x: torch.Tensor, kernel: torch.Tensor, dtype: torch.dtype, *,
+         padding=None, dilation=1, groups: int = 1) -> torch.Tensor:
+    """flax's convolution on a channels-first tensor: ``x`` (B, C, W) or
+    (B, C, H, W); ``kernel`` in flax's layout, (k, C/groups, out) or HWIO
+    (kh, kw, C/groups, out); ``padding`` one (low, high) pair per spatial
+    axis (default none: ``"VALID"``). Both operands are cast to ``dtype``
+    and the product is rounded to it once, as ``nn.Conv(dtype=…)`` and
+    ``conv_general_dilated(preferred_element_type=float32).astype(dtype)``
+    give it; output channel o belongs to group o // (out/groups) in both
+    (group-major)."""
+    nd = kernel.ndim - 2
+    x = x.to(dtype)
+    if padding is not None:
+        x = F.pad(x, [p for pair in reversed(padding) for p in pair])
+    w = kernel.to(dtype).permute(nd + 1, nd, *range(nd))   # → (out, in, …)
+    fn = F.conv1d if nd == 1 else F.conv2d
+    return fn(x, w, None, 1, 0, dilation, groups)
+
+
+def electrode_conv(x: torch.Tensor, kernel: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The depthwise (C, 1) ``"VALID"`` convolution over the whole
+    electrode axis of EEGNetV4, ATCNet and EEGITNet: ``x`` (B, G, C, T)
+    with ``feature_group_count`` G = in-channels, HWIO ``kernel`` (C, 1, 1,
+    G·m) → (B, G·m, 1, T), output channel g·m + j from input channel g, as
+    :func:`conv` gives it. Computed as one batched product over the C taps
+    (cuBLAS: bf16 products, fp32 sums, rounded to ``dtype`` once, the same
+    function and rounding) because PyTorch's depthwise kernel takes
+    ≈ 0.2 s for this backward at B 1024 on the H100."""
+    b, g, c, t = x.shape
+    w = kernel.to(dtype).reshape(c, g, -1)                 # (C, G, m)
+    y = torch.einsum("bgct,cgm->bgmt", x.to(dtype), w)
+    return y.reshape(b, -1, 1, t)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv``: ``kernel`` (k, in, out) for a 1-D and HWIO
+    (kh, kw, in, out) for a 2-D convolution, and ``bias`` (out,),
+    added in ``dtype`` after the product's rounding, as flax adds it. The
+    tensors are channels-first (:func:`conv`)."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: tuple[int, ...], *, padding=None, dilation=1,
+                 use_bias: bool = True):
+        super().__init__()
+        self.padding, self.dilation = padding, dilation
+        self.kernel = nn.Parameter(
+            torch.zeros(*kernel_size, in_features, features))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = conv(x, self.kernel, dtype, padding=self.padding,
+                 dilation=self.dilation)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype).reshape(-1, *[1] * (y.ndim - 2))
+        return y
+
+
+class DenseGeneral(nn.Module):
+    """One of flax ``MultiHeadDotProductAttention``'s projections:
+    ``kernel`` (d, heads, head_dim) and ``bias`` (heads, head_dim) for
+    q / k / v, or (heads, head_dim, d) and (d,) for ``out``."""
+
+    def __init__(self, kernel_shape: tuple[int, ...],
+                 bias_shape: tuple[int, ...]):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(kernel_shape))
+        self.bias = nn.Parameter(torch.zeros(bias_shape))
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` for self-attention over
+    (B, L, d) tokens (ATM-E, EEGConformer, ATCNet, MetaEEG), written as its
+    products and softmax: plain XLA in JAX, plain PyTorch here.
+
+    head_dim = d // heads. Each projection casts its input and weights to
+    ``dtype`` and rounds the product, then the bias sum, to it. The query
+    is divided by √head_dim (rounded to ``dtype``) before the product, and
+    the softmax runs in ``dtype`` as flax computes it (no
+    ``force_fp32_for_softmax``): the logits, x − max, its exp, the row sum
+    and the quotient are each rounded to ``dtype``. Dropout falls on the
+    attention weights with ``broadcast_dropout``: one (L, L) keep pattern
+    shared by every sample and head of the call, times keep/(1 − p), both
+    factors in ``dtype`` (flax's multiplier)."""
+
+    def __init__(self, d: int, heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.heads, self.head_dim, self.dropout = heads, d // heads, dropout
+        qkv = ((d, heads, d // heads), (heads, d // heads))
+        self.query = DenseGeneral(*qkv)
+        self.key = DenseGeneral(*qkv)
+        self.value = DenseGeneral(*qkv)
+        self.out = DenseGeneral((heads, d // heads, d), (d,))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, *,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        b, length, d = x.shape
+        h, hd = self.heads, self.head_dim
+        x = x.to(dtype)
+
+        def project(p):  # (B, L, d) → (B, heads, L, head_dim)
+            y = torch.matmul(x, p.kernel.to(dtype).reshape(d, h * hd))
+            y = y.reshape(b, length, h, hd) + p.bias.to(dtype)
+            return y.transpose(1, 2)
+
+        q, k, v = project(self.query), project(self.key), project(self.value)
+        depth = torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
+        logits = torch.matmul(q / depth, k.transpose(-1, -2))
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        w = e / e.sum(-1, keepdim=True)
+        if train and self.dropout > 0.0:
+            keep_prob = 1.0 - self.dropout
+            keep = torch.rand((length, length), generator=generator,
+                              device=x.device) < keep_prob
+            w = w * (keep.to(dtype) / torch.tensor(keep_prob, dtype=dtype,
+                                                   device=x.device))
+        o = torch.matmul(w, v).transpose(1, 2).reshape(b, length, h * hd)
+        return (torch.matmul(o, self.out.kernel.to(dtype).reshape(h * hd, d))
+                + self.out.bias.to(dtype))
 
 
 @torch.no_grad()

@@ -28,16 +28,35 @@ import torch
 from eeg_image_decode_tpu_torch.ops import _build
 
 
+class _FoldPool(torch.autograd.Function):
+    """The box correlation of :func:`fold_pool_into_kernel`, with a
+    backward that sums each tap's ``pool_size`` outputs in one reduction:
+    autograd of the gather would accumulate them with ``index_put_``,
+    whose CPU threads add in a varying order, so two identical training
+    steps could differ in the last bit."""
+
+    @staticmethod
+    def forward(ctx, w, pool_size):
+        ctx.pool_size = pool_size
+        k, _ = w.shape
+        out_len = k + pool_size - 1
+        idx = (torch.arange(out_len, device=w.device)[:, None]
+               - torch.arange(pool_size, device=w.device)[None, :])
+        valid = (idx >= 0) & (idx < k)                        # (M, pool)
+        gathered = torch.where(valid[..., None], w[idx.clamp(0, k - 1)],
+                               torch.zeros((), dtype=w.dtype,
+                                           device=w.device))
+        return gathered.sum(dim=1) / pool_size
+
+    @staticmethod
+    def backward(ctx, g):
+        # tap k feeds the outputs m = k … k + pool − 1: one window of g each
+        return (g / ctx.pool_size).unfold(0, ctx.pool_size, 1).sum(-1), None
+
+
 def fold_pool_into_kernel(w: torch.Tensor, pool_size: int = 51) -> torch.Tensor:
     """(K, F) conv taps → (K+pool−1, F) pooled-conv taps (box correlation)."""
-    k, _ = w.shape
-    out_len = k + pool_size - 1
-    idx = (torch.arange(out_len, device=w.device)[:, None]
-           - torch.arange(pool_size, device=w.device)[None, :])  # (M, pool)
-    valid = (idx >= 0) & (idx < k)
-    gathered = torch.where(valid[..., None], w[idx.clamp(0, k - 1)],
-                           torch.zeros((), dtype=w.dtype, device=w.device))
-    return gathered.sum(dim=1) / pool_size
+    return _FoldPool.apply(w, pool_size)
 
 
 def out_positions(t: int, k_fused: int, stride: int) -> int:

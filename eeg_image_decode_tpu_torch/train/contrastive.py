@@ -24,10 +24,11 @@
   generator derive from (seed, epoch), so a resumed run reproduces the
   uninterrupted one.
 
-On the card a step runs the attention layer's forward and backward kernels
-(seed-mode dropout drawn in the kernels), the tsconv kernels and, under
-``ATMSConfig(fused_projection=True)``, the projection head's; there is no
-fallback. The mesh, ``streaming`` and ``shard_samples`` are not ported yet
+On the card an ATM-S step runs the attention layer's forward and backward
+kernels (seed-mode dropout drawn in the kernels), the tsconv kernels and,
+under ``ATMSConfig(fused_projection=True)``, the projection head's; a NICE
+step runs the tsconv kernels, and the zoo's other encoders are plain
+PyTorch; there is no fallback. The mesh, ``streaming`` and ``shard_samples`` are not ported yet
 (ROADMAP.md).
 """
 

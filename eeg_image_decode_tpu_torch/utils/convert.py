@@ -1,12 +1,14 @@
 """Weights from the JAX package into the port.
 
-``params_from_flax`` takes the JAX package's ATM-S variable tree
-(``{"params": …, "batch_stats": …}`` as nested dicts of numpy arrays, the
-model built with ``build_encoder("atms")``) and returns the port's
-``state_dict``. The port keeps the JAX names and the (d_in, d_out)
-layout of dense kernels, so a key is the flax path joined with ``.``; the
-only layout changes are the three conv kernels of the tsconv stack, and they
-live here and nowhere else:
+``params_from_flax`` takes the JAX package's variable tree of any encoder
+of the registry (``{"params": …, "batch_stats": …}`` as nested dicts of
+numpy arrays, the model built with ``build_encoder(name)``) and returns the
+port's ``state_dict``. The port keeps the JAX names and the (d_in, d_out)
+layout of dense kernels, so a key is the flax path joined with ``.``. The
+zoo's convolution and attention kernels keep flax's layouts too (HWIO,
+(k, in, out), (d, heads, head_dim)); the only layout changes are the three
+conv kernels of the tsconv stack of ATM-S and NICE, and they live here and
+nowhere else:
 
 - ``temporal_conv/kernel`` (1, K, 1, F) HWIO → ``temporal_conv_kernel``
   (K, F) (the JAX fused-stage-1 tree already stores it so);
@@ -225,22 +227,58 @@ def _flax_from_generator(state_dict: dict) -> dict:
     return out
 
 
-def params_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX variables (ATM-S, the diffusion prior, the low-level encoder, or
-    the SDXL generator's ``{"unet": …, "vae": …}`` tree) → the port's
-    ``state_dict`` (fp32 tensors; the generator's keys under ``unet.`` and
-    ``vae.``, in diffusers' names).
+#: the encoder a JAX ``ContrastiveModel`` tree holds, told by a top-level
+#: name of its ``encoder`` subtree (the first rule that matches)
+_ENCODER_MARKS = (
+    ("atms", "embedding"), ("atme", "attention"),
+    ("eegnetv4", "spatial_depthwise_kernel"), ("mlp", "input_fc_l"),
+    ("shallowfbcspnet", "conv_classifier"), ("eegconformer", "block_0"),
+    ("metaeeg", "conv_block_0"), ("atcnet", "attn_0"),
+    ("eegitnet", "branch0_dw"), ("nice", "enc_eeg"),
+)
+
+
+def encoder_name_of(params: dict) -> str | None:
+    """The registry name of the encoder whose JAX ``params`` these are, or
+    None for a tree that holds no ``encoder`` (the prior's, the low-level
+    encoder's)."""
+    enc = params.get("encoder")
+    if not isinstance(enc, dict):
+        return None
+    for name, mark in _ENCODER_MARKS:
+        if mark in enc:
+            return name
+    raise ValueError(f"no known encoder holds {sorted(enc)}")
+
+
+def params_from_flax(variables: dict,
+                     encoder: str | None = None) -> dict[str, torch.Tensor]:
+    """JAX variables (any encoder of the registry, the diffusion prior, the
+    low-level encoder, or the SDXL generator's ``{"unet": …, "vae": …}``
+    tree) → the port's ``state_dict`` (fp32 tensors; the generator's keys
+    under ``unet.`` and ``vae.``, in diffusers' names).
+
+    ``encoder`` names the registry encoder (default: told from the tree,
+    :func:`encoder_name_of`). The tsconv layout rules apply to ATM-S and
+    NICE only: the zoo's other encoders keep flax's kernel layouts in the
+    port, and two of their names (EEGNetV4's ``temporal_conv.kernel``,
+    EEGConformer's ``proj_conv.kernel``) would match those rules.
 
     Load it with ``model.load_state_dict(sd, strict=True)`` into the port's
     model of the same configuration."""
     if "unet" in variables or "vae" in variables:
         return {k: torch.from_numpy(np.array(a, dtype=np.float32))
                 for k, a in generator_arrays_from_flax(variables).items()}
-    flat = _flatten(variables.get("params", {}), sep=".")
+    params = variables.get("params", {})
+    if encoder is None:
+        encoder = encoder_name_of(params)
+    flat = _flatten(params, sep=".")
     flat.update(_flatten(variables.get("batch_stats", {}), sep="."))
+    keep_layout = encoder not in (None, "atms", "nice")
     sd = {}
     for key, a in flat.items():
-        key, a = _port_layout(key, a)
+        if not keep_layout:
+            key, a = _port_layout(key, a)
         sd[key] = torch.from_numpy(np.array(a, dtype=np.float32))
     return sd
 

@@ -2,20 +2,22 @@
 """Where the time of one training step goes in the PyTorch/CUDA port.
 
     python3 scripts/profile_torch_train.py [--steps 10] \\
-        [--fused-projection] [--joint]
+        [--fused-projection] [--joint] [--encoder atms|nice,eegnetv4,...]
 
-Builds ATM-S at full width (bf16, seeded random weights, dropout on;
-``--fused-projection``: the head through its CUDA kernels; ``--joint``:
-per-subject value embeddings, the rows given seeded subject ids over 0..9)
-and one subject's synthetic split on the CUDA card (66,160 × 63 × 250), runs the
-trainer's epoch function (``train/contrastive.py::make_epoch_fn``) at batch
-1024 and:
+Builds each ``--encoder`` of the registry (default ATM-S) at full width
+(bf16, seeded random weights, dropout on; ATM-S at ``ATMSConfig()``, the
+others at their defaults; ``--fused-projection``: ATM-S's head through its
+CUDA kernels; ``--joint``: ATM-S's per-subject value embeddings, the rows
+given seeded subject ids over 0..9) and one subject's synthetic split on
+the CUDA card (66,160 × 63 × 250), runs the trainer's epoch function
+(``train/contrastive.py::make_epoch_fn``) at batch 1024 and:
 
 - times ``--steps`` steps with CUDA events, after 3 warm-up steps;
 - traces as many steps with ``torch.profiler`` and prints the device time
   per step of each kernel name, of the port's own kernels together, of
   cuBLAS products and of everything else, the device-busy time and the
-  device's idle share of the traced wall time.
+  device's idle share of the traced wall time, and the kernel launches
+  per step.
 
 Prints one JSON line per measurement. Needs a CUDA device.
 """
@@ -52,58 +54,34 @@ def group(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--fused-projection", action="store_true")
-    ap.add_argument("--joint", action="store_true")
-    args = ap.parse_args()
-
+def profile_encoder(args, name: str, cfg, data, perm) -> None:
+    """CUDA-event step times, then a traced window, of encoder ``name``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_torch_train: no CUDA device", file=sys.stderr)
-        return 2
-    from eeg_image_decode_tpu_torch.core.config import (
-        ATMSConfig,
-        ContrastiveTrainConfig,
-    )
-    from eeg_image_decode_tpu_torch.data.synthetic import (
-        make_synthetic_retrieval_data,
-    )
+    from eeg_image_decode_tpu_torch.core.config import ATMSConfig
     from eeg_image_decode_tpu_torch.models.registry import build_encoder
     from eeg_image_decode_tpu_torch.train.contrastive import (
-        DeviceData,
         create_train_state,
-        epoch_permutation,
         make_epoch_fn,
     )
 
-    cfg = ContrastiveTrainConfig()
-    train, _ = make_synthetic_retrieval_data(n_classes=1654,
-                                             n_test_classes=200, seed=SEED,
-                                             device="cuda")
-    if args.joint:
-        train.subject_ids = torch.randint(
-            0, 10, (train.n,), device="cuda", dtype=torch.int32,
-            generator=torch.Generator(device="cuda").manual_seed(SEED + 30))
-    acfg = ATMSConfig(
-        fused_projection=True if args.fused_projection else "auto",
-        joint_train=args.joint)
-    model = build_encoder("atms", config=acfg, dtype=torch.bfloat16,
-                          device="cuda", seed=SEED)
-    data = DeviceData.from_host(train, "cuda")
+    kw = {}
+    if name == "atms":
+        kw["config"] = ATMSConfig(
+            fused_projection=True if args.fused_projection else "auto",
+            joint_train=args.joint)
+    model = build_encoder(name, dtype=torch.bfloat16, device="cuda",
+                          seed=SEED, **kw)
     state = create_train_state(model, cfg)
     epoch_fn = make_epoch_fn(cfg)
-    perm = torch.as_tensor(epoch_permutation(train.n, cfg.batch_size,
-                                             cfg.seed, 0), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     n = args.steps
 
     epoch_fn(state, data, perm[:3], gen)  # warm-up
     out = epoch_fn(state, data, perm[3:3 + n], gen)
-    emit({"phase": "steps", "card": torch.cuda.get_device_name(0),
+    emit({"phase": "steps", "encoder": name,
+          "card": torch.cuda.get_device_name(0),
           "fused_projection": args.fused_projection, "joint": args.joint,
           "batch": cfg.batch_size, "steps": n,
           "step_ms_p50": float(np.median(out["step_ms"])),
@@ -132,12 +110,54 @@ def main() -> int:
     for k, v in kernels.items():
         groups[group(k)] = groups.get(group(k), 0.0) + v / n
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
-    emit({"phase": "trace", "steps": n, "wall_ms_per_step": wall_ms / n,
+    emit({"phase": "trace", "encoder": name, "steps": n,
+          "wall_ms_per_step": wall_ms / n,
           "device_busy_ms_per_step": busy_us / 1e3 / n,
           "device_idle_share": (1.0 - busy_us / 1e3 / wall_ms
                                 if spans else None),
+          "launches_per_step": len(spans) / n,
           "group_ms_per_step": groups,
           "kernel_ms_per_step": {k[:120]: v / n for k, v in top}})
+    del state, model, epoch_fn
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--fused-projection", action="store_true")
+    ap.add_argument("--joint", action="store_true")
+    ap.add_argument("--encoder", default="atms",
+                    help="comma-separated registry names")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_train: no CUDA device", file=sys.stderr)
+        return 2
+    from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_retrieval_data,
+    )
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        DeviceData,
+        epoch_permutation,
+    )
+
+    cfg = ContrastiveTrainConfig()
+    train, _ = make_synthetic_retrieval_data(n_classes=1654,
+                                             n_test_classes=200, seed=SEED,
+                                             device="cuda")
+    if args.joint:
+        train.subject_ids = torch.randint(
+            0, 10, (train.n,), device="cuda", dtype=torch.int32,
+            generator=torch.Generator(device="cuda").manual_seed(SEED + 30))
+    data = DeviceData.from_host(train, "cuda")
+    perm = torch.as_tensor(epoch_permutation(train.n, cfg.batch_size,
+                                             cfg.seed, 0), device="cuda")
+    for name in args.encoder.split(","):
+        profile_encoder(args, name, cfg, data, perm)
     return 0
 
 

@@ -98,12 +98,13 @@ def test_full_width_atms_matches_jax(tmp_path):
 
 
 def test_unported_encoders_and_training_raise():
-    """What is not ported yet raises: other encoders. Joint-train subject
-    embeddings and training through the fused projection head (its dropout
-    modes and backward) are ported and run, as training the default model
-    does."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_encoder("nice", device="cpu")
+    """An encoder name the registry does not hold raises ``KeyError``, as
+    in JAX (every JAX name is ported; ``tests/test_torch_zoo.py``).
+    Joint-train subject embeddings and training through the fused
+    projection head (its dropout modes and backward) are ported and run, as
+    training the default model does."""
+    with pytest.raises(KeyError, match="unknown encoder"):
+        build_encoder("nicer", device="cpu")
     x, sids = torch.zeros(2, 8, 100), torch.zeros(2, dtype=torch.int32)
     model = build_encoder("atms", config=ATMSConfig(**SMALL, joint_train=True),
                           device="cpu")

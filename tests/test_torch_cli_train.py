@@ -198,9 +198,9 @@ def test_cli_refuses_scale_out_flags_naming_the_roadmap(tree, flag):
 
 def test_cli_other_encoders_and_missing_inputs_raise(tree):
     root, feats = tree
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(KeyError, match="unknown encoder"):
         cli.main(["train-retrieval", "--data-path", root, "--features", feats,
-                  "--device", "cpu", "--encoder", "nice"])
+                  "--device", "cpu", "--encoder", "nicer"])
     with pytest.raises(SystemExit, match="--data-path"):
         cli.main(["train-retrieval", "--features", feats, "--device", "cpu"])
     with pytest.raises(SystemExit, match="--sweep"):

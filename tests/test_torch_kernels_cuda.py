@@ -13,7 +13,9 @@ and low-level steps against the CPU; the tiny SDXL generator against the
 CPU, and a bfloat16 reconstruct through the encoder's kernels; the tiny GIT
 captioner against the CPU, and a caption service through the encoder's
 kernels; the reconstruction metric table with all four backbones and a tiny
-CLIP tower against the CPU.
+CLIP tower against the CPU; NICE's bf16 training step through the tsconv
+kernels against their plain versions, and each zoo encoder's eval forward
+on the card against the CPU.
 """
 
 import dataclasses
@@ -1028,3 +1030,94 @@ def test_metric_table_on_card_matches_cpu(cuda):
             assert got[k] == want[k], k
         else:
             assert abs(got[k] - want[k]) <= 1e-5, (k, got[k], want[k])
+
+
+# ——— the encoder zoo: NICE's step through the tsconv kernels, and every
+# zoo encoder's eval forward on the card against the CPU ———
+
+ZOO = ("nice", "eegnetv4", "atme", "mlp", "shallowfbcspnet", "eegconformer",
+       "metaeeg", "atcnet", "eegitnet")
+
+
+@pytest.mark.cuda
+def test_nice_bf16_step_through_tsconv_kernels_matches_plain(cuda):
+    """One NICE training step (B 256, bf16, dropout drawn from one seed on
+    both sides) through the tsconv forward and backward kernels against
+    the same step through their plain versions: every gradient within
+    5e-2 relative L2, as ``chip_smoke.py`` holds ATM-S's step; the kernels
+    launched once each."""
+    from unittest import mock
+
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        tsconv_pool_backward_reference,
+    )
+
+    class PlainTSConv(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, stride):
+            ctx.save_for_backward(x, w)
+            ctx.stride = stride
+            return tsconv_pool_reference(x, w, stride)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, w = ctx.saved_tensors
+            dx, dw = tsconv_pool_backward_reference(x, w, g, ctx.stride)
+            return dx.to(x.dtype), dw.to(w.dtype), None
+
+    model = build_encoder("nice", dtype=torch.bfloat16, device=cuda, seed=4)
+    x = torch.from_numpy(np.random.default_rng(40).normal(
+        size=(256, 63, 250)).astype(np.float32)).to(cuda)
+
+    def step():
+        model.train().zero_grad(set_to_none=True)
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        feats, scale = model(x, generator=gen)
+        (scale * feats.float().square().mean()).backward()
+        return {n: p.grad.detach().float().clone()
+                for n, p in model.named_parameters()}
+
+    _build.reset_launches()
+    got = step()
+    assert _build.LAUNCHES["tsconv_fwd"] == 1
+    assert _build.LAUNCHES["tsconv_bwd"] == 1
+    with mock.patch("eeg_image_decode_tpu_torch.models.layers."
+                    "tsconv_pool_fused",
+                    lambda x, w, stride=5: PlainTSConv.apply(
+                        x, w.to(x.dtype), stride)):
+        _build.reset_launches()
+        want = step()
+    assert not any(_build.LAUNCHES.values())
+    errs = {n: _rel(got[n], want[n]) for n in want}
+    assert max(errs.values()) <= 5e-2, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_eval_forward_on_card_matches_cpu(cuda, name):
+    """Each zoo encoder at its defaults, the same seeded weights, 4 rows:
+    fp32 on the card (TF32 off) within 1e-4 · max|CPU|; bf16 on the card
+    against fp32 at per-row cosine ≥ 0.99."""
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+
+    x = torch.from_numpy(np.random.default_rng(42).normal(
+        size=(4, 63, 250)).astype(np.float32))
+    with torch.no_grad():
+        want, _ = build_encoder(name, device="cpu", seed=6)(x)
+        tf32 = torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got, _ = build_encoder(name, device=cuda, seed=6)(x.to(cuda))
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+        half, _ = build_encoder(name, dtype=torch.bfloat16, device=cuda,
+                                seed=6)(x.to(cuda))
+    got, half = got.cpu(), half.float().cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    cos = torch.nn.functional.cosine_similarity(half, got, dim=1)
+    assert torch.isfinite(half).all() and cos.min().item() >= 0.99, cos

@@ -114,8 +114,9 @@ def test_package_imports_without_jax(tmp_path):
     tokenizer, image reader and cache writer), a plot is drawn, and the
     diffusion prior and the low-level encoder train, sample and round-trip
     their files, a reconstruction runs through the generator, and a row is
-    captioned through the GIT decoder (no transformers either), and ``cli
+    captioned through the GIT decoder (no transformers either), ``cli
     metrics`` scores a tiny tree through a seeded AlexNet (no torchvision
+    either), and every encoder of the registry is built (no braindecode
     either)."""
     code = (
         "import sys\n"
@@ -237,9 +238,16 @@ def test_package_imports_without_jax(tmp_path):
         "cli.main(['metrics', '--generated', d + '/gen', '--ground-truth', "
         "d + '/gt', '--image-size', '16', '--backbone-params', "
         "d + '/bb.pkl', '--device', 'cpu'])\n"
+        "import eeg_image_decode_tpu_torch.models.nice\n"
+        "import eeg_image_decode_tpu_torch.models.eegnetv4\n"
+        "import eeg_image_decode_tpu_torch.models.atm_e\n"
+        "import eeg_image_decode_tpu_torch.models.baselines\n"
+        "from eeg_image_decode_tpu_torch.models.registry import ENCODERS\n"
+        "for name in ENCODERS:\n"
+        "    build_encoder(name, device='cpu')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', "
-        "'torchvision', 'eeg_image_decode_tpu')]\n"
+        "'torchvision', 'braindecode', 'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,

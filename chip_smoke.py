@@ -233,7 +233,32 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    --run-dir --encoder nice`` answering an 8-row ``/v1/retrieve`` equal to
    ``top_k`` called directly, and ``cli smoke`` (JAX's keys, values in
    [0, 1]). NICE's launches count into the main path.
-14. One JSON line listing the kernels, then the result line
+14. Raw preprocessing and host-streamed training. (a) ``cli preprocess``
+   (epoching and MVNN on the card) on a written raw tree
+   (``write_synthetic_raw_tree``: 2 sessions of 300 training conditions ×
+   2 reps and 20 test conditions × 20 reps at 1000 Hz, the conditions of
+   phase 6's tree), then ``train-retrieval --streaming`` for two epochs on
+   its output (251 samples a trial) with phase 6's feature file and
+   ``evaluate``, equal to the trainer's last row; the streamed steps must
+   launch rows 1′, 3, 4 and 5, the evaluation rows 1 and 4. (c) ``cli
+   preprocess-meg`` on a written THINGS-MEG-shaped npz (271 sensors, 281
+   samples; an image-level split through ``--image-concept-csv``), its
+   pickles read back by the port's loader. (b) At full size: phase 4's
+   split copied to the host and trained one epoch each resident, streamed
+   from fp32 and streamed from bf16 (``ATMSConfig()``, bf16, B 1024, one
+   seed, so the epochs' step losses are held against each other, |Δ| ≤
+   ``RESUME_TOL``, bit-equality reported): step p50, samples/s, peak
+   memory, launches a step, and from a traced second epoch the device's
+   busy ms a step and idle share; the loader's gather time in the epoch
+   and the training thread's wait for a batch; the gather into pinned
+   memory and the host-to-device copy of one batch timed alone. Then one
+   THINGS-EEG2-sized session drawn on the host (16,540 training events of
+   8,270 conditions and 4,000 test events of 200, targets mixed in, 63
+   channels + stim at 1000 Hz): the epoch gather + baseline + resample,
+   the Ledoit-Wolf covariances and the whitening timed on the card and
+   through a numpy copy of the JAX package's functions on the host; the
+   card's whitened epochs within ``PREPROCESS_TOL`` of the host's largest.
+15. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -253,6 +278,7 @@ import gc
 import io
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -3668,6 +3694,461 @@ def zoo_cli_path(torch, root: str, feats: str, tmp: str,
     return row
 
 
+# ——— phase 14: raw preprocessing, host-streamed training, THINGS-MEG ———
+
+#: the card's whitened epochs against the numpy host path's (both fp32
+#: outputs of fp64 covariances; the whitening products are fp32)
+PREPROCESS_TOL = 1e-5
+#: one THINGS-EEG2 session: 8,270 training conditions × 2 reps (16,540
+#: events) and 200 test conditions × 20 reps (4,000 events)
+#: (conditions, reps, images per class, first class, seed offset)
+SESSION = {"training": (8270, 2, 10, 0, 1), "test": (200, 20, 1, 1654, 2)}
+
+
+def preprocess_cli_path(torch, tmp: str, feats: str,
+                        main_launches: dict) -> dict:
+    """(a) ``cli preprocess`` on a written 2-session raw tree whose
+    conditions are phase 6's tree's (30 classes × 10 images, 20 test
+    concepts), then ``train-retrieval --streaming`` for two epochs on its
+    output with phase 6's features, then ``evaluate``."""
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_raw_tree,
+    )
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    proj = os.path.join(tmp, "raw_project")
+    t0 = time.perf_counter()
+    write_synthetic_raw_tree(proj, sub=1, n_ses=2, n_train_conditions=300,
+                             n_test_conditions=20, seed=SEED)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["preprocess", "--sub", "1", "--project-dir", proj,
+                  "--n-ses", "2"])
+    torch.cuda.synchronize()
+    preprocess_s = time.perf_counter() - t0
+    data = os.path.join(proj, "Preprocessed_data_250Hz")
+    shapes = {}
+    for part in ("training", "test"):
+        with open(os.path.join(data, "sub-01",
+                               f"preprocessed_eeg_{part}.npy"), "rb") as f:
+            d = pickle.load(f)
+        x = d["preprocessed_eeg_data"]
+        if not np.isfinite(x).all():
+            raise RuntimeError(f"preprocess: non-finite {part} epochs")
+        shapes[part] = list(x.shape)
+    if shapes != {"training": [300, 4, 63, 251], "test": [20, 40, 63, 251]}:
+        raise RuntimeError(f"preprocess wrote {shapes}")
+
+    ks, seed = "2,4,10,20", 7
+    common = ["--data-path", data, "--features", feats, "--eval-ks", ks,
+              "--subjects", "sub-01"]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    row, run_dir = run_cli(["train-retrieval", *common, "--streaming",
+                            "--batch-size", "256", "--seed", str(seed),
+                            "--epochs", "2", "--output-dir",
+                            os.path.join(tmp, "stream_runs")])
+    train_s = time.perf_counter() - t0
+    train_launches = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    scored, _ = run_cli(["evaluate", *common, "--run-dir", run_dir,
+                         "--seed", str(seed + 104729 * 1)])
+    eval_launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, train_launches)
+    add_launches(main_launches, eval_launches)
+    tops = [k for k in row if k.startswith("top")]
+    differ = {k: (scored.get(k), row[k]) for k in tops
+              if scored.get(k) != row[k]}
+    steps = 2 * (1200 // 256) + 2 * 1  # two epochs; one eval forward each
+    missing = [k for k in ("attention_fwd_seed", "attention_bwd",
+                           "tsconv_bwd") if train_launches[k] != 8] + [
+        k for k in ("attention_fwd", "tsconv_fwd")
+        if not eval_launches[k]]
+    out = {"phase": "preprocess_cli", "shapes": shapes,
+           "write_raw_s": write_s, "preprocess_s": preprocess_s,
+           "epochs": row["epoch"], "loss": row["loss"], "evaluate": scored,
+           "evaluate_equals_trainer": not differ,
+           "launches_train": train_launches, "launches_eval": eval_launches,
+           "train_s": train_s}
+    emit(out)
+    if (differ or missing or row["epoch"] != 1
+            or train_launches["tsconv_fwd"] != steps
+            or not np.isfinite(row["loss"])):
+        raise RuntimeError(f"preprocess cli path: evaluate differs {differ}, "
+                           f"launch counts wrong {missing}, row {out}")
+    return out
+
+
+def meg_cli_path(torch, tmp: str) -> dict:
+    """(c) ``cli preprocess-meg`` on a written npz of THINGS-MEG-shaped
+    epochs (271 sensors, 281 samples over [−0.1, 1.3] s): 24 concepts × 12
+    images seen once, 2 zero-shot images seen 12 times, catch trials; the
+    image → concept CSV; the pickles back through ``build_retrieval_data``
+    at 12 images × 1 repetition."""
+    from eeg_image_decode_tpu_torch import cli
+    from eeg_image_decode_tpu_torch.data.things_eeg import (
+        build_retrieval_data,
+    )
+
+    n_ch, n_t, n_cls, ipc = 271, 281, 24, 12
+    rng = np.random.default_rng(SEED + 14)
+    concepts = np.repeat(np.arange(1, n_cls + 3), ipc)  # 26 concepts
+    # images of concepts 25-26 are the zero-shot ones: two of them repeat
+    zs = [n_cls * ipc + 1, (n_cls + 1) * ipc + 1]
+    events = np.concatenate([np.arange(1, n_cls * ipc + 1),
+                             np.repeat(zs, 12), [999999] * 10])
+    events = events[rng.permutation(len(events))]
+    times = np.linspace(-0.1, 1.3, n_t)
+    epochs = rng.standard_normal((len(events), n_ch, n_t), dtype=np.float32)
+    npz = os.path.join(tmp, "meg_epochs.npz")
+    np.savez(npz, epochs=epochs, event_ids=events, times=times,
+             ch_names=np.asarray([f"MEG{i:04d}" for i in range(n_ch)]))
+    csv_path = os.path.join(tmp, "image_concept_index.csv")
+    with open(csv_path, "w") as f:
+        f.write("\n".join(str(c) for c in concepts) + "\n")
+    out_dir = os.path.join(tmp, "meg", "sub-01")
+    t0 = time.perf_counter()
+    summary, _ = run_cli(["preprocess-meg", "--epochs", npz, "--out",
+                          out_dir, "--image-concept-csv", csv_path])
+    meg_s = time.perf_counter() - t0
+    n_keep = int(((times >= 0) & (times <= 1.0)).sum())
+    train = build_retrieval_data(
+        os.path.join(tmp, "meg"), ["sub-01"], train=True,
+        img_features=np.zeros((n_cls * ipc, 8), np.float32),
+        text_features=np.zeros((n_cls, 8), np.float32),
+        images_per_class=ipc, train_reps=1)
+    test = build_retrieval_data(
+        os.path.join(tmp, "meg"), ["sub-01"], train=False,
+        img_features=np.zeros((2, 8), np.float32),
+        text_features=np.zeros((2, 8), np.float32))
+    row = {"phase": "preprocess_meg", "summary": summary, "meg_s": meg_s,
+           "train_loaded": list(train.eeg.shape),
+           "test_loaded": list(test.eeg.shape)}
+    emit(row)
+    if (summary["train_shape"] != [n_cls, ipc, 1, n_ch, n_keep]
+            or summary["test_shape"] != [2, 1, 12, n_ch, n_keep]
+            or list(train.eeg.shape) != [n_cls * ipc, n_ch, n_keep]
+            or list(test.eeg.shape) != [2, n_ch, n_keep]):
+        raise RuntimeError(f"preprocess-meg: {row}")
+    return row
+
+
+def _busy_idle(torch, prof, wall_ms: float, steps: int) -> dict:
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:  # the union of device intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return {"wall_ms_per_step": wall_ms / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+
+
+def streaming_path(torch, card: str, train_host, test,
+                   main_launches: dict) -> dict:
+    """(b) Phase 4's split on the host: one epoch resident, streamed from
+    fp32 and streamed from bf16, each from the same seeded init; then a
+    traced second epoch each; the gather and the copy of one batch
+    alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+    )
+
+    modes = {}
+    base_losses = None
+    bench_src = {}
+    for mode, streaming, host_dtype in (("resident", False, None),
+                                        ("streamed_fp32", True, None),
+                                        ("streamed_bf16", True, "bfloat16")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = ContrastiveTrainConfig(batch_size=TRAIN_BATCH,
+                                     host_dtype=host_dtype)
+        model = build_encoder("atms", config=ATMSConfig(),
+                              dtype=torch.bfloat16, device="cuda", seed=SEED)
+        trainer = ContrastiveTrainer(model, cfg, train_host, test,
+                                     device="cuda", streaming=streaming)
+        _build.reset_launches()
+        metrics = trainer.train_epoch(0)
+        launches = dict(_build.LAUNCHES)
+        losses = trainer.last_steps["step_loss"]
+        step_ms = trainer.last_steps["step_ms"]
+        n_steps = len(losses)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        wrong = {k: launches[k] for k in ("attention_fwd_seed",
+                                          "attention_bwd", "tsconv_fwd",
+                                          "tsconv_bwd")
+                 if launches[k] != n_steps}
+        if wrong or n_steps != train_host.n // TRAIN_BATCH:
+            raise RuntimeError(f"{mode}: launches per step are not 1: "
+                               f"{wrong} over {n_steps} steps")
+        if not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"{mode}: non-finite loss {losses}")
+        in_epoch = {}
+        if streaming:
+            add_launches(main_launches, launches)
+            bench_src[mode] = trainer.loader.arrays["eeg"]
+            # the gather beside the training thread, and that thread's wait
+            in_epoch = {
+                "gather_ms_in_epoch": float(np.mean(trainer.loader.gather_s))
+                * 1e3,
+                "wait_ms_per_batch": float(np.mean(trainer.loader.wait_s))
+                * 1e3}
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_epoch(1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        row = {"step_ms_p50": float(np.median(step_ms[3:])),
+               "step_ms_min": float(np.min(step_ms[3:])),
+               "step_ms_max": float(np.max(step_ms[3:])),
+               "samples_per_s": TRAIN_BATCH / (np.median(step_ms[3:]) / 1e3),
+               "epoch_s": metrics["epoch_time_s"],
+               "epoch_samples_per_s": metrics["samples_per_s"],
+               "peak_mem_gb": peak, "steps": n_steps,
+               "launches_per_step": {k: v / n_steps
+                                     for k, v in launches.items() if v},
+               "loss_first8": float(np.mean(losses[:8])),
+               "loss_last8": float(np.mean(losses[-8:])), **in_epoch,
+               **_busy_idle(torch, prof, wall_ms, n_steps)}
+        if base_losses is None:
+            base_losses = np.asarray(losses)
+        else:
+            d = np.abs(np.asarray(losses) - base_losses)
+            row["step_loss_bit_equal_to_resident"] = bool(not d.any())
+            row["step_loss_max_abs_diff"] = float(d.max())
+            row["first_step_loss_equal"] = bool(d[0] == 0)
+            if d.max() > RESUME_TOL:
+                raise RuntimeError(f"{mode}: step losses differ from the "
+                                   f"resident epoch's by {d.max()}")
+        modes[mode] = row
+        trainer.close()
+        del trainer, model, prof
+    # one batch's gather into pinned memory and its copy, alone
+    rng = np.random.default_rng(SEED)
+    per_batch = {}
+    for mode, src in bench_src.items():
+        pinned = torch.empty((TRAIN_BATCH, *src.shape[1:]), dtype=src.dtype,
+                             pin_memory=True)
+        dev = torch.empty_like(pinned, device="cuda")
+        idxs = [torch.from_numpy(rng.permutation(len(src))[:TRAIN_BATCH])
+                for _ in range(12)]
+        gather = []
+        for idx in idxs:
+            t0 = time.perf_counter()
+            torch.index_select(src, 0, idx, out=pinned)
+            gather.append((time.perf_counter() - t0) * 1e3)
+        nbytes = pinned.numel() * pinned.element_size()
+        copy_ms = cuda_ms(torch, lambda: dev.copy_(pinned, non_blocking=True))
+        per_batch[mode] = {
+            "batch_mb": nbytes / 1e6,
+            "gather_ms": float(np.median(gather[2:])),
+            "copy_ms": copy_ms,
+            "copy_gb_per_s": nbytes / copy_ms / 1e6}
+    bench_src.clear()
+    out = {"phase": "streaming", "card": card, "dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "train_samples": train_host.n,
+           "host_split_gb": train_host.eeg.numel() * 4 / 1e9,
+           "modes": modes, "per_batch": per_batch,
+           "peak_mem_saved_gb": (modes["resident"]["peak_mem_gb"]
+                                 - modes["streamed_fp32"]["peak_mem_gb"])}
+    emit(out)
+    return out
+
+
+def _np_epoch_session(raw, ch_names, sfreq, stim, max_rep, seed,
+                      tmin=-0.2, tmax=1.0, target_sfreq=250.0,
+                      drop_initial=50):
+    """The JAX package's ``preprocess/epoching.py::epoch_session``, copied
+    as numpy and scipy: the host path the card's is timed against."""
+    from scipy.signal import resample_poly
+
+    from eeg_image_decode_tpu_torch.preprocess.epoching import (
+        CHANNEL_ORDER,
+        TARGET_EVENT,
+        find_events,
+    )
+
+    idx = [ch_names.index(ch) for ch in CHANNEL_ORDER if ch in ch_names]
+    data = np.asarray(raw, np.float64)[idx]
+    events = find_events(stim)
+    events = events[events[:, 1] != TARGET_EVENT]
+    n_pre, n_post = int(round(-tmin * sfreq)), int(round(tmax * sfreq))
+    onsets, values = events[:, 0], events[:, 1]
+    keep = (onsets - n_pre >= 0) & (onsets + n_post < data.shape[1])
+    onsets, values = onsets[keep], values[keep]
+    win = np.arange(-n_pre, n_post + 1)
+    epochs = np.moveaxis(data[:, onsets[:, None] + win[None, :]], 1, 0)
+    epochs = epochs - epochs[:, :, :n_pre].mean(axis=2, keepdims=True)
+    up, down = int(target_sfreq), int(sfreq)
+    g = np.gcd(up, down)
+    epochs = resample_poly(epochs, up // g, down // g, axis=-1)
+    conditions = np.unique(values)
+    rng = np.random.RandomState(seed)
+    out = np.zeros((len(conditions), max_rep, epochs.shape[1],
+                    epochs.shape[-1]), np.float32)
+    for i, cond in enumerate(conditions):
+        cond_idx = np.nonzero(values == cond)[0]
+        out[i] = epochs[cond_idx[rng.permutation(len(cond_idx))[:max_rep]]]
+    return out[..., drop_initial:]
+
+
+def _np_session_covariance(epoched, chunk=256):
+    """The JAX package's batched Ledoit-Wolf and its mean, as numpy."""
+    n_cond, n_rep, n_ch, t = epoched.shape
+    x = epoched.reshape(n_cond * n_rep, n_ch, t).transpose(0, 2, 1)
+    eye = np.eye(n_ch)
+    total = np.zeros((n_ch, n_ch))
+    for i in range(0, len(x), chunk):
+        xi = np.array(x[i:i + chunk], np.float64)
+        xi -= xi.mean(axis=1, keepdims=True)
+        s = np.matmul(xi.transpose(0, 2, 1), xi) / t
+        mu = np.trace(s, axis1=1, axis2=2) / n_ch
+        delta = ((s - mu[:, None, None] * eye) ** 2).sum(axis=(1, 2)) / n_ch
+        np.multiply(xi, xi, out=xi)
+        beta = ((xi.sum(axis=2) ** 2).sum(axis=1) / t
+                - (s ** 2).sum(axis=(1, 2))) / (t * n_ch)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            shrink = np.clip(np.where(delta == 0, 0.0, beta / delta), 0, 1)
+        total += ((1 - shrink)[:, None, None] * s
+                  + (shrink * mu)[:, None, None] * eye).sum(axis=0)
+    return total / len(x)
+
+
+def _np_whitener(sigma):
+    sigma = 0.5 * (sigma + sigma.T)
+    w, v = np.linalg.eigh(sigma)
+    w = np.maximum(w, 1e-12 * w.max())
+    return (v * w ** -0.5) @ v.T
+
+
+def preprocess_full_path(torch, card: str) -> dict:
+    """(b) One THINGS-EEG2-sized session drawn on the host, preprocessed on
+    the card (the port's functions) and on the host (the numpy copy of the
+    JAX package's), stage by stage."""
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_raw_session,
+    )
+    from eeg_image_decode_tpu_torch.preprocess.epoching import (
+        CHANNEL_ORDER,
+        TARGET_EVENT,
+        epoch_session,
+        find_events,
+        select_epochs,
+    )
+    from eeg_image_decode_tpu_torch.preprocess.mvnn import (
+        matrix_inverse_sqrt,
+        session_covariance,
+    )
+
+    import scipy.signal  # noqa: F401  (its import is not a stage's time)
+
+    t0 = time.perf_counter()
+    raws = {}
+    for part, (n_cond, reps, ipc, off, k) in SESSION.items():
+        raws[part] = make_synthetic_raw_session(
+            n_cond, reps, images_per_class=ipc, class_offset=off,
+            seed=SEED + k, topo_seed=SEED)
+    draw_s = time.perf_counter() - t0
+
+    def split(raw):
+        names = raw["ch_names"]
+        stim = names.index("stim")
+        rows = [i for i in range(len(names)) if i != stim]
+        return (raw["raw_eeg_data"][rows], [names[i] for i in rows],
+                float(raw["sfreq"]), raw["raw_eeg_data"][stim])
+
+    max_rep = {"training": 2, "test": 20}
+    card_s, host_s = {}, {}
+    # inside the card's epoch stage: the raw array's trip to the card and
+    # the host's event bookkeeping, timed alone
+    parts_s = {"copy_in": 0.0, "bookkeeping": 0.0}
+    for part in raws:
+        x, names, _, stim = split(raws[part])
+        t0 = time.perf_counter()
+        idx = [names.index(ch) for ch in CHANNEL_ORDER]
+        d = torch.as_tensor(x)[idx].to("cuda", torch.float64)
+        torch.cuda.synchronize()
+        parts_s["copy_in"] += time.perf_counter() - t0
+        del d
+        t0 = time.perf_counter()
+        ev = find_events(stim)
+        select_epochs(ev[ev[:, 1] != TARGET_EVENT, 1], max_rep[part], SEED)
+        parts_s["bookkeeping"] += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ep = {part: epoch_session(*split(raws[part]),
+                              max_rep=max_rep[part], seed=SEED,
+                              device="cuda")[0] for part in raws}
+    torch.cuda.synchronize()
+    card_s["epochs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cov = session_covariance(ep["training"])
+    torch.cuda.synchronize()
+    card_s["lw_cov"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    w = matrix_inverse_sqrt(cov).float()
+    white = {p: torch.matmul(w, e.reshape(-1, *e.shape[-2:])).reshape(
+        e.shape) for p, e in ep.items()}
+    torch.cuda.synchronize()
+    card_s["whiten"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    white = {p: v.cpu().numpy() for p, v in white.items()}
+    del ep, cov, w
+
+    t0 = time.perf_counter()
+    hep = {part: _np_epoch_session(*split(raws[part]), max_rep[part],
+                                   SEED) for part in raws}
+    host_s["epochs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hcov = _np_session_covariance(hep["training"])
+    host_s["lw_cov"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hw = _np_whitener(hcov).astype(np.float32)
+    hwhite = {p: np.matmul(hw, e.reshape(-1, *e.shape[-2:])).reshape(e.shape)
+              for p, e in hep.items()}
+    host_s["whiten"] = time.perf_counter() - t0
+    err = max(float(np.abs(white[p] - hwhite[p]).max()
+                    / np.abs(hwhite[p]).max()) for p in white)
+    events = {p: int((raws[p]["raw_eeg_data"][-1] > 0).sum()) for p in raws}
+    row = {"phase": "preprocess", "card": card,
+           "shapes": {p: list(v.shape) for p, v in white.items()},
+           "raw_samples": {p: raws[p]["raw_eeg_data"].shape[1]
+                           for p in raws},
+           "events_with_targets": events, "draw_raw_s": draw_s,
+           "card_s": card_s, "card_total_s": sum(card_s.values()),
+           "card_epochs_of_which_s": parts_s,
+           "host_s": host_s, "host_total_s": sum(host_s.values()),
+           "card_peak_mem_gb": peak,
+           "epoch_tensor_fp64_gb": sum(
+               v.shape[0] * v.shape[1] * 63 * 1201 * 8
+               for v in white.values()) / 1e9,
+           "max_rel_err_vs_host": err}
+    emit(row)
+    if err > PREPROCESS_TOL or not all(
+            np.isfinite(v).all() for v in white.values()):
+        raise RuntimeError(f"preprocess: the card's epochs differ from the "
+                           f"host's by {err} of the largest")
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -3788,10 +4269,24 @@ def main() -> int:
     t0 = time.perf_counter()
     for name in ZOO:
         zoo_train_path(torch, card, name, train, test, main_path)
-    del train, test
+    # phase 14 streams phase 4's split from the host
+    train_host = dataclasses.replace(train, **{
+        f: getattr(train, f).cpu() for f in (
+            "eeg", "labels", "subject_ids", "img_idx", "text_idx",
+            "img_features", "text_features")})
+    del train
     with cli_dir:
         zoo_cli_path(torch, root, feats, tmp, main_path)
-    emit({"phase": "zoo_total", "s": time.perf_counter() - t0})
+        emit({"phase": "zoo_total", "s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        preprocess_cli_path(torch, tmp, feats, main_path)
+        meg_cli_path(torch, tmp)
+    streaming_path(torch, card, train_host, test, main_path)
+    del train_host, test
+    gc.collect()
+    torch.cuda.empty_cache()
+    preprocess_full_path(torch, card)
+    emit({"phase": "phase14_total", "s": time.perf_counter() - t0})
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",

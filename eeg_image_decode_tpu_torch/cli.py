@@ -1,8 +1,8 @@
 """Command line of the port (counterpart of ``eeg_image_decode_tpu/cli.py``).
 Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
 ``evaluate``, ``export-checkpoint``, ``train-prior``, ``train-lowlevel``,
-``latents``, ``generate``, ``caption``, ``train-adapter``, ``metrics`` and
-``smoke``.
+``latents``, ``generate``, ``caption``, ``train-adapter``, ``metrics``,
+``smoke``, ``preprocess`` and ``preprocess-meg``.
 
     python -m eeg_image_decode_tpu_torch.cli features \\
         --images-dir THINGS/images_set/test_images --split test \\
@@ -11,6 +11,8 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
         --data-path DATA --features clip.npz --subjects sub-01
     python -m eeg_image_decode_tpu_torch.cli train-retrieval --joint \\
         --subjects all --test-subject sub-01 ...
+    python -m eeg_image_decode_tpu_torch.cli train-retrieval --streaming \\
+        [--host-dtype bfloat16] --data-path DATA --features clip.npz ...
     python -m eeg_image_decode_tpu_torch.cli train-retrieval \\
         --resume-dir runs/contrast/atms/sub-01/<run> ...
     python -m eeg_image_decode_tpu_torch.cli train-retrieval --encoder nice \\
@@ -46,6 +48,11 @@ Ported: ``features``, ``serve``, ``train-retrieval``, ``train-recon``,
         --generated generated/ --ground-truth THINGS/test_images_flat \\
         --backbone-params backbones.pkl --clip-params clip_l14.pkl \\
         --out table.csv
+    python -m eeg_image_decode_tpu_torch.cli preprocess --sub 1 \\
+        --project-dir THINGS-EEG2 --n-ses 4
+    python -m eeg_image_decode_tpu_torch.cli preprocess-meg \\
+        --epochs meg_epochs.npz --out DATA/sub-01 \\
+        --image-concept-csv image_concept_index.csv
 
 Dataset paths come from ``--data-config`` (the reference's
 ``data_config.json`` format) or ``--data-path``; ``--features`` is a cached
@@ -99,6 +106,12 @@ distance row per backbone of ``--backbone-params`` and for ``--clip-params``.
 ``train-retrieval``, ``train-recon``, ``evaluate`` and ``serve``;
 ``export-checkpoint`` is ATM-S's only. ``smoke`` is JAX's synthetic end to
 end run: NICE, then the prior, then the prior's samples scored.
+``preprocess`` turns raw THINGS-EEG sessions into the per-subject pickles
+``--data-path`` names (epoching and MVNN on the card, the merges on the
+host); ``preprocess-meg`` turns exported THINGS-MEG epochs into the MEG
+pickles the same loader reads (host only). ``train-retrieval --streaming``
+keeps the training EEG in host RAM and streams its batches to the card
+(``--host-dtype bfloat16``: half the bytes a batch).
 Every command runs on the CUDA card (``--device cuda``, the default,
 raises without one).
 """
@@ -169,7 +182,8 @@ def build_retrieval(args) -> RetrievalService:
                          "--weights (JAX variables), not both")
     model = _build_model(
         args, device=args.device, exact_gelu=args.exact_gelu,
-        fused_projection=True if args.fused_projection else "auto")
+        fused_projection=True if args.fused_projection else "auto",
+        **_seq_len(args, args.timepoints))
     if args.weights:
         model.load_state_dict(params_from_flax(load_flat_npz(args.weights)),
                               strict=True)
@@ -354,7 +368,6 @@ def cmd_serve(args) -> None:
 
 #: flags of the JAX CLI whose modes the port does not have yet
 _SCALE_OUT = {"mesh": "--mesh", "multihost": "--multihost",
-              "streaming": "--streaming", "host_dtype": "--host-dtype",
               "shard_data": "--shard-data"}
 
 
@@ -485,6 +498,10 @@ def _train_retrieval_sweep(args, subjects):
 
 def _train_retrieval_one(args, subjects, *, sweep_subject=None,
                          protocol=None):
+    # an unknown encoder or a missing card fails before the data is read;
+    # the model is built after it, at its epoch length (_seq_len)
+    encoder_key(args.encoder)
+    resolve_device(args.device)
     cfg = ContrastiveTrainConfig(
         batch_size=args.batch_size or (16 if args.joint else 1024),
         epochs=args.epochs or 40,
@@ -492,8 +509,8 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
         recon_loss=args.recon,
         seed=args.seed,
         eval_ks=_eval_ks(args),
+        host_dtype=getattr(args, "host_dtype", None),
     )
-    model = _build_model(args, device=args.device)
 
     test_subject = sweep_subject if protocol == "cross" else args.test_subject
     if protocol == "cross" or getattr(args, "cross_subject", False):
@@ -507,6 +524,8 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
             args, subjects, test_subject=args.test_subject)
     else:
         train, test = _build_retrieval_splits(args, subjects)
+    model = _build_model(args, device=args.device,
+                         **_seq_len(args, train.eeg.shape[-1]))
     if args.resume_dir:
         out = args.resume_dir
     else:
@@ -519,22 +538,36 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
         out = run_directory(args.output_dir, args.encoder, sub_tag, run_id)
     ckpt = Checkpointer(os.path.join(out, "ckpt"))
     trainer = ContrastiveTrainer(model, cfg, train, test, output_dir=out,
-                                 checkpointer=ckpt, device=args.device)
-    if args.resume_dir:
-        start = trainer.resume()
-        print(f"resumed {out} at epoch {start}")
-    trainer.fit()
-    if getattr(args, "export_features", None):
-        # the reconstruction pipeline's hand-off artifact; in a sweep each
-        # subject gets its own file under the given directory
-        dest = args.export_features
-        if sweep_subject is not None:
-            os.makedirs(dest, exist_ok=True)
-            dest = os.path.join(dest, f"{sweep_subject}.npz")
-        print(f"exported {trainer.export_features(dest)}")
+                                 checkpointer=ckpt, device=args.device,
+                                 streaming=getattr(args, "streaming", False))
+    try:
+        if args.resume_dir:
+            start = trainer.resume()
+            print(f"resumed {out} at epoch {start}")
+        trainer.fit()
+        if getattr(args, "export_features", None):
+            # the reconstruction pipeline's hand-off artifact; in a sweep
+            # each subject gets its own file under the given directory
+            dest = args.export_features
+            if sweep_subject is not None:
+                os.makedirs(dest, exist_ok=True)
+                dest = os.path.join(dest, f"{sweep_subject}.npz")
+            print(f"exported {trainer.export_features(dest)}")
+    finally:
+        trainer.close()
     print(f"run directory: {out}")
     print(json.dumps(trainer.history[-1]))
     return trainer.history[-1]
+
+
+def _seq_len(args, n_timepoints: int) -> dict:
+    """ATM-S built at the data's epoch length, as flax infers it from the
+    first batch: ``cli preprocess`` writes 251 samples a trial (scipy's
+    ``resample_poly`` keeps the sample at 1.0 s), where ``ATMSConfig``'s
+    default is 250. The other encoders keep their defaults."""
+    if encoder_key(args.encoder) == "atms":
+        return {"seq_len": int(n_timepoints)}
+    return {}
 
 
 def _restore_run(args, model) -> int:
@@ -577,7 +610,8 @@ def cmd_evaluate(args):
         average_test_reps=not args.no_average)
     device = resolve_device(args.device)
     model = _build_model(args, device=device,
-                         exact_gelu=getattr(args, "exact_gelu", False))
+                         exact_gelu=getattr(args, "exact_gelu", False),
+                         **_seq_len(args, test.eeg.shape[-1]))
     ks = _eval_ks(args)
     step = _restore_run(args, model)
     eval_fn = make_eval_features_fn(model)
@@ -1378,6 +1412,145 @@ def cmd_smoke(args):
     return row
 
 
+# ——— preprocess / preprocess-meg ———
+
+def cmd_preprocess(args):
+    """Raw THINGS-EEG sessions → the per-subject pickles ``train-retrieval``
+    reads (JAX ``cli.py:576-628``): each session's ``Raw_data/sub-XX/ses-YY/
+    raw_eeg_{test,training}.npy`` epoched on the card (at most 20 test and 2
+    training reps per condition), whitened by its training partition's
+    Σ^{-1/2}, then merged across sessions on the host into
+    ``Preprocessed_data_<sfreq>Hz/sub-XX/preprocessed_eeg_{test,training}
+    .npy``."""
+    from eeg_image_decode_tpu_torch.preprocess.epoching import (
+        CHANNEL_ORDER,
+        epoch_session,
+        merge_sessions_test,
+        merge_sessions_train,
+        save_preprocessed,
+    )
+    from eeg_image_decode_tpu_torch.preprocess.mvnn import mvnn_whiten
+
+    device = resolve_device(args.device)
+    out_dir = os.path.join(args.project_dir, f"Preprocessed_data_{args.sfreq}Hz",
+                           f"sub-{args.sub:02d}")
+    parts = {}
+    for part, max_rep in (("test", 20), ("training", 2)):
+        epochs_list, conds_list, times = [], [], None
+        for ses in range(1, args.n_ses + 1):
+            raw_path = os.path.join(
+                args.project_dir, "Raw_data", f"sub-{args.sub:02d}",
+                f"ses-{ses:02d}", f"raw_eeg_{part}.npy")
+            raw = np.load(raw_path, allow_pickle=True)
+            if isinstance(raw, np.ndarray):  # np.save of a dict: 0-d object
+                raw = raw.item()
+            ch_names = list(raw["ch_names"])
+            stim_idx = ch_names.index("stim")
+            eeg_rows = [i for i in range(len(ch_names)) if i != stim_idx]
+            epochs, conds, times = epoch_session(
+                raw["raw_eeg_data"][eeg_rows],
+                [ch_names[i] for i in eeg_rows],
+                float(raw["sfreq"]),
+                raw["raw_eeg_data"][stim_idx],
+                target_sfreq=args.sfreq,
+                max_rep=max_rep,
+                seed=args.seed,
+                device=device)
+            epochs_list.append(epochs)
+            conds_list.append(conds)
+        parts[part] = (epochs_list, conds_list, times)
+
+    wtrain, wtest = mvnn_whiten(parts["training"][0], parts["test"][0])
+    wtrain = [w.cpu().numpy() for w in wtrain]
+    wtest = [w.cpu().numpy() for w in wtest]
+    merged_test = merge_sessions_test(wtest, seed=args.seed)
+    merged_train = merge_sessions_train(
+        wtrain, parts["training"][1], seed=args.seed)
+    times = parts["training"][2]
+    save_preprocessed(os.path.join(out_dir, "preprocessed_eeg_test.npy"),
+                      merged_test, CHANNEL_ORDER, times)
+    save_preprocessed(os.path.join(out_dir, "preprocessed_eeg_training.npy"),
+                      merged_train, CHANNEL_ORDER, times)
+    print(f"wrote {out_dir}")
+
+
+def _load_concept_index(path: str) -> np.ndarray:
+    """THINGS ``image_concept_index.csv``: one 1-based concept index per
+    image row (the notebook reads it ``pd.read_csv(header=None).iloc[:, 0]``,
+    ``MEG-preprocessing/pre_possess.ipynb`` cells 24-27). Comma- or
+    whitespace-delimited rows, extra columns and one header line are taken;
+    anything else exits, as in the JAX CLI (a silently misparsed column
+    would drop the whole training split as "overlapping")."""
+    vals: list[int] = []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            first = line.replace(",", " ").split()[0]
+            try:
+                vals.append(int(first))
+            except ValueError:
+                # line 1 may be a header, but only an identifier-like token
+                # is one: a corrupt first data row ('NaN', '1.5', '12a')
+                # must fail, or every image → concept row shifts by one
+                looks_like_header = (
+                    lineno == 1
+                    and first.replace("_", "").replace("-", "").isalpha()
+                    and first.lower() not in ("nan", "inf", "infinity"))
+                if looks_like_header:
+                    continue
+                raise SystemExit(
+                    f"{path}:{lineno}: non-integer concept index {first!r}"
+                ) from None
+    col = np.asarray(vals, dtype=np.int64)
+    if col.size == 0:
+        raise SystemExit(f"{path}: no concept indices found")
+    if col.min() < 1:
+        raise SystemExit(
+            f"{path}: concept indices must be 1-based positive "
+            f"(got min {col.min()})")
+    return col
+
+
+def cmd_preprocess_meg(args):
+    """THINGS-MEG: an exported epochs npz → the reference-layout train/test
+    pickles (JAX ``cli.py:631-720``; ``pre_possess.ipynb`` cells 6-36): crop
+    to [tmin, tmax] → drop the catch event 999999 → the zero-shot split
+    (by image with ``--image-concept-csv``, else by concept) → the
+    (n, reps, 1, C, T) / (n, 1, reps, C, T) layout → pickles. Host numpy
+    only: no device call."""
+    from eeg_image_decode_tpu_torch.preprocess.meg import (
+        crop_time_window,
+        save_meg,
+        split_meg_concepts,
+        split_meg_images,
+        to_reference_layout,
+    )
+
+    d = np.load(args.epochs, allow_pickle=True)
+    epochs, times = crop_time_window(
+        d["epochs"], d["times"], tmin=args.tmin, tmax=args.tmax)
+    if args.image_concept_csv:
+        col = _load_concept_index(args.image_concept_csv)
+        train, test, train_ids, test_ids = split_meg_images(
+            epochs, d["event_ids"], col, test_reps=args.test_reps,
+            imgs_per_concept=args.train_reps)
+    else:
+        train, test, train_ids, test_ids = split_meg_concepts(
+            epochs, d["event_ids"], test_reps=args.test_reps,
+            train_reps=args.train_reps)
+    train, test = to_reference_layout(train, test)
+    save_meg(args.out, train, test, list(d["ch_names"]), times)
+    print(json.dumps({
+        "train_shape": list(train.shape),
+        "test_shape": list(test.shape),
+        "n_train_concepts": int(len(train_ids)),
+        "n_test_concepts": int(len(test_ids)),
+        "out": args.out,
+    }))
+
+
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data-config", default=None,
                    help="path to data_config.json (reference format)")
@@ -1514,8 +1687,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export-features", default=None, dest="export_features",
                    help="after training, save train+test EEG features and "
                         "the aligned CLIP targets to this .npz")
-    _add_scale_out(p, ("--streaming", "--shard-data", "--mesh",
-                       "--multihost"), host_dtype=True)
+    p.add_argument("--streaming", action="store_true",
+                   help="keep the training EEG in host RAM and stream its "
+                        "batches to the card (pinned staging, a side-stream "
+                        "copy overlapping the previous step) instead of "
+                        "keeping the split on the card")
+    p.add_argument("--host-dtype", default=None, choices=["bfloat16"],
+                   dest="host_dtype",
+                   help="with --streaming: the host copy of the EEG in this "
+                        "dtype (half the bytes a batch); ignored without")
+    _add_scale_out(p, ("--shard-data", "--mesh", "--multihost"))
     p.set_defaults(recon=False, fn=cmd_train_retrieval)
 
     p = sub.add_parser("evaluate",
@@ -1743,22 +1924,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_metrics)
 
+    p = sub.add_parser("preprocess", help="raw → preprocessed epochs")
+    p.add_argument("--sub", type=int, required=True)
+    p.add_argument("--project-dir", default=".")
+    p.add_argument("--n-ses", type=int, default=4)
+    p.add_argument("--sfreq", type=int, default=250)
+    p.add_argument("--seed", type=int, default=20200220)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_preprocess)
+
+    p = sub.add_parser(
+        "preprocess-meg",
+        help="THINGS-MEG epochs npz → reference-layout pickles")
+    p.add_argument("--epochs", required=True,
+                   help="npz of epochs/event_ids/times/ch_names (the JAX "
+                        "package's scripts/export_meg.py writes one)")
+    p.add_argument("--out", required=True, help="output directory")
+    p.add_argument("--tmin", type=float, default=0.0)
+    p.add_argument("--tmax", type=float, default=1.0)
+    p.add_argument("--test-reps", type=int, default=12)
+    p.add_argument("--train-reps", type=int, default=12,
+                   help="images per train concept with --image-concept-csv; "
+                        "reps per train concept otherwise")
+    p.add_argument("--image-concept-csv", default=None,
+                   help="THINGS image_concept_index.csv (1-indexed image → "
+                        "concept); enables the notebook's image-level split")
+    p.set_defaults(fn=cmd_preprocess_meg)
+
     p = sub.add_parser("smoke", help="synthetic end-to-end check")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_smoke)
     return ap
 
 
-def _add_scale_out(p: argparse.ArgumentParser, flags, host_dtype=False):
+def _add_scale_out(p: argparse.ArgumentParser, flags):
     """The JAX CLI's scale-out flags: parsed, then refused by the command
     (``_refuse_scale_out``) until those modes are ported."""
     for flag in flags:
         p.add_argument(flag, action="store_true",
                        dest=flag[2:].replace("-", "_"),
-                       help="not ported yet (ROADMAP.md): exits")
-    if host_dtype:
-        p.add_argument("--host-dtype", default=None, choices=["bfloat16"],
-                       dest="host_dtype",
                        help="not ported yet (ROADMAP.md): exits")
 
 

@@ -98,9 +98,10 @@ class ATMSConfig:
 class ContrastiveTrainConfig:
     """Contrastive retrieval training (ref ``Retrieval/ATMS_retrieval.py:516-586``).
 
-    The JAX config's ``host_dtype`` and ``data_axis`` belong to the
-    streaming and mesh modes, which are not ported yet (ROADMAP.md). Its
-    ``encoder``,
+    ``host_dtype`` is the streaming trainer's host copy of the EEG
+    (``None``: float32; ``"bfloat16"``: half the bytes a batch); the
+    resident trainer ignores it. The JAX config's ``data_axis`` belongs to
+    the mesh mode, which is not ported yet (ROADMAP.md). Its ``encoder``,
     ``compute_dtype`` and ``logit_scale_init`` belong to the model here:
     the trainer takes a ``build_encoder`` model, named by its first
     argument, computing in its ``dtype=`` (``torch.bfloat16`` for the JAX
@@ -121,6 +122,8 @@ class ContrastiveTrainConfig:
     #: with a checkpointer: save every this many epochs (ref ``:381``), and
     #: always after the last
     ckpt_every_epochs: int = 5
+    #: streaming: the dtype of the host copy of the EEG (None | "bfloat16")
+    host_dtype: str | None = None
 
 
 @dataclass(frozen=True)

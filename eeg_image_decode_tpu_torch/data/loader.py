@@ -1,0 +1,191 @@
+"""Host-side prefetching batch loader (counterpart of
+``eeg_image_decode_tpu/data/loader.py``).
+
+The default trainer keeps a subject's split on the card (4.2 GB). For data
+that does not fit, or that should not take the card's memory (joint training
+over ten subjects is ≈ 42 GB in fp32), this loader streams batches from
+host RAM in two stages:
+
+1. **Gather** on one loader thread: ``torch.index_select(src, 0, idx,
+   out=slot)`` into a pinned staging slot, ``buffer_size`` batches ahead.
+   The op releases the GIL and runs on PyTorch's intra-op threads, so the
+   gather overlaps the device's work and the host's launches.
+2. **Copy**: a ``non_blocking`` host-to-device copy of the slot on a side
+   CUDA stream into that slot's own device buffer, and an event the compute
+   stream waits on before it reads the batch.
+
+A pinned slot is rewritten only after the copy out of it has finished (the
+loader thread waits on that copy's event), and a device buffer only after
+the step that read it has finished (the side stream waits on an event
+recorded on the compute stream when the next batch is requested). So a
+yielded batch is valid until the next one is requested. On the CPU the same
+code yields the slots themselves, with no stream.
+
+The batch order is the JAX loader's: ``default_rng(seed·100003 + epoch)``,
+the formula of ``train/contrastive.py::epoch_permutation``.
+"""
+
+from __future__ import annotations
+
+import time
+from collections.abc import Iterator
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from eeg_image_decode_tpu_torch.utils.device import resolve_device
+
+class PrefetchLoader:
+    """Shuffled batches of a dict of host arrays (numpy or CPU tensors, one
+    row per sample), ``buffer_size`` batches gathered ahead, on ``device``
+    (the CUDA card by default, raising without one; ``"cpu"`` yields CPU
+    tensors).
+
+    ``host_dtype="bfloat16"`` stores the floating arrays on the host as
+    ``torch.bfloat16`` (rounded to nearest even), halving the bytes gathered
+    and copied per batch; integer arrays stay as they are. The consumer
+    upcasts on the device. Call :meth:`close` when done.
+
+    ``gather_s`` and ``wait_s`` hold, for the last epoch, each batch's
+    gather time on the loader thread and the time the consumer's thread
+    waited for it."""
+
+    def __init__(
+        self,
+        arrays: dict,
+        batch_size: int,
+        *,
+        seed: int = 0,
+        drop_remainder: bool = True,
+        buffer_size: int = 2,
+        host_dtype: str | None = None,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        cast = None if host_dtype is None else getattr(torch, host_dtype)
+        self.arrays = {}
+        for k, v in arrays.items():
+            t = torch.as_tensor(v)
+            if t.device.type != "cpu":
+                raise ValueError(f"array '{k}' must be on the host, not "
+                                 f"{t.device}")
+            if cast is not None and t.is_floating_point():
+                t = t.to(cast)
+            self.arrays[k] = t.contiguous()
+        n = {int(v.shape[0]) for v in self.arrays.values()}
+        if len(n) != 1:
+            raise ValueError("arrays disagree on length: "
+                             f"{ {k: len(v) for k, v in self.arrays.items()} }")
+        self.n = n.pop()
+        self.batch_size = batch_size
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.buffer_size = max(1, buffer_size)
+        self._cuda = self.device.type == "cuda"
+        # slot s holds batch i where i % n_slots == s
+        self._n_slots = self.buffer_size + 1
+        self._slots = [
+            {k: torch.empty((batch_size, *v.shape[1:]), dtype=v.dtype,
+                            pin_memory=self._cuda)
+             for k, v in self.arrays.items()}
+            for _ in range(self._n_slots)
+        ]
+        if self._cuda:
+            self._dev = [{k: torch.empty_like(v, device=self.device)
+                          for k, v in slot.items()} for slot in self._slots]
+            self._stream = torch.cuda.Stream(self.device)
+            # per slot: the last copy out of the pinned slot, and the compute
+            # stream's position after the last step that read the buffer
+            self._copied: list = [None] * self._n_slots
+            self._consumed: list = [None] * self._n_slots
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="prefetch")
+        self._pending: dict[int, Future] = {}
+        self.gather_s: list[float] = []
+        self.wait_s: list[float] = []
+
+    def __len__(self) -> int:
+        if self.drop_remainder:
+            return self.n // self.batch_size
+        return -(-self.n // self.batch_size)
+
+    def _quiesce(self) -> None:
+        """Wait out every outstanding gather (raising its error, if any)
+        and every copy, so the slots are safe to rewrite: at the start of
+        each epoch and in :meth:`close`."""
+        pending, self._pending = self._pending, {}
+        for fut in pending.values():
+            fut.result()
+        if self._cuda:
+            for ev in self._copied:
+                if ev is not None:
+                    ev.synchronize()
+            # every step enqueued so far, an abandoned epoch's too, comes
+            # before the next copy into any device buffer
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._consumed = [ev] * self._n_slots
+
+    def close(self) -> None:
+        try:
+            self._quiesce()
+        finally:
+            self._pool.shutdown(wait=True)
+
+    def _gather(self, idx: torch.Tensor, slot: dict, copied) -> None:
+        if copied is not None:
+            copied.synchronize()  # the last copy out of this pinned slot
+        t0 = time.perf_counter()
+        rows = len(idx)
+        for k, src in self.arrays.items():
+            torch.index_select(src, 0, idx, out=slot[k][:rows])
+        self.gather_s.append(time.perf_counter() - t0)
+
+    def epoch(self, epoch: int) -> Iterator[dict[str, torch.Tensor]]:
+        self._quiesce()
+        perm = torch.from_numpy(
+            np.random.default_rng(self.seed * 100003 + epoch)
+            .permutation(self.n))
+        n_batches, bs = len(self), self.batch_size
+        self.gather_s, self.wait_s = [], []
+
+        def submit(i: int) -> None:
+            s = i % self._n_slots
+            self._pending[i] = self._pool.submit(
+                self._gather, perm[i * bs:(i + 1) * bs], self._slots[s],
+                self._copied[s] if self._cuda else None)
+
+        for i in range(min(self.buffer_size, n_batches)):
+            submit(i)
+        for i in range(n_batches):
+            t0 = time.perf_counter()
+            self._pending.pop(i).result()
+            self.wait_s.append(time.perf_counter() - t0)
+            s = i % self._n_slots
+            rows = min(bs, self.n - i * bs)
+            if self._cuda:
+                batch = self._copy_in(s, rows)
+            else:
+                batch = {k: v[:rows] for k, v in self._slots[s].items()}
+            if i + self.buffer_size < n_batches:
+                submit(i + self.buffer_size)  # runs during the step
+            try:
+                yield batch
+            finally:
+                if self._cuda:  # the step that read buffer s is enqueued
+                    ev = torch.cuda.Event()
+                    ev.record(torch.cuda.current_stream(self.device))
+                    self._consumed[s] = ev
+
+    def _copy_in(self, s: int, rows: int) -> dict[str, torch.Tensor]:
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self._stream):
+            if self._consumed[s] is not None:
+                self._stream.wait_event(self._consumed[s])
+            for k, v in self._slots[s].items():
+                self._dev[s][k][:rows].copy_(v[:rows], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+        self._copied[s] = ev
+        compute.wait_event(ev)
+        return {k: v[:rows] for k, v in self._dev[s].items()}

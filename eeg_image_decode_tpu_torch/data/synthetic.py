@@ -195,6 +195,112 @@ def write_synthetic_things_tree(
     return path
 
 
+def make_synthetic_raw_session(
+    n_conditions: int,
+    reps: int,
+    *,
+    images_per_class: int = 10,
+    class_offset: int = 0,
+    target_every: int = 20,
+    seed: int = 20200220,
+    topo_seed: int | None = None,
+) -> dict:
+    """One raw THINGS-EEG recording partition drawn from a numpy seed, as
+    the reference's ``raw_eeg_{training,test}.npy`` holds it:
+    ``{"raw_eeg_data": (64, n_samples) float32 at 1000 Hz, "ch_names": the
+    63 EEG channels in a seeded order plus "stim", "sfreq": 1000.0}``.
+
+    Events: conditions ``1 … n_conditions`` ``reps`` times each, in a seeded
+    order every 200 ms (THINGS-EEG2's RSVP at 5 Hz), with a target
+    event (99999) inserted after every ``target_every``-th; 1 s of lead-in
+    and 1.5 s after the last onset. The EEG: unit noise, a slow drift per
+    channel (what the baseline removes) and, from each onset, an evoked
+    response whose topography is the class's (class ``class_offset +
+    (condition − 1) // images_per_class``; drawn from ``(topo_seed,
+    class)``, ``topo_seed`` defaulting to ``seed``, so that sessions and
+    partitions given one ``topo_seed`` share it)."""
+    from eeg_image_decode_tpu_torch.preprocess.epoching import (
+        CHANNEL_ORDER,
+        TARGET_EVENT,
+    )
+
+    rng = np.random.default_rng(seed)
+    values = list(rng.permutation(np.repeat(
+        np.arange(1, n_conditions + 1), reps)))
+    for k in range(len(values) // target_every, 0, -1):
+        values.insert(k * target_every, TARGET_EVENT)
+    sfreq, soa = 1000, 200
+    onsets = sfreq + soa * np.arange(len(values))
+    n_samples = int(onsets[-1] + 1.5 * sfreq)
+    n_ch = len(CHANNEL_ORDER)
+    data = rng.standard_normal((n_ch + 1, n_samples), dtype=np.float32)
+    t = np.arange(n_samples, dtype=np.float32) / sfreq
+    data[:n_ch] += np.sin(2 * np.pi * 0.1 * t[None, :]
+                          + rng.uniform(0, 2 * np.pi, (n_ch, 1))
+                          ).astype(np.float32) * 3.0
+    evoked_len = int(0.6 * sfreq)
+    wave = np.sin(np.pi * np.arange(evoked_len) / evoked_len).astype(
+        np.float32)
+    topo: dict[int, np.ndarray] = {}
+    stim = np.zeros(n_samples, np.float32)
+    for onset, v in zip(onsets, values):
+        stim[onset] = v
+        if v == TARGET_EVENT:
+            continue
+        cls = class_offset + (int(v) - 1) // images_per_class
+        if cls not in topo:
+            topo[cls] = np.random.default_rng((
+                seed if topo_seed is None else topo_seed, cls)).normal(
+                size=n_ch).astype(np.float32)
+        data[:n_ch, onset:onset + evoked_len] += topo[cls][:, None] * wave
+    data[n_ch] = stim
+    order = rng.permutation(n_ch)
+    return {"raw_eeg_data": np.concatenate([data[order], data[n_ch:]]),
+            "ch_names": [CHANNEL_ORDER[i] for i in order] + ["stim"],
+            "sfreq": float(sfreq)}
+
+
+def write_synthetic_raw_tree(
+    project_dir: str,
+    sub: int = 1,
+    n_ses: int = 2,
+    *,
+    n_train_conditions: int = 300,
+    n_test_conditions: int = 20,
+    train_reps: int = 2,
+    test_reps: int = 20,
+    images_per_class: int = 10,
+    seed: int = 20200220,
+) -> str:
+    """Write the raw tree ``cli preprocess`` reads and return its
+    directory: ``<project_dir>/Raw_data/sub-XX/ses-YY/raw_eeg_{training,
+    test}.npy``, one :func:`make_synthetic_raw_session` per file (every
+    session holds every condition, so the training merge gives ``n_ses ·
+    train_reps`` reps). The first session's files are ``np.save`` of the
+    dict (a 0-d object array), the others the dict pickled, the two forms
+    the reader takes. Test conditions are classes of their own, after the
+    ``n_train_conditions / images_per_class`` training classes."""
+    n_train_classes = n_train_conditions // images_per_class
+    out = os.path.join(project_dir, "Raw_data", f"sub-{sub:02d}")
+    for ses in range(1, n_ses + 1):
+        d = os.path.join(out, f"ses-{ses:02d}")
+        os.makedirs(d, exist_ok=True)
+        for k, (part, n_cond, reps, ipc, off) in enumerate((
+                ("training", n_train_conditions, train_reps,
+                 images_per_class, 0),
+                ("test", n_test_conditions, test_reps, 1, n_train_classes))):
+            raw = make_synthetic_raw_session(
+                n_cond, reps, images_per_class=ipc, class_offset=off,
+                seed=seed + 1000 * sub + 10 * ses + k, topo_seed=seed)
+            path = os.path.join(d, f"raw_eeg_{part}.npy")
+            if ses == 1:
+                np.save(path, raw, allow_pickle=True)
+            else:
+                with open(path, "wb") as f:
+                    pickle.dump(raw, f, protocol=4)
+    return out
+
+
 def write_synthetic_clip_vocab(directory: str, texts: list[str], *,
                                vocab_size: int = 49408) -> tuple[str, str]:
     """Write a CLIP BPE vocabulary of ``vocab_size`` ids (``vocab.json``,

@@ -28,8 +28,16 @@ On the card an ATM-S step runs the attention layer's forward and backward
 kernels (seed-mode dropout drawn in the kernels), the tsconv kernels and,
 under ``ATMSConfig(fused_projection=True)``, the projection head's; a NICE
 step runs the tsconv kernels, and the zoo's other encoders are plain
-PyTorch; there is no fallback. The mesh, ``streaming`` and ``shard_samples`` are not ported yet
-(ROADMAP.md).
+PyTorch; there is no fallback.
+
+- **Streaming** (``streaming=True``): the EEG stays in host RAM and
+  ``data/loader.py::PrefetchLoader`` gathers each batch into pinned memory
+  and copies it to the card while the previous step computes
+  (``cfg.host_dtype="bfloat16"`` keeps the host copy in bf16, half the bytes
+  a batch); the CLIP feature tables and the test split stay on the card.
+  The batches, the generator and the step are the resident mode's, so the
+  two modes train the same run. The mesh and ``shard_samples`` are not
+  ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -40,13 +48,14 @@ import os
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
 from eeg_image_decode_tpu_torch.core.checkpoint import TrainState
 from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
+from eeg_image_decode_tpu_torch.data.loader import PrefetchLoader
 from eeg_image_decode_tpu_torch.data.things_eeg import EEGRetrievalData
 from eeg_image_decode_tpu_torch.losses import (
     reconstruction_loss,
@@ -104,16 +113,29 @@ def epoch_permutation(n: int, batch: int, seed: int, epoch: int) -> np.ndarray:
             .reshape(n_steps, batch).astype(np.int32))
 
 
-def _batch(data: DeviceData, idx: torch.Tensor) -> dict:
+#: the per-sample arrays of a batch; the feature rows come from the tables
+SAMPLE_FIELDS = ("eeg", "subject_ids", "img_idx", "text_idx", "labels")
+
+
+def with_features(rows: dict, img_feat: torch.Tensor,
+                  text_feat: torch.Tensor) -> dict:
+    """A step's batch from its per-sample rows (on the device): the EEG in
+    fp32 (a bf16 host copy is upcast here), the subject ids and labels, and
+    the two feature rows gathered from the tables by ``img_idx`` and
+    ``text_idx``."""
     return {
-        "eeg": data.eeg.index_select(0, idx),
-        "subject_ids": data.subject_ids.index_select(0, idx),
-        "img_feat": data.img_feat.index_select(
-            0, data.img_idx.index_select(0, idx)),
-        "text_feat": data.text_feat.index_select(
-            0, data.text_idx.index_select(0, idx)),
-        "labels": data.labels.index_select(0, idx),
+        "eeg": rows["eeg"].float(),
+        "subject_ids": rows["subject_ids"],
+        "img_feat": img_feat.index_select(0, rows["img_idx"]),
+        "text_feat": text_feat.index_select(0, rows["text_idx"]),
+        "labels": rows["labels"],
     }
+
+
+def _batch(data: DeviceData, idx: torch.Tensor) -> dict:
+    return with_features(
+        {k: getattr(data, k).index_select(0, idx) for k in SAMPLE_FIELDS},
+        data.img_feat, data.text_feat)
 
 
 def batch_loss(model: torch.nn.Module, cfg: ContrastiveTrainConfig,
@@ -132,48 +154,65 @@ def batch_loss(model: torch.nn.Module, cfg: ContrastiveTrainConfig,
     return loss, feats
 
 
-def make_epoch_fn(cfg: ContrastiveTrainConfig) -> Callable:
-    """The one-epoch function ``(state, data, perm (n_steps, B) on the
-    device, generator) → metrics``. It trains ``state.model`` in place.
+def train_steps(state: TrainState, cfg: ContrastiveTrainConfig,
+                batches: Iterable[dict], n_steps: int,
+                class_img_feat: torch.Tensor,
+                generator: torch.Generator | None) -> dict:
+    """The training step over ``n_steps`` batches (:func:`with_features`
+    dicts on the device), resident or streamed: AdamW on ``state`` in place,
+    the loss and the probe accuracy kept on the device.
 
-    Metrics: ``loss`` and ``train_acc`` (epoch means, device tensors),
+    Returns ``loss`` and ``train_acc`` (epoch means, device tensors),
     ``step_loss`` (n_steps,), and on a CUDA device ``step_ms``, each step's
     time between CUDA events (read after the epoch's one sync)."""
+    model, opt = state.model, state.optimizer
+    model.train()
+    dev = class_img_feat.device
+    losses = torch.empty(n_steps, device=dev)
+    accs = torch.empty(n_steps, device=dev)
+    timed = dev.type == "cuda"
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(n_steps + 1)] if timed else []
+    if timed:
+        events[0].record()
+    s = -1
+    for s, batch in enumerate(batches):
+        loss, feats = batch_loss(model, cfg, batch, generator=generator)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        state.step += 1
+        with torch.no_grad():
+            # train-time class-accuracy probe (ref :241-250)
+            pred = torch.matmul(feats, class_img_feat.T).argmax(1)
+            accs[s] = (pred == batch["labels"]).float().mean()
+            losses[s] = loss.detach()
+        if timed:
+            events[s + 1].record()
+    if s + 1 != n_steps:
+        raise RuntimeError(f"{s + 1} batches for {n_steps} steps")
+    out = {"loss": losses.mean(), "train_acc": accs.mean(),
+           "step_loss": losses}
+    if timed:
+        events[-1].synchronize()
+        out["step_ms"] = [a.elapsed_time(b)
+                          for a, b in zip(events[:-1], events[1:])]
+    return out
+
+
+def make_epoch_fn(cfg: ContrastiveTrainConfig) -> Callable:
+    """The resident one-epoch function ``(state, data, perm (n_steps, B) on
+    the device, generator) →`` :func:`train_steps`' metrics, each batch
+    gathered from ``data`` on the device. It trains ``state.model`` in
+    place."""
 
     def epoch_fn(state: TrainState, data: DeviceData, perm: torch.Tensor,
                  generator: torch.Generator | None) -> dict:
-        model, opt = state.model, state.optimizer
-        model.train()
-        n_steps = perm.shape[0]
         dev = data.eeg.device
-        losses = torch.empty(n_steps, device=dev)
-        accs = torch.empty(n_steps, device=dev)
-        timed = dev.type == "cuda"
-        events = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(n_steps + 1)] if timed else []
-        if timed:
-            events[0].record()
-        for s in range(n_steps):
-            batch = _batch(data, perm[s].to(dev, torch.int64))
-            loss, feats = batch_loss(model, cfg, batch, generator=generator)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            state.step += 1
-            with torch.no_grad():
-                # train-time class-accuracy probe (ref :241-250)
-                pred = torch.matmul(feats, data.class_img_feat.T).argmax(1)
-                accs[s] = (pred == batch["labels"]).float().mean()
-                losses[s] = loss.detach()
-            if timed:
-                events[s + 1].record()
-        out = {"loss": losses.mean(), "train_acc": accs.mean(),
-               "step_loss": losses}
-        if timed:
-            events[-1].synchronize()
-            out["step_ms"] = [a.elapsed_time(b)
-                              for a, b in zip(events[:-1], events[1:])]
-        return out
+        batches = (_batch(data, perm[s].to(dev, torch.int64))
+                   for s in range(perm.shape[0]))
+        return train_steps(state, cfg, batches, perm.shape[0],
+                           data.class_img_feat, generator)
 
     return epoch_fn
 
@@ -207,19 +246,47 @@ class ContrastiveTrainer:
     ``test_data``: :class:`EEGRetrievalData` with numpy arrays or tensors
     already on the device. ``checkpointer``: a
     ``core/checkpoint.py::Checkpointer``; see :meth:`fit` and
-    :meth:`resume`."""
+    :meth:`resume`.
+
+    ``streaming=True`` keeps the training EEG in host RAM and streams its
+    batches through a :class:`PrefetchLoader` (``cfg.host_dtype``, the host
+    copy's dtype); the feature tables and the test split stay on the
+    device. The batch order, the generator and the step are the resident
+    mode's, so both train the same run. :meth:`close` stops the loader."""
 
     def __init__(self, model: torch.nn.Module, cfg: ContrastiveTrainConfig,
                  train_data: EEGRetrievalData, test_data: EEGRetrievalData,
                  *, output_dir: str | None = None, checkpointer=None,
-                 device=None):
+                 device=None, streaming: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.output_dir = output_dir
         self.checkpointer = checkpointer
         self.train_host = train_data
-        self.data = DeviceData.from_host(train_data, self.device)
+        self.streaming = streaming
+        self.loader: PrefetchLoader | None = None
+        if streaming:
+            if train_data.n < cfg.batch_size:
+                raise ValueError(
+                    f"streaming mode drops the ragged final batch, so a "
+                    f"dataset of n={train_data.n} samples yields ZERO "
+                    f"batches at batch_size={cfg.batch_size}; lower "
+                    f"batch_size to at most n")
+
+            self.loader = PrefetchLoader(
+                {k: torch.as_tensor(getattr(train_data, k)).to(
+                    "cpu", torch.float32 if k == "eeg" else torch.int64)
+                 for k in SAMPLE_FIELDS},
+                cfg.batch_size, seed=cfg.seed, host_dtype=cfg.host_dtype,
+                device=self.device)
+            self.data = None
+            self.img_feat, self.text_feat, self.class_img_feat = (
+                torch.as_tensor(a).to(self.device, torch.float32)
+                for a in (train_data.img_features, train_data.text_features,
+                          train_data.class_img_features()))
+        else:
+            self.data = DeviceData.from_host(train_data, self.device)
         test = DeviceData.from_host(test_data, self.device)
         self.test_eeg = test.eeg
         self.test_subject_ids = test.subject_ids
@@ -263,18 +330,34 @@ class ContrastiveTrainer:
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def close(self) -> None:
+        """Stop the streaming loader: wait out its gathers and copies and
+        end its thread. A resident trainer holds nothing to stop."""
+        if self.loader is not None:
+            self.loader.close()
+
     def train_epoch(self, epoch: int) -> dict:
-        n, bs = int(self.data.eeg.shape[0]), self.cfg.batch_size
-        perm = torch.as_tensor(
-            epoch_permutation(n, bs, self.cfg.seed, epoch),
-            device=self.device)
+        bs = self.cfg.batch_size
+        generator = self._generator(self.cfg.seed + 7919 * epoch)
         t0 = time.perf_counter()
-        out = self.epoch_fn(self.state, self.data, perm,
-                            self._generator(self.cfg.seed + 7919 * epoch))
+        if self.streaming:
+            # the loader permutes with epoch_permutation's formula, so both
+            # modes see the same batches in the same order
+            n_steps = len(self.loader)
+            batches = (with_features(rows, self.img_feat, self.text_feat)
+                       for rows in self.loader.epoch(epoch))
+            out = train_steps(self.state, self.cfg, batches, n_steps,
+                              self.class_img_feat, generator)
+        else:
+            perm = torch.as_tensor(
+                epoch_permutation(self.train_host.n, bs, self.cfg.seed,
+                                  epoch), device=self.device)
+            n_steps = perm.shape[0]
+            out = self.epoch_fn(self.state, self.data, perm, generator)
         metrics = {"loss": float(out["loss"]),  # the epoch's one sync
                    "train_acc": float(out["train_acc"])}
         metrics["epoch_time_s"] = time.perf_counter() - t0
-        metrics["samples_per_s"] = perm.numel() / metrics["epoch_time_s"]
+        metrics["samples_per_s"] = n_steps * bs / metrics["epoch_time_s"]
         self.last_steps = {"step_loss": out["step_loss"].tolist(),
                            "step_ms": out.get("step_ms")}
         return metrics
@@ -341,12 +424,12 @@ class ContrastiveTrainer:
                          batch_size: int = 2048) -> np.ndarray:
         """EEG epochs → encoder features (the reference's
         ``get_eegfeatures`` export), as numpy."""
-        eeg = torch.as_tensor(eeg).to(self.device, torch.float32)
-        sids = torch.as_tensor(subject_ids).to(self.device, torch.int64)
+        eeg, sids = torch.as_tensor(eeg), torch.as_tensor(subject_ids)
         chunks = []
-        for lo in range(0, eeg.shape[0], batch_size):
-            f, _ = self.eval_fn(eeg[lo:lo + batch_size],
-                                sids[lo:lo + batch_size])
+        for lo in range(0, eeg.shape[0], batch_size):  # host rows per chunk
+            f, _ = self.eval_fn(
+                eeg[lo:lo + batch_size].to(self.device, torch.float32),
+                sids[lo:lo + batch_size].to(self.device, torch.int64))
             chunks.append(f.cpu().numpy())
         return np.concatenate(chunks, axis=0)
 
@@ -357,8 +440,8 @@ class ContrastiveTrainer:
         def host(a):
             return (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
 
-        train_feats = self.extract_features(self.data.eeg,
-                                            self.data.subject_ids)
+        src = self.train_host if self.streaming else self.data
+        train_feats = self.extract_features(src.eeg, src.subject_ids)
         test_feats = self.extract_features(self.test_eeg,
                                            self.test_subject_ids)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

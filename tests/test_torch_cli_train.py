@@ -7,7 +7,8 @@
 - ``cli train-retrieval`` → ``--resume-dir`` → ``evaluate`` → ``--sweep``
   with ``--device cpu`` on a tree written by
   ``data/synthetic.py::write_synthetic_things_tree``; ``evaluate`` returns
-  the trainer's own last evaluation; the scale-out flags are refused.
+  the trainer's own last evaluation; the scale-out flags (``--mesh``,
+  ``--multihost``, ``--shard-data``) are refused.
 """
 
 import csv
@@ -187,8 +188,7 @@ def test_cli_train_resume_evaluate_and_sweep(tree, tmp_path, capsys):
         assert os.listdir(os.path.join(sweep, "contrast", "atms", sub))
 
 
-@pytest.mark.parametrize("flag", ["--mesh", "--multihost", "--streaming",
-                                  "--shard-data", "--host-dtype=bfloat16"])
+@pytest.mark.parametrize("flag", ["--mesh", "--multihost", "--shard-data"])
 def test_cli_refuses_scale_out_flags_naming_the_roadmap(tree, flag):
     root, feats = tree
     with pytest.raises(SystemExit, match="ROADMAP.md"):

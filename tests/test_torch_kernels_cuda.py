@@ -1121,3 +1121,129 @@ def test_zoo_eval_forward_on_card_matches_cpu(cuda, name):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     cos = torch.nn.functional.cosine_similarity(half, got, dim=1)
     assert torch.isfinite(half).all() and cos.min().item() >= 0.99, cos
+
+
+def _raw_session():
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_raw_session,
+    )
+
+    raw = make_synthetic_raw_session(30, 2, images_per_class=3, seed=12)
+    stim = raw["ch_names"].index("stim")
+    rows = [i for i in range(len(raw["ch_names"])) if i != stim]
+    return (raw["raw_eeg_data"][rows], [raw["ch_names"][i] for i in rows],
+            raw["raw_eeg_data"][stim])
+
+
+@pytest.mark.cuda
+def test_preprocess_on_card_matches_cpu(cuda):
+    """The epoch gather + baseline + resample, the Ledoit-Wolf covariances,
+    Σ^{-1/2} and the whitening on the card against the same functions on
+    the CPU in float64: epochs within one float32 ulp, covariances rtol
+    1e-12, Σ^{-1/2} rtol 1e-10, the whitened epochs within 1e-5 of the
+    largest, the resample alone within 1e-10 of the largest."""
+    from eeg_image_decode_tpu_torch.preprocess import epoching, mvnn
+
+    raw, names, stim = _raw_session()
+    kw = dict(max_rep=2, seed=3, chunk=7)
+    got, gc, gt = epoching.epoch_session(raw, names, 1000.0, stim,
+                                         device=cuda, **kw)
+    want, wc, wt = epoching.epoch_session(raw, names, 1000.0, stim,
+                                          device="cpu", **kw)
+    np.testing.assert_array_equal(gc, wc)
+    np.testing.assert_array_equal(gt, wt)
+    np.testing.assert_array_max_ulp(got.cpu().numpy(), want.numpy(),
+                                    maxulp=1)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(6, 63, 1201)))
+    for up, down in ((1, 4), (3, 10)):
+        r_got = epoching.resample_poly(x.to(cuda), up, down).cpu()
+        r_want = epoching.resample_poly(x, up, down)
+        assert float((r_got - r_want).abs().max()) <= 1e-10 * float(
+            r_want.abs().max())
+    cov_got = mvnn.session_covariance(got, chunk=16)
+    cov_want = mvnn.session_covariance(want, chunk=16)
+    np.testing.assert_allclose(cov_got.cpu().numpy(), cov_want.numpy(),
+                               rtol=1e-12, atol=0)
+    np.testing.assert_allclose(
+        mvnn.matrix_inverse_sqrt(cov_got).cpu().numpy(),
+        mvnn.matrix_inverse_sqrt(cov_want).numpy(), rtol=1e-10, atol=0)
+    (w_got,), _ = mvnn.mvnn_whiten([got], [got[:2]])
+    (w_want,), _ = mvnn.mvnn_whiten([want], [want[:2]])
+    assert float((w_got.cpu() - w_want).abs().max()) <= 1e-5 * float(
+        w_want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buffer_size", [1, 3])
+def test_cuda_loader_batches_equal_index_select(cuda, buffer_size):
+    """Two epochs of the card loader against ``index_select`` on the same
+    arrays resident on the card, each batch compared on the compute stream
+    after a spin that keeps the stream busy (a slot refilled or a buffer
+    rewritten too early would show as a difference); no sync until the
+    end. bf16 hosts too."""
+    from eeg_image_decode_tpu_torch.data.loader import PrefetchLoader
+
+    rng = np.random.default_rng(7)
+    n = 203
+    arrays = {"eeg": rng.normal(size=(n, 63, 250)).astype(np.float32),
+              "labels": np.arange(n, dtype=np.int64)}
+    for host_dtype in (None, "bfloat16"):
+        loader = PrefetchLoader(arrays, 16, seed=2, buffer_size=buffer_size,
+                                host_dtype=host_dtype, device=cuda)
+        resident = {k: v.to(cuda) for k, v in loader.arrays.items()}
+        diffs = []
+        for epoch in (0, 1):
+            perm = torch.from_numpy(np.random.default_rng(
+                2 * 100003 + epoch).permutation(n)).to(cuda)
+            for i, batch in enumerate(loader.epoch(epoch)):
+                torch.cuda._sleep(2_000_000)
+                idx = perm[i * 16:(i + 1) * 16]
+                for k, v in batch.items():
+                    diffs.append((v != resident[k].index_select(0, idx))
+                                 .sum())
+            assert i + 1 == n // 16
+        loader.close()
+        assert int(torch.stack(diffs).sum()) == 0
+
+
+@pytest.mark.cuda
+def test_streamed_epoch_losses_equal_resident(cuda):
+    """One epoch of ATM-S (full width, bf16, 4 steps of 32) streamed from
+    the host and resident on the card, from one state copy (the same seeded
+    init, permutation and generator): the step losses bit-equal, or within
+    rtol 1e-5 (the JAX package's own streaming tolerance) where PyTorch's
+    atomic-add backward of the subject-token gather sums in another order;
+    the seeded attention forward, its backward and both tsconv kernels
+    launched once a step in both."""
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_retrieval_data,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+    )
+
+    train, test = make_synthetic_retrieval_data(
+        n_classes=16, images_per_class=2, train_reps=4, n_test_classes=4,
+        seed=8, device="cpu")
+    cfg = ContrastiveTrainConfig(batch_size=32, seed=4)
+    out = {}
+    for streaming in (False, True):
+        model = build_encoder("atms", config=ATMSConfig(),
+                              dtype=torch.bfloat16, device=cuda, seed=4)
+        trainer = ContrastiveTrainer(model, cfg, train, test, device=cuda,
+                                     streaming=streaming)
+        _build.reset_launches()
+        trainer.train_epoch(0)
+        trainer.close()
+        for k in ("attention_fwd_seed", "attention_bwd", "tsconv_fwd",
+                  "tsconv_bwd"):
+            assert _build.LAUNCHES[k] == 4, (streaming, k, _build.LAUNCHES)
+        out[streaming] = np.asarray(trainer.last_steps["step_loss"])
+    assert out[True][0] == out[False][0]  # one state, one batch: the forward
+    np.testing.assert_allclose(out[True], out[False], rtol=1e-5, atol=0)

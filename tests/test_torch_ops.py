@@ -116,8 +116,9 @@ def test_package_imports_without_jax(tmp_path):
     their files, a reconstruction runs through the generator, and a row is
     captioned through the GIT decoder (no transformers either), ``cli
     metrics`` scores a tiny tree through a seeded AlexNet (no torchvision
-    either), and every encoder of the registry is built (no braindecode
-    either)."""
+    either), every encoder of the registry is built (no braindecode
+    either), and ``cli preprocess`` epochs and whitens a tiny raw tree (no
+    ml_dtypes either; scipy designs its FIR taps)."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
@@ -245,9 +246,22 @@ def test_package_imports_without_jax(tmp_path):
         "from eeg_image_decode_tpu_torch.models.registry import ENCODERS\n"
         "for name in ENCODERS:\n"
         "    build_encoder(name, device='cpu')\n"
+        "import eeg_image_decode_tpu_torch.preprocess\n"
+        "import eeg_image_decode_tpu_torch.preprocess.meg\n"
+        "import eeg_image_decode_tpu_torch.preprocess.images_set\n"
+        "import eeg_image_decode_tpu_torch.data.loader\n"
+        "import eeg_image_decode_tpu_torch.utils.logging\n"
+        "import eeg_image_decode_tpu_torch.utils.profiling\n"
+        "from eeg_image_decode_tpu_torch.data.synthetic import "
+        "write_synthetic_raw_tree\n"
+        "write_synthetic_raw_tree(d + '/raw', n_ses=1, n_train_conditions=2, "
+        "n_test_conditions=1, images_per_class=1)\n"
+        "cli.main(['preprocess', '--sub', '1', '--n-ses', '1', "
+        "'--project-dir', d + '/raw', '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', "
-        "'torchvision', 'braindecode', 'eeg_image_decode_tpu')]\n"
+        "'torchvision', 'braindecode', 'ml_dtypes', "
+        "'eeg_image_decode_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO,

@@ -258,7 +258,39 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    the Ledoit-Wolf covariances and the whitening timed on the card and
    through a numpy copy of the JAX package's functions on the host; the
    card's whitened epochs within ``PREPROCESS_TOL`` of the host's largest.
-15. One JSON line listing the kernels, then the result line
+15. Scale-out over ``torch.distributed`` (``core/mesh.py``,
+   ``parallel/``). (a) Each seed-mode kernel at full ATM-S width in bf16:
+   the launch over B 512 at ``sample0`` = 512 gives the second half of the
+   B 1024 launch's output and dx (attention forward and backward,
+   projection forward and backward), bit for bit, and mask mode fed
+   ``draw_keep_masks`` / ``draw_keep_mask`` at ``row0`` = 512 the same
+   output. (b) This process joins a one-rank NCCL group: an epoch of phase
+   4's split (from phase 14's host copy) without and with the mesh from one
+   init, the step losses bit-equal, both step p50s, the mesh epoch's
+   kernel launches and collectives a step and the evaluation's launches,
+   and from a traced second epoch the busy ms and idle share; ``cli
+   train-retrieval --mesh`` on a small written tree in this process, its
+   last row equal to the command's without ``--mesh``. (d) The fused-head
+   joint model (``fused_projection=True, joint_train=True``) for 8 steps
+   and an evaluation under the mesh: rows 6, 6′ and 7 launched under dp,
+   the losses against the same steps without the mesh. (e) The prior (8,192
+   pairs, B 1024) and the low-level trainer (300 trials, B 30) at full
+   width, one epoch each without and with the mesh: bit-equal losses. Then
+   two rank subprocesses (``chip_smoke.py --rank …``, each with its own time
+   limit; a rank that fails or hangs fails the phase) join a gloo group on
+   the one card (NCCL refuses two ranks on one device; gloo takes CUDA
+   tensors and moves them through the host): (c) ``--shard-data`` at B 1024 global for 8 steps,
+   each rank regenerating phase 4's split and keeping its half, against the
+   one-rank mesh over the same rows (step 0 within 1e-3, the rest within
+   ``RESUME_TOL``), the ranks' losses and parameters bit-equal, each rank's
+   peak memory at least half the split below the resident epoch's; (f) the
+   subject-parallel sweep, two full-width lanes (lane i on rank i), each
+   lane's row and parameters bit-equal to its sequential run made here
+   first; (g) the bf16 UNet at full SDXL width from seeded random weights,
+   mp = 2, B 2 at 128 × 128 latents: cosine ≥ 0.999 against the unsharded
+   forward made here first, with both forwards' seconds. (c), (f) and (g)
+   are correctness runs of two processes on one card, not scaling numbers.
+16. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -1274,7 +1306,8 @@ def plain_versions():
                    lambda x, w, s=5: tsconv_pool_reference(x, w.to(x.dtype), s)),
         mock.patch("eeg_image_decode_tpu_torch.models.layers."
                    "fused_projection_head",
-                   lambda x, p, *_: projection_head_reference(x, cast(p, x))),
+                   lambda x, p, *_, **__: projection_head_reference(
+                       x, cast(p, x))),
     ]
 
 
@@ -1445,7 +1478,7 @@ def plain_training_ops(torch):
             return (dx, None, *[grads[k].to(x.dtype) for k in PROJ_ORDER])
 
     def attention(x, params, n_heads=4, *, masks=None, dropout_p=0.0,
-                  seed=None):
+                  seed=None, sample0=0):
         dt = x.dtype
         flat = [params[k].to(dt) for k in PARAM_ORDER]
         if masks is not None:  # mask mode reads them in x's dtype
@@ -1454,13 +1487,14 @@ def plain_training_ops(torch):
             B, L, D = x.shape
             masks = draw_keep_masks(int(seed), B, n_heads, L, D,
                                     params["w1"].shape[1], dropout_p,
-                                    device=x.device)
+                                    row0=sample0, device=x.device)
         return PlainAttention.apply(x, n_heads, masks, *flat)
 
     def tsconv(x, w_tilde, stride=5):
         return PlainTSConv.apply(x, w_tilde.to(x.dtype), stride)
 
-    def projection(x, params, mask=None, dropout_p=0.0, seed=None):
+    def projection(x, params, mask=None, dropout_p=0.0, seed=None,
+                   sample0=0):
         dt = x.dtype
         flat = [params[k].to(dt) for k in PROJ_ORDER]
         if mask is not None:
@@ -1468,7 +1502,7 @@ def plain_training_ops(torch):
         elif dropout_p > 0.0 and seed is not None:
             mask = draw_keep_mask(int(seed), x.shape[0],
                                   params["wi"].shape[1], dropout_p,
-                                  device=x.device)
+                                  row0=sample0, device=x.device)
         return PlainProjection.apply(x, mask, *flat)
 
     return [mock.patch("eeg_image_decode_tpu_torch.models.atm_s."
@@ -4149,6 +4183,640 @@ def preprocess_full_path(torch, card: str) -> dict:
     return row
 
 
+# ——— phase 15: scale-out over torch.distributed ———
+
+#: (c)'s steps at B 1024 over two ranks
+SHARD_STEPS = 8
+#: the time limit of one rank subprocess (s)
+RANK_TIMEOUT = 300
+#: (g): the tensor-parallel UNet's batch and latent size
+TP_BATCH, TP_LATENT = 2, 128
+#: (g): its forward against the unsharded one
+TP_COSINE = 0.999
+#: (f): the sweep's lanes (full ATM-S width, small splits)
+SWEEP_SPLIT = dict(n_classes=200, images_per_class=10, train_reps=4,
+                   n_test_classes=50)
+SWEEP_KS = (2, 4, 10, 50)
+
+
+def param_digest(torch, module) -> str:
+    """SHA-256 of every parameter and buffer's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in module.state_dict().values():
+        h.update(v.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def sample0_kernels(torch) -> dict:
+    """(a) Each seed-mode kernel at full ATM-S width in bf16: the launch over
+    B 512 at sample0 = 512 gives the second half of the B 1024 launch's
+    output and dx, bit for bit, and mask mode fed the plain draws at row0 =
+    512 gives the same output."""
+    from eeg_image_decode_tpu_torch.ops.attention import (
+        draw_keep_masks,
+        fused_attention_layer,
+    )
+    from eeg_image_decode_tpu_torch.ops.projection import (
+        draw_keep_mask,
+        fused_projection_head,
+    )
+
+    half = TRAIN_BATCH // 2
+    bf = torch.bfloat16
+    x, p, gout = attention_case(torch, bf, TRAIN_BATCH, SEED + 150)
+    seed = torch.tensor([SEED % 2**31], dtype=torch.int32, device="cuda")
+
+    def attn(xs, g, **kw):
+        xs = xs.detach().clone().requires_grad_()
+        out = fused_attention_layer(xs, p, HEADS, **kw)
+        return out.detach(), torch.autograd.grad(out, xs, g)[0]
+
+    whole, dx_whole = attn(x, gout, dropout_p=P_DROP, seed=seed)
+    part, dx_part = attn(x[half:], gout[half:], dropout_p=P_DROP, seed=seed,
+                         sample0=half)
+    masks = draw_keep_masks(SEED % 2**31, half, HEADS, L_TOK, D_MODEL, D_FF,
+                            P_DROP, row0=half, device="cuda")
+    via_masks, _ = attn(x[half:], gout[half:],
+                        masks={k: v.to(bf) for k, v in masks.items()})
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 151)
+    pp = {"wi": torch.randn(D_IN, D_OUT, generator=g, device="cuda")
+          * D_IN ** -0.5, "bi": 0.1 * torch.randn(D_OUT, generator=g,
+                                                   device="cuda"),
+          "wr": torch.randn(D_OUT, D_OUT, generator=g, device="cuda")
+          * D_OUT ** -0.5, "br": 0.1 * torch.randn(D_OUT, generator=g,
+                                                    device="cuda"),
+          "ln_s": 1 + 0.1 * torch.randn(D_OUT, generator=g, device="cuda"),
+          "ln_b": 0.1 * torch.randn(D_OUT, generator=g, device="cuda")}
+    pp = {k: v.to(bf) for k, v in pp.items()}
+    xp = torch.randn(TRAIN_BATCH, D_IN, generator=g, device="cuda").to(bf)
+    gp = torch.randn(TRAIN_BATCH, D_OUT, generator=g, device="cuda")
+
+    def proj(xs, gs, *args, **kw):
+        xs = xs.detach().clone().requires_grad_()
+        out = fused_projection_head(xs, pp, *args, **kw)
+        return out.detach(), torch.autograd.grad(out, xs, gs)[0]
+
+    pseed = SEED % 2**31 + 1
+    pw, pdx_w = proj(xp, gp, None, P_DROP_PROJ, pseed)
+    pp_, pdx_p = proj(xp[half:], gp[half:], None, P_DROP_PROJ, pseed,
+                      sample0=half)
+    pmask = draw_keep_mask(pseed, half, D_OUT, P_DROP_PROJ, row0=half,
+                           device="cuda")
+    p_via, _ = proj(xp[half:], gp[half:], pmask.to(bf))
+    torch.cuda.synchronize()
+    checks = {
+        "attention_fwd_seed_out": torch.equal(part, whole[half:]),
+        "attention_bwd_dx": torch.equal(dx_part, dx_whole[half:]),
+        "attention_masks_row0": torch.equal(part, via_masks),
+        "projection_fwd_seed_out": torch.equal(pp_, pw[half:]),
+        "projection_bwd_dx": torch.equal(pdx_p, pdx_w[half:]),
+        "projection_mask_row0": torch.equal(pp_, p_via),
+    }
+    row = {"phase": "dp_sample0", "dtype": "bfloat16", "batch": TRAIN_BATCH,
+           "sample0": half, "bit_equal": checks}
+    emit(row)
+    if not all(checks.values()):
+        raise RuntimeError(f"sample0 launches differ: {checks}")
+    return row
+
+
+def _trainer(torch, train, test, *, mesh=None, config=None, tcfg=None,
+             **kw):
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+    )
+
+    model = build_encoder("atms", config=config or ATMSConfig(),
+                          dtype=torch.bfloat16, device="cuda", seed=SEED)
+    return ContrastiveTrainer(model, tcfg or ContrastiveTrainConfig(), train,
+                              test, device="cuda", mesh=mesh, **kw)
+
+
+def mesh_train_path(torch, card: str, train_host, test, mesh,
+                    main_launches: dict) -> dict:
+    """(b) One NCCL rank: an epoch of phase 4's split without and with the
+    mesh from one init (bit-equal step losses), the mesh epoch's launches
+    and collectives a step, then a traced second mesh epoch: busy and
+    idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.parallel import collectives
+
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = _trainer(torch, train_host, test, mesh=m)
+        _build.reset_launches()
+        collectives.reset_counts()
+        tr.train_epoch(0)
+        launches, counts = dict(_build.LAUNCHES), dict(collectives.COUNTS)
+        n = len(tr.last_steps["step_loss"])
+        runs[name] = {"loss": np.asarray(tr.last_steps["step_loss"]),
+                      "step_ms": tr.last_steps["step_ms"],
+                      "launches": launches, "collectives": counts,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if m is not None:
+            add_launches(main_launches, launches)
+            _build.reset_launches()
+            evaluation = tr.evaluate(0)
+            runs[name]["eval_launches"] = dict(_build.LAUNCHES)
+            add_launches(main_launches, runs[name]["eval_launches"])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                tr.train_epoch(1)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            runs[name]["trace"] = _busy_idle(torch, prof, wall_ms, n)
+            del prof
+        del tr
+    plain, dp = runs["plain"], runs["mesh"]
+    n = len(dp["loss"])
+    bit_equal = bool(np.array_equal(plain["loss"], dp["loss"]))
+    row = {"phase": "dp_train_one_rank", "card": card, "backend": "nccl",
+           "world": mesh.dp, "dtype": "bfloat16", "batch": TRAIN_BATCH,
+           "train_samples": train_host.n, "steps": n,
+           "step_loss_bit_equal": bit_equal,
+           "step_loss_max_abs_diff": float(np.abs(plain["loss"]
+                                                  - dp["loss"]).max()),
+           "plain_step_ms_p50": float(np.median(plain["step_ms"][3:])),
+           "mesh_step_ms_p50": float(np.median(dp["step_ms"][3:])),
+           "mesh_step_ms_min": float(np.min(dp["step_ms"][3:])),
+           "plain_peak_mem_gb": plain["peak_gb"],
+           "mesh_peak_mem_gb": dp["peak_gb"],
+           "collectives_per_step": {k: v / n for k, v in
+                                    dp["collectives"].items()},
+           "launches_per_step": {k: v / n for k, v in dp["launches"].items()
+                                 if v},
+           "eval_launches": {k: v for k, v in dp["eval_launches"].items()
+                             if v},
+           "eval": evaluation, **dp["trace"]}
+    emit(row)
+    wrong = {k: dp["launches"][k] for k in ("attention_fwd_seed",
+                                            "attention_bwd", "tsconv_fwd",
+                                            "tsconv_bwd")
+             if dp["launches"][k] != n}
+    if not bit_equal or wrong:
+        raise RuntimeError(f"one-rank mesh epoch: bit-equal {bit_equal}, "
+                           f"launches off {wrong}")
+    return row
+
+
+def mesh_cli_path(torch, tmp: str) -> dict:
+    """(b) ``cli train-retrieval --mesh`` on a small written tree in this
+    process (the one-rank NCCL group), against the same command without
+    ``--mesh``: the same results, bit for bit."""
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        write_synthetic_things_tree,
+    )
+
+    root = os.path.join(tmp, "things_mesh")
+    feats = write_synthetic_things_tree(root, ("sub-01",), n_classes=8,
+                                        n_test_classes=4, train_reps=2,
+                                        seed=SEED + 152)
+    common = ["train-retrieval", "--data-path", root, "--features", feats,
+              "--eval-ks", "2,4", "--batch-size", "32", "--train-reps", "2",
+              "--epochs", "2", "--seed", "3"]
+    t0 = time.perf_counter()
+    plain, _ = run_cli([*common, "--output-dir", os.path.join(tmp, "p")])
+    dp, run_dir = run_cli([*common, "--output-dir", os.path.join(tmp, "m"),
+                           "--mesh"])
+    keys = [k for k in plain if k not in ("epoch_time_s", "samples_per_s")]
+    same = all(plain[k] == dp[k] for k in keys)
+    row = {"phase": "dp_cli", "command": "train-retrieval --mesh",
+           "world": 1, "rows_equal": same, "loss": dp["loss"],
+           "results_csv": os.path.exists(os.path.join(run_dir,
+                                                      "results.csv")),
+           "s": time.perf_counter() - t0}
+    emit(row)
+    if not (same and row["results_csv"]):
+        raise RuntimeError(f"cli --mesh: {plain} vs {dp}")
+    return row
+
+
+def mesh_fused_joint_path(torch, card: str, train_host, test, mesh,
+                          main_launches: dict) -> dict:
+    """(d) ``fused_projection=True, joint_train=True`` under the one-rank
+    mesh: 8 steps and an evaluation, rows 6, 6′ and 7 launched under dp,
+    against the same steps without the mesh."""
+    from eeg_image_decode_tpu_torch.core.config import ATMSConfig
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        epoch_permutation,
+    )
+
+    ids = np.random.default_rng(SEED + 30).integers(0, 10, train_host.n)
+    train = dataclasses.replace(train_host, subject_ids=torch.from_numpy(ids))
+    acfg = ATMSConfig(fused_projection=True, joint_train=True)
+    perm = epoch_permutation(train.n, TRAIN_BATCH, 0, 0)[:8]
+    losses, launches = {}, {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        tr = _trainer(torch, train, test, mesh=m, config=acfg)
+        _build.reset_launches()
+        tr.train_epoch(0, perm=perm)
+        tr.evaluate(0)
+        launches[name] = dict(_build.LAUNCHES)
+        losses[name] = np.asarray(tr.last_steps["step_loss"])
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    add_launches(main_launches, launches["mesh"])
+    d = float(np.abs(losses["plain"] - losses["mesh"]).max())
+    row = {"phase": "dp_fused_joint", "card": card, "world": mesh.dp,
+           "steps": len(perm), "step_loss_bit_equal": d == 0.0,
+           "step_loss_max_abs_diff": d,
+           "launches": {k: v for k, v in launches["mesh"].items() if v}}
+    emit(row)
+    need = ("projection_fwd_seed", "projection_bwd", "projection_fwd")
+    if d > RESUME_TOL or not all(launches["mesh"][k] for k in need):
+        raise RuntimeError(f"fused joint under the mesh: {row}")
+    return row
+
+
+def mesh_prior_lowlevel_path(torch, card: str, mesh) -> dict:
+    """(e) The prior (8,192 pairs, B 1024, one epoch) and the low-level
+    trainer (300 trials, B 30, one epoch) at full width, each without and
+    with the one-rank mesh from one init: bit-equal losses."""
+    from eeg_image_decode_tpu_torch.core.config import (
+        LowLevelConfig,
+        PriorConfig,
+    )
+    from eeg_image_decode_tpu_torch.train.lowlevel import LowLevelTrainer
+    from eeg_image_decode_tpu_torch.train.prior import PriorPipe
+
+    rng = np.random.default_rng(SEED + 153)
+    c = rng.normal(size=(8192, 1024)).astype(np.float32)
+    h = rng.normal(size=(8192, 1024)).astype(np.float32)
+    eeg = rng.normal(size=(300, 63, 250)).astype(np.float32)
+    lat = rng.normal(size=(300, 4, 64, 64)).astype(np.float32)
+    out = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        pipe = PriorPipe(PriorConfig(), device=None if m else "cuda", mesh=m)
+        pipe.train(c, h, epochs=1, log_fn=None)
+        low = LowLevelTrainer(LowLevelConfig(), device=None if m else "cuda",
+                              mesh=m)
+        low.train(eeg, lat, epochs=1, log_fn=None)
+        out[name] = {
+            "prior": pipe.last_steps["step_loss"].cpu().numpy(),
+            "prior_ms": pipe.last_steps["step_ms"],
+            "lowlevel": low.last_steps["step_loss"].cpu().numpy(),
+            "lowlevel_ms": low.last_steps["step_ms"]}
+        del pipe, low
+        gc.collect()
+        torch.cuda.empty_cache()
+    eq = {k: bool(np.array_equal(out["plain"][k], out["mesh"][k]))
+          for k in ("prior", "lowlevel")}
+    row = {"phase": "dp_prior_lowlevel", "card": card, "world": mesh.dp,
+           "bit_equal": eq,
+           "prior_steps": len(out["mesh"]["prior"]),
+           "lowlevel_steps": len(out["mesh"]["lowlevel"]),
+           **{f"{k}_{n}_step_ms_p50": float(np.median(out[n][f"{k}_ms"][2:]))
+              for k in ("prior", "lowlevel") for n in ("plain", "mesh")}}
+    emit(row)
+    if not all(eq.values()):
+        raise RuntimeError(f"prior/low-level under the mesh: {row}")
+    return row
+
+
+def _tp_unet(torch, seed: int):
+    from eeg_image_decode_tpu_torch.gen.sdxl import fill_random_
+    from eeg_image_decode_tpu_torch.gen.unet import SDXLUNet, SDXLUNetConfig
+
+    with torch.device("meta"):
+        unet = SDXLUNet(SDXLUNetConfig.sdxl_turbo(), dtype=torch.bfloat16)
+    unet.to_empty(device="cuda")
+    fill_random_(unet, seed)
+    return unet.eval()
+
+
+def _tp_inputs(torch):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 154)
+    lat = torch.randn(TP_BATCH, 4, TP_LATENT, TP_LATENT, generator=g,
+                      device="cuda")
+    ctx = torch.randn(TP_BATCH, 77, 2048, generator=g, device="cuda")
+    emb = torch.randn(TP_BATCH, 1024, generator=g, device="cuda")
+    t = torch.tensor([999, 499], device="cuda")
+    return lat, t, ctx, emb
+
+
+def _sweep_lane(torch, lane: int):
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_retrieval_data,
+    )
+
+    return make_synthetic_retrieval_data(**SWEEP_SPLIT,
+                                         seed=SEED + 160 + lane,
+                                         device="cuda")
+
+
+def rank_worker(argv: list[str]) -> int:
+    """One rank of phase 15 (c), (f), (g): ``chip_smoke.py --rank RANK
+    WORLD RENDEZVOUS DIR``. Joins a gloo group on cuda:0 (the two ranks
+    share the one card), writes ``DIR/<case>_r<RANK>.pt`` per case."""
+    import torch
+    import torch.distributed as dist
+
+    from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
+    from eeg_image_decode_tpu_torch.core.mesh import create_mesh
+    from eeg_image_decode_tpu_torch.data.synthetic import (
+        make_synthetic_retrieval_data,
+    )
+    from eeg_image_decode_tpu_torch.gen.sharding import (
+        shard_params,
+        sharded_unet_apply,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.parallel import collectives, multihost
+    from eeg_image_decode_tpu_torch.train.sweep import SubjectParallelSweep
+    from eeg_image_decode_tpu_torch.utils.device import resolve_device
+
+    rank, world, rdv, out_dir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    resolve_device("cuda")
+    multihost.initialize(device="cuda:0", backend="gloo",
+                         init_method="file://" + rdv, rank=rank,
+                         world_size=world)
+    mesh = create_mesh(device="cuda:0")
+
+    def save(case, obj):
+        torch.save(obj, os.path.join(out_dir, f"{case}_r{rank}.pt"))
+
+    # (c) --mesh --shard-data: two ranks, B 1024 global, SHARD_STEPS steps
+    train, test = make_synthetic_retrieval_data(
+        n_classes=1654, n_test_classes=200, seed=SEED, device="cuda")
+    train = dataclasses.replace(train, **{
+        f: getattr(train, f).cpu() for f in (
+            "eeg", "labels", "subject_ids", "img_idx", "text_idx",
+            "img_features", "text_features")})
+    checksum = float(train.eeg[:64].double().sum())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _trainer(torch, train, test, mesh=mesh, shard_samples=True)
+    perm = tr.epoch_perm(0)[:SHARD_STEPS]
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    tr.train_epoch(0, perm=perm)
+    save("shard", {"loss": tr.last_steps["step_loss"],
+                   "step_ms": tr.last_steps["step_ms"],
+                   "s": time.perf_counter() - t0,
+                   "collectives": dict(collectives.COUNTS),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "rows": int(tr.data.eeg.shape[0]),
+                   "digest": param_digest(torch, tr.model),
+                   "checksum": checksum})
+    del tr, train, test
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) the sweep: lane i on rank i
+    lanes = [_sweep_lane(torch, i) for i in range(world)]
+    cfg = ContrastiveTrainConfig(eval_ks=SWEEP_KS)
+    sweep = SubjectParallelSweep(
+        lambda seed: build_encoder("atms", dtype=torch.bfloat16,
+                                   device="cuda:0", seed=seed),
+        cfg, [a for a, _ in lanes], [b for _, b in lanes], mesh=mesh,
+        seeds=[SEED + i for i in range(world)])
+    t0 = time.perf_counter()
+    history = sweep.fit(1, log_fn=None)
+    save("sweep", {"history": history, "s": time.perf_counter() - t0,
+                   "digests": {i: param_digest(torch,
+                                               sweep.subject_trainer(i).model)
+                               for i in sweep.lanes}})
+    del sweep, lanes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the tensor-parallel UNet: mp = world
+    tp = create_mesh(data_parallel=1, model_parallel=world, device="cuda:0")
+    unet = _tp_unet(torch, SEED + 155)
+    n_full = sum(p.numel() for p in unet.parameters())
+    shard_params(tp, unet)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd = sharded_unet_apply(unet, tp)
+    inputs = _tp_inputs(torch)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fwd(*inputs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    save("unet", {"out": out.float().cpu() if rank == 0 else None,
+                  "s": secs,
+                  "params": sum(p.numel() for p in unet.parameters()),
+                  "params_full": n_full})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def launch_rank_workers(world: int, directory: str) -> dict:
+    """Run :func:`rank_worker` as ``world`` processes; each has its own
+    time limit, and a rank that fails or hangs stops the others and fails
+    the phase. Returns {case: [rank 0's output, …]}."""
+    import torch
+
+    rdv = os.path.join(directory, "rendezvous")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    logs = [os.path.join(directory, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 str(world), rdv, directory], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                r = failed[0] if failed else None
+                with open(logs[r if r is not None else 0]) as f:
+                    tail = f.read()[-4000:]
+                raise RuntimeError(
+                    f"rank {r} exited {procs[r].returncode}:\n{tail}"
+                    if failed else f"ranks outlived {RANK_TIMEOUT} s:\n"
+                    f"{tail}")
+            time.sleep(0.5)
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            with open(logs[bad[0]]) as f:
+                raise RuntimeError(f"rank {bad[0]} exited "
+                                   f"{procs[bad[0]].returncode}:\n"
+                                   f"{f.read()[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {case: [torch.load(os.path.join(directory, f"{case}_r{r}.pt"),
+                              weights_only=False) for r in range(world)]
+            for case in ("shard", "sweep", "unet")}
+
+
+def two_rank_paths(torch, card: str, train_host, test, mesh,
+                   resident_peak_gb: float) -> dict:
+    """(c), (f), (g): correctness runs of two gloo ranks sharing the one
+    card, each against its one-rank or sequential run made here first."""
+    from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+        sharded_epoch_perm,
+        sharded_perm_rows,
+    )
+
+    world = 2
+    t_all = time.perf_counter()
+    # (c)'s reference: the one-rank mesh over the same global rows
+    perm = sharded_perm_rows(
+        sharded_epoch_perm(train_host.n, TRAIN_BATCH, world, 0, 0),
+        train_host.n, world)[:SHARD_STEPS]
+    ref = _trainer(torch, train_host, test, mesh=mesh)
+    ref.train_epoch(0, perm=perm)
+    ref_loss = np.asarray(ref.last_steps["step_loss"])
+    ref_checksum = float(torch.as_tensor(train_host.eeg[:64]).double().sum())
+    del ref
+    # (f)'s reference: each lane's sequential run
+    seq = []
+    for i in range(world):
+        tr_i, te_i = _sweep_lane(torch, i)
+        model = build_encoder("atms", dtype=torch.bfloat16, device="cuda",
+                              seed=SEED + i)
+        tr = ContrastiveTrainer(
+            model, ContrastiveTrainConfig(eval_ks=SWEEP_KS, seed=SEED + i),
+            tr_i, te_i, device="cuda")
+        seq.append((tr.fit(1, log_fn=None), param_digest(torch, model)))
+        del tr, model, tr_i, te_i
+    # (g)'s reference: the unsharded forward
+    unet = _tp_unet(torch, SEED + 155)
+    unsharded_s = []
+    with torch.no_grad():
+        lat, t, ctx, emb = _tp_inputs(torch)
+        for _ in range(2):  # the first call builds cuDNN's plans
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = unet(lat, t, ctx, None, None, emb).float()
+            torch.cuda.synchronize()
+            unsharded_s.append(time.perf_counter() - t0)
+    want = want.cpu()
+    del unet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as d:
+        t0 = time.perf_counter()
+        got = launch_rank_workers(world, d)
+        ranks_s = time.perf_counter() - t0
+
+    shard = got["shard"]
+    d0 = abs(float(shard[0]["loss"][0]) - float(ref_loss[0]))
+    dmax = float(np.abs(np.asarray(shard[0]["loss"]) - ref_loss).max())
+    split_gb = train_host.eeg.numel() * 4 / 1e9
+    c = {"phase": "dp_shard_two_ranks", "card": card, "backend": "gloo",
+         "world": world, "note": "two processes sharing one card: a "
+         "correctness run, not a scaling number", "batch": TRAIN_BATCH,
+         "steps": SHARD_STEPS, "rows_per_rank": shard[0]["rows"],
+         "step0_abs_diff": d0, "max_abs_diff": dmax,
+         "ranks_loss_equal": bool(np.array_equal(shard[0]["loss"],
+                                                 shard[1]["loss"])),
+         "params_bit_equal": shard[0]["digest"] == shard[1]["digest"],
+         "split_regenerated_equal": all(r["checksum"] == ref_checksum
+                                        for r in shard),
+         "peak_mem_gb": [r["peak_gb"] for r in shard],
+         "resident_peak_mem_gb": resident_peak_gb, "split_gb": split_gb,
+         "step_ms_p50": [float(np.median(r["step_ms"][2:])) for r in shard],
+         "collectives_per_step": {k: v / SHARD_STEPS for k, v in
+                                  shard[0]["collectives"].items()}}
+    emit(c)
+    saved = [resident_peak_gb - p for p in c["peak_mem_gb"]]
+    if not (c["split_regenerated_equal"] and d0 <= 1e-3
+            and dmax <= RESUME_TOL and c["params_bit_equal"]
+            and c["ranks_loss_equal"] and min(saved) >= split_gb / 2 - 0.05):
+        raise RuntimeError(f"two-rank --shard-data run: {c}")
+
+    sweep = got["sweep"]
+    lanes = {}
+    for i, (hist, digest) in enumerate(seq):
+        row_got = sweep[0]["history"][i][0]
+        keys = [k for k in hist[0] if k == "loss" or k == "train_acc"
+                or k.startswith("top")]
+        lanes[i] = {"rows_equal": all(row_got[k] == hist[0][k]
+                                      for k in keys),
+                    "params_bit_equal": sweep[i]["digests"][i] == digest,
+                    "loss": row_got["loss"],
+                    "epoch_time_s": row_got["epoch_time_s"]}
+    f = {"phase": "dp_sweep_two_ranks", "card": card, "backend": "gloo",
+         "lanes": lanes, "fit_s": [r["s"] for r in sweep],
+         "note": "two processes sharing one card: a correctness run"}
+    emit(f)
+    if not all(v["rows_equal"] and v["params_bit_equal"]
+               for v in lanes.values()):
+        raise RuntimeError(f"sweep lanes differ from sequential runs: {f}")
+
+    out = got["unet"][0]["out"]
+    cos = float(torch.nn.functional.cosine_similarity(
+        out.reshape(TP_BATCH, -1), want.reshape(TP_BATCH, -1)).min())
+    g = {"phase": "dp_tp_unet", "card": card, "backend": "gloo", "mp": world,
+         "dtype": "bfloat16", "batch": TP_BATCH,
+         "latent": [TP_LATENT, TP_LATENT], "cosine_min": cos,
+         "cosine_limit": TP_COSINE,
+         "sharded_forward_s": got["unet"][0]["s"],
+         "unsharded_forward_s": unsharded_s,
+         "params_per_rank": got["unet"][0]["params"],
+         "params_full": got["unet"][0]["params_full"],
+         "note": "two processes sharing one card over gloo: the gathers go "
+                 "through the host; a correctness run, not a speed"}
+    emit(g)
+    if not cos >= TP_COSINE:
+        raise RuntimeError(f"tensor-parallel UNet: cosine {cos}")
+    emit({"phase": "dp_two_ranks_total", "ranks_s": ranks_s,
+          "s": time.perf_counter() - t_all})
+    return {"shard": c, "sweep": f, "unet": g}
+
+
+def scale_out_paths(torch, card: str, train_host, test,
+                    main_launches: dict) -> dict:
+    """Phase 15, (a)-(g)."""
+    from eeg_image_decode_tpu_torch.core.mesh import create_mesh
+    from eeg_image_decode_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    sample0_kernels(torch)
+    multihost.initialize(device="cuda")            # one NCCL rank
+    mesh = create_mesh(device="cuda")
+    b = mesh_train_path(torch, card, train_host, test, mesh, main_launches)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        mesh_cli_path(torch, tmp)
+    mesh_fused_joint_path(torch, card, train_host, test, mesh,
+                          main_launches)
+    mesh_prior_lowlevel_path(torch, card, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    two_rank_paths(torch, card, train_host, test, mesh,
+                   b["mesh_peak_mem_gb"])
+    torch.distributed.destroy_process_group()
+    emit({"phase": "phase15_total", "s": time.perf_counter() - t0})
+
+
+
 def main() -> int:
     import torch
 
@@ -4282,11 +4950,16 @@ def main() -> int:
         preprocess_cli_path(torch, tmp, feats, main_path)
         meg_cli_path(torch, tmp)
     streaming_path(torch, card, train_host, test, main_path)
-    del train_host, test
     gc.collect()
     torch.cuda.empty_cache()
     preprocess_full_path(torch, card)
     emit({"phase": "phase14_total", "s": time.perf_counter() - t0})
+
+    # phase 15 trains phase 4's split from the host copy over a mesh
+    scale_out_paths(torch, card, train_host, test, main_path)
+    del train_host, test
+    gc.collect()
+    torch.cuda.empty_cache()
 
     line = []
     for name in ("attention_fwd", "attention_fwd_seed", "attention_bwd",
@@ -4312,4 +4985,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:   # one rank of phase 15's subprocesses
+        sys.exit(rank_worker(sys.argv[2:]))
     sys.exit(main())

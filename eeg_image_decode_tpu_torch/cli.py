@@ -114,6 +114,20 @@ keeps the training EEG in host RAM and streams its batches to the card
 (``--host-dtype bfloat16``: half the bytes a batch).
 Every command runs on the CUDA card (``--device cuda``, the default,
 raises without one).
+
+Scale-out, as the JAX CLI's flags: ``--mesh`` trains data parallel over
+``torch.distributed`` (``train-retrieval`` with ``--joint``,
+``--streaming`` or ``--sweep`` too, ``train-recon``, ``train-prior``,
+``train-lowlevel``): the step of the global batch, ``--batch-size`` split
+over the ranks. Under a launcher (``torchrun --nproc-per-node N -m
+eeg_image_decode_tpu_torch.cli … --mesh``) each process joins its group and
+takes ``cuda:LOCAL_RANK``; without one, ``--mesh`` uses every visible card:
+it starts one worker per card and joins them (with one card the process
+itself is the one rank). ``--multihost`` (``train-retrieval``) is the same
+across hosts and needs the launcher's environment (``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); it names what is
+missing. ``--shard-data`` (with ``--mesh``) keeps only each rank's N/dp
+rows of the split on its card. Rank 0 writes the run's files.
 """
 
 from __future__ import annotations
@@ -123,6 +137,9 @@ import csv
 import dataclasses
 import json
 import os
+import socket
+import subprocess
+import sys
 import time
 from typing import Callable
 
@@ -137,6 +154,7 @@ from eeg_image_decode_tpu_torch.core.config import (
     ATMSConfig,
     ContrastiveTrainConfig,
 )
+from eeg_image_decode_tpu_torch.core.mesh import create_mesh
 from eeg_image_decode_tpu_torch.data.features import load_features
 from eeg_image_decode_tpu_torch.data.things_eeg import build_retrieval_data
 from eeg_image_decode_tpu_torch.models.registry import (
@@ -364,19 +382,91 @@ def cmd_serve(args) -> None:
     server.serve_forever(host=args.host, port=args.port)
 
 
-# ——— train-retrieval / train-recon / evaluate ———
-
-#: flags of the JAX CLI whose modes the port does not have yet
-_SCALE_OUT = {"mesh": "--mesh", "multihost": "--multihost",
-              "shard_data": "--shard-data"}
+# ——— scale-out: --mesh, --multihost ———
 
 
-def _refuse_scale_out(args) -> None:
-    for attr, flag in _SCALE_OUT.items():
-        if getattr(args, attr, None):
+def _mesh(args):
+    """The dp mesh over the group :func:`_join_group` joined, or None
+    without ``--mesh``."""
+    if not getattr(args, "mesh", False):
+        if getattr(args, "shard_data", False):
+            raise SystemExit("--shard-data needs --mesh (it shards the "
+                             "split over the data-parallel ranks)")
+        return None
+    return create_mesh(device=args.device)
+
+
+def _is_writer(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_workers(n: int, argv: list[str]) -> None:
+    """Run this command as ``n`` local ranks (what ``torchrun
+    --nproc-per-node n`` would start) and wait for them; a rank that fails
+    stops the others and fails the command."""
+    env = {**os.environ, "WORLD_SIZE": str(n), "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(_free_port())}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "eeg_image_decode_tpu_torch.cli", *argv],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)})
+        for r in range(n)]
+    try:
+        while procs:
+            for p in list(procs):
+                rc = p.poll()
+                if rc is None:
+                    continue
+                procs.remove(p)
+                if rc != 0:
+                    raise SystemExit(f"a --mesh worker exited with {rc}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+
+
+def _join_group(args, argv: list[str]) -> bool:
+    """Join the process group ``--mesh`` / ``--multihost`` train over;
+    False when this process started the workers that do the training
+    instead."""
+    from eeg_image_decode_tpu_torch.parallel import multihost
+
+    if getattr(args, "multihost", False):
+        missing = multihost.missing_launcher_vars()
+        if missing:
             raise SystemExit(
-                f"{flag} is not ported yet: the port trains on one card "
-                "with the split resident on it (scale-out: ROADMAP.md §1)")
+                f"--multihost needs the launcher's environment: "
+                f"{', '.join(missing)} not set (run the command under "
+                "torchrun on every host, e.g. torchrun --nnodes H "
+                "--nproc-per-node N --rdzv-endpoint HOST:PORT -m "
+                "eeg_image_decode_tpu_torch.cli … --multihost)")
+        args.mesh = True
+    if not getattr(args, "mesh", False):
+        return True
+    import torch.distributed as dist
+
+    if not dist.is_initialized() and multihost.missing_launcher_vars():
+        # no launcher: one rank per visible card
+        n = (torch.cuda.device_count()
+             if torch.device(args.device).type == "cuda" else 1)
+        if n > 1:
+            _spawn_workers(n, argv)
+            return False
+    rank, world = multihost.initialize(device=args.device)
+    if rank == 0:
+        print(f"mesh: {world} rank(s), backend "
+              f"{dist.get_backend()}", flush=True)
+    return True
+
+
+# ——— train-retrieval / train-recon / evaluate ———
 
 
 def _resolve_data_path(args) -> str:
@@ -455,14 +545,19 @@ def _eval_ks(args) -> tuple[int, ...]:
 
 
 def cmd_train_retrieval(args):
-    _refuse_scale_out(args)
+    if getattr(args, "shard_data", False) and getattr(args, "streaming",
+                                                       False):
+        raise SystemExit("--shard-data and --streaming are exclusive "
+                         "residency modes (sharded on the cards vs streamed "
+                         "from the host)")
     subjects = _resolve_subjects(args)
+    mesh = _mesh(args)
     if getattr(args, "sweep", False):
-        return _train_retrieval_sweep(args, subjects)
-    return _train_retrieval_one(args, subjects)
+        return _train_retrieval_sweep(args, subjects, mesh)
+    return _train_retrieval_one(args, subjects, mesh=mesh)
 
 
-def _train_retrieval_sweep(args, subjects):
+def _train_retrieval_sweep(args, subjects, mesh):
     """Per-subject sweep: a fresh model per subject, like the reference's
     main loop (``ATMS_retrieval.py:544-583``: in-subject trains and tests on
     each subject in turn; cross-subject leaves each one out of training and
@@ -475,33 +570,39 @@ def _train_retrieval_sweep(args, subjects):
         raise SystemExit("--sweep is for the in-subject/cross-subject "
                          "protocols; joint training is one model over all "
                          "subjects already")
+    writer = _is_writer(mesh)
     os.makedirs(args.output_dir, exist_ok=True)
     summary = os.path.join(args.output_dir, "sweep_summary.csv")
     rows = []
     for sub in subjects:
         if getattr(args, "cross_subject", False):
             row = _train_retrieval_one(args, subjects, sweep_subject=sub,
-                                       protocol="cross")
+                                       protocol="cross", mesh=mesh)
         else:
-            row = _train_retrieval_one(args, [sub], sweep_subject=sub)
+            row = _train_retrieval_one(args, [sub], sweep_subject=sub,
+                                       mesh=mesh)
         rows.append({"subject": sub, **row})
         # rewritten after every subject: a crash in round k must not
         # discard the k-1 completed rounds
-        with open(summary, "w", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
-            w.writeheader()
-            w.writerows(rows)
-    print(f"sweep summary: {summary}")
-    print(json.dumps(rows))
+        if writer:
+            with open(summary, "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+                w.writeheader()
+                w.writerows(rows)
+    if writer:
+        print(f"sweep summary: {summary}")
+        print(json.dumps(rows))
     return rows
 
 
 def _train_retrieval_one(args, subjects, *, sweep_subject=None,
-                         protocol=None):
+                         protocol=None, mesh=None):
     # an unknown encoder or a missing card fails before the data is read;
     # the model is built after it, at its epoch length (_seq_len)
     encoder_key(args.encoder)
     resolve_device(args.device)
+    device = args.device if mesh is None else mesh.device
+    writer = _is_writer(mesh)
     cfg = ContrastiveTrainConfig(
         batch_size=args.batch_size or (16 if args.joint else 1024),
         epochs=args.epochs or 40,
@@ -524,12 +625,18 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
             args, subjects, test_subject=args.test_subject)
     else:
         train, test = _build_retrieval_splits(args, subjects)
-    model = _build_model(args, device=args.device,
+    model = _build_model(args, device=device,
                          **_seq_len(args, train.eeg.shape[-1]))
     if args.resume_dir:
         out = args.resume_dir
     else:
         run_id = time.strftime("%Y-%m-%d_%H-%M-%S")
+        if mesh is not None:  # every rank writes under rank 0's name
+            import torch.distributed as dist
+
+            box = [run_id]
+            dist.broadcast_object_list(box, src=0)
+            run_id = box[0]
         # in a sweep the round's subject names the run directory, never a
         # stray --test-subject, which would put all rounds in one directory
         sub_tag = sweep_subject or test_subject or subjects[0]
@@ -538,14 +645,18 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
         out = run_directory(args.output_dir, args.encoder, sub_tag, run_id)
     ckpt = Checkpointer(os.path.join(out, "ckpt"))
     trainer = ContrastiveTrainer(model, cfg, train, test, output_dir=out,
-                                 checkpointer=ckpt, device=args.device,
-                                 streaming=getattr(args, "streaming", False))
+                                 checkpointer=ckpt, device=device,
+                                 streaming=getattr(args, "streaming", False),
+                                 mesh=mesh,
+                                 shard_samples=getattr(args, "shard_data",
+                                                       False))
     try:
         if args.resume_dir:
             start = trainer.resume()
-            print(f"resumed {out} at epoch {start}")
-        trainer.fit()
-        if getattr(args, "export_features", None):
+            if writer:
+                print(f"resumed {out} at epoch {start}")
+        trainer.fit(log_fn=print if writer else None)
+        if getattr(args, "export_features", None) and writer:
             # the reconstruction pipeline's hand-off artifact; in a sweep
             # each subject gets its own file under the given directory
             dest = args.export_features
@@ -555,8 +666,9 @@ def _train_retrieval_one(args, subjects, *, sweep_subject=None,
             print(f"exported {trainer.export_features(dest)}")
     finally:
         trainer.close()
-    print(f"run directory: {out}")
-    print(json.dumps(trainer.history[-1]))
+    if writer:
+        print(f"run directory: {out}")
+        print(json.dumps(trainer.history[-1]))
     return trainer.history[-1]
 
 
@@ -765,20 +877,21 @@ def cmd_train_prior(args):
     from eeg_image_decode_tpu_torch.core.config import PriorConfig
     from eeg_image_decode_tpu_torch.train.prior import PriorPipe
 
-    _refuse_scale_out(args)
     with np.load(args.eeg_features) as d:
         c_emb, h_emb = d["eeg_features"], d["img_features"]
     cfg = PriorConfig(epochs=args.epochs or 150,
                       batch_size=args.batch_size or 1024,
                       lr=args.lr or 1e-3, seed=args.seed)
-    pipe = PriorPipe(cfg, device=args.device)
+    mesh = _mesh(args)
+    pipe = PriorPipe(cfg, device=None if mesh else args.device, mesh=mesh)
     out_dir = args.resume_dir or args.output_dir
     history = pipe.train(c_emb, h_emb,
                          checkpointer=Checkpointer(os.path.join(out_dir,
                                                                 "ckpt")),
                          resume=bool(args.resume_dir))
-    pipe.save_with_config(os.path.join(out_dir, "diffusion_prior.pkl"))
-    print(json.dumps(history[-1]))
+    if _is_writer(mesh):
+        pipe.save_with_config(os.path.join(out_dir, "diffusion_prior.pkl"))
+        print(json.dumps(history[-1]))
     return history
 
 
@@ -797,7 +910,6 @@ def cmd_train_lowlevel(args):
     from eeg_image_decode_tpu_torch.models.lowlevel import EncoderLowLevel
     from eeg_image_decode_tpu_torch.train.lowlevel import LowLevelTrainer
 
-    _refuse_scale_out(args)
     if args.preview_dir and not args.vae_params:
         raise SystemExit("--preview-dir needs --vae-params (frozen VAE)")
     if args.vae_params and not args.preview_dir:
@@ -817,7 +929,9 @@ def cmd_train_lowlevel(args):
                                 seq_len=cfg.seq_len,
                                 time_proj_dim=cfg.time_proj_dim,
                                 stage_channels=TINY_STAGES)
-    trainer = LowLevelTrainer(cfg, model=model, device=args.device)
+    mesh = _mesh(args)
+    trainer = LowLevelTrainer(cfg, model=model,
+                              device=None if mesh else args.device, mesh=mesh)
     if args.preview_dir:
         trainer.set_preview_decoder(_load_vae(args),
                                     preview_dir=args.preview_dir,
@@ -827,7 +941,8 @@ def cmd_train_lowlevel(args):
         eeg, latents, seed=args.seed,
         checkpointer=Checkpointer(os.path.join(out_dir, "ckpt")),
         resume=bool(args.resume_dir))
-    print(json.dumps(history[-1]))
+    if _is_writer(mesh):
+        print(json.dumps(history[-1]))
     return history
 
 
@@ -1957,18 +2072,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+_SCALE_OUT_HELP = {
+    "--mesh": "data parallel over torch.distributed: under torchrun each "
+              "process joins its group (cuda:LOCAL_RANK); without a "
+              "launcher one rank per visible card",
+    "--multihost": "the same across hosts: needs the launcher's RANK, "
+                   "WORLD_SIZE, MASTER_ADDR and MASTER_PORT (torchrun on "
+                   "every host)",
+    "--shard-data": "with --mesh: keep only each rank's N/dp rows of the "
+                    "split on its card (joint training over many subjects)",
+}
+
+
 def _add_scale_out(p: argparse.ArgumentParser, flags):
-    """The JAX CLI's scale-out flags: parsed, then refused by the command
-    (``_refuse_scale_out``) until those modes are ported."""
+    """The JAX CLI's scale-out flags (:func:`_join_group`, :func:`_mesh`)."""
     for flag in flags:
         p.add_argument(flag, action="store_true",
                        dest=flag[2:].replace("-", "_"),
-                       help="not ported yet (ROADMAP.md): exits")
+                       help=_SCALE_OUT_HELP[flag])
 
 
 def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    if _join_group(args, argv):
+        args.fn(args)
 
 
 if __name__ == "__main__":

@@ -100,8 +100,9 @@ class ContrastiveTrainConfig:
 
     ``host_dtype`` is the streaming trainer's host copy of the EEG
     (``None``: float32; ``"bfloat16"``: half the bytes a batch); the
-    resident trainer ignores it. The JAX config's ``data_axis`` belongs to
-    the mesh mode, which is not ported yet (ROADMAP.md). Its ``encoder``,
+    resident trainer ignores it. The JAX config's ``data_axis`` names the
+    mesh's batch axis, which is always ``dp`` here (``core/mesh.py``). Its
+    ``encoder``,
     ``compute_dtype`` and ``logit_scale_init`` belong to the model here:
     the trainer takes a ``build_encoder`` model, named by its first
     argument, computing in its ``dtype=`` (``torch.bfloat16`` for the JAX

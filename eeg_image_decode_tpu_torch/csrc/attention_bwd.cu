@@ -1382,7 +1382,7 @@ extern "C" int eid_attention_bwd(int dtype, const void* x, const void* g,
                                  int H, int drop_mode,
                                  const void* const* masks, const int* seed,
                                  unsigned thresh, float inv_keep,
-                                 void* stream) {
+                                 unsigned sample0, void* stream) {
   if (B <= 0) return 0;
   if (!supported(dtype, L, D, inner, FF, H)) return (int)cudaErrorInvalidValue;
   if (drop_mode < kDropNone || drop_mode > kDropSeed ||
@@ -1394,6 +1394,7 @@ extern "C" int eid_attention_bwd(int dtype, const void* x, const void* g,
   drop.seed = seed;
   drop.thresh = thresh;
   drop.inv_keep = inv_keep;
+  drop.sample0 = sample0;
   unsigned char* base = static_cast<unsigned char*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {

@@ -411,14 +411,16 @@ extern "C" long long eid_attention_fwd_workspace(int dtype, int L, int D,
 // ws: eid_attention_fwd_workspace bytes.
 // drop_mode 0: no dropout; 1: masks[4] in dtype, (B,H,L,L), (B,L,D),
 // (B,L,FF), (B,L,D); 2: the int32 seed at seed (a device pointer), keep iff
-// bits < thresh, kept value inv_keep rounded to dtype.
+// bits < thresh, kept value inv_keep rounded to dtype, the masks of samples
+// sample0 ... sample0 + B - 1 (0 unless the launch takes a data-parallel
+// rank's rows of a larger batch).
 extern "C" int eid_attention_fwd(int dtype, const void* x,
                                  const void* const* w, void* out, void* ws,
                                  int B, int L, int D, int inner, int FF,
                                  int H, int drop_mode,
                                  const void* const* masks, const int* seed,
                                  unsigned thresh, float inv_keep,
-                                 void* stream) {
+                                 unsigned sample0, void* stream) {
   if (B <= 0) return 0;
   if (H <= 0 || inner % H != 0) return (int)cudaErrorInvalidValue;
   if (drop_mode < kDropNone || drop_mode > kDropSeed ||
@@ -430,6 +432,7 @@ extern "C" int eid_attention_fwd(int dtype, const void* x,
   drop.seed = seed;
   drop.thresh = thresh;
   drop.inv_keep = inv_keep;
+  drop.sample0 = sample0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
     attn::Dims d;

@@ -565,7 +565,8 @@ static __device__ __noinline__ uint2 draw2(uint32_t seed, uint32_t sample,
   return keep_bits2(seed, sample, site, e);
 }
 
-// What a launch drops out with, and the sample.
+// What a launch drops out with, and the sample (of the launch; the draws
+// key on b + d.sample0).
 struct Drop {
   Dropout d;
   uint32_t seed;
@@ -578,7 +579,8 @@ struct Drop {
     if (d.mode == kDropMasks)
       return to_f(static_cast<const bf16*>(d.mask[site])[b * numel + e]);
     if (d.mode == kDropSeed)
-      return draw1(seed, (uint32_t)b, (uint32_t)site, (uint32_t)e) < d.thresh
+      return draw1(seed, (uint32_t)b + d.sample0, (uint32_t)site,
+                   (uint32_t)e) < d.thresh
                  ? d.inv_keep
                  : 0.f;
     return 1.f;
@@ -597,8 +599,10 @@ struct Drop {
       const float kept = kFwd ? rnd<bf16>(d.inv_keep) : d.inv_keep;
       const uint2 r =
           kOutOfLine
-              ? draw2(seed, (uint32_t)b, (uint32_t)site, (uint32_t)e)
-              : keep_bits2(seed, (uint32_t)b, (uint32_t)site, (uint32_t)e);
+              ? draw2(seed, (uint32_t)b + d.sample0, (uint32_t)site,
+                      (uint32_t)e)
+              : keep_bits2(seed, (uint32_t)b + d.sample0, (uint32_t)site,
+                           (uint32_t)e);
       return make_float2(r.x < d.thresh ? kept : 0.f,
                          r.y < d.thresh ? kept : 0.f);
     }

@@ -17,9 +17,12 @@
 // branch (d_out), each indexed row-major within one sample. Because the key
 // is the sample and not the block, the forward and the backward kernel may
 // tile the batch differently and still draw the same masks, and padding
-// cannot shift them. ops/philox.py is the same generator in int64 tensor
-// arithmetic (ops/attention.py::draw_keep_masks, ops/projection.py::
-// draw_keep_mask), and the two agree bit for bit.
+// cannot shift them. A launch over rows sample0 ... sample0 + B - 1 of a
+// larger batch (one data-parallel rank's rows) passes sample0, and draws
+// what the launch over the whole batch draws for those rows.
+// ops/philox.py is the same generator in int64 tensor arithmetic
+// (ops/attention.py::draw_keep_masks, ops/projection.py::draw_keep_mask),
+// and the two agree bit for bit.
 //
 // Cost: ten rounds of two 32x32->64 multiplies and a few xors per four
 // elements; one draw per element used (the other three words are not
@@ -95,11 +98,12 @@ struct Dropout {
   const int* seed;
   uint32_t thresh;
   float inv_keep;
+  uint32_t sample0;  // the global index of the launch's first sample
 };
 
-// The factor of element `e` of site `site` of sample `b` (site_numel
-// elements per sample): 1 without dropout, the mask's value in mask mode,
-// `kept` or 0 in seed mode.
+// The factor of element `e` of site `site` of sample `b` of the launch
+// (site_numel elements per sample): 1 without dropout, the mask's value in
+// mask mode, `kept` or 0 in seed mode, drawn for global sample b + sample0.
 template <typename T>
 __device__ __forceinline__ float keep_factor(const Dropout& d, uint32_t seed,
                                              int site, long b, long site_numel,
@@ -107,7 +111,8 @@ __device__ __forceinline__ float keep_factor(const Dropout& d, uint32_t seed,
   if (d.mode == kDropMasks)
     return to_f(static_cast<const T*>(d.mask[site])[b * site_numel + e]);
   if (d.mode == kDropSeed)
-    return keep_bits(seed, (uint32_t)b, (uint32_t)site, (uint32_t)e) < d.thresh
+    return keep_bits(seed, (uint32_t)b + d.sample0, (uint32_t)site,
+                     (uint32_t)e) < d.thresh
                ? kept
                : 0.f;
   return 1.f;

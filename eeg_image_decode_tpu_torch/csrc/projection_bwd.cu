@@ -103,6 +103,7 @@ struct Args {
   const int* seed;
   uint32_t thresh;
   float inv_keep;
+  uint32_t sample0;
 };
 
 struct Smem {
@@ -170,8 +171,8 @@ __global__ void __launch_bounds__(kThreads)
     if (p.mode == kDropMasks)
       m = to_f(mask[(long)(r0 + i) * Dout + n]);
     else if (p.mode == kDropSeed)
-      m = keep_bits(seed, (uint32_t)(r0 + i), kSiteProjection, (uint32_t)n) <
-                  p.thresh
+      m = keep_bits(seed, (uint32_t)(r0 + i) + p.sample0, kSiteProjection,
+                    (uint32_t)n) < p.thresh
               ? p.inv_keep
               : 0.f;
     MF[e] = m;
@@ -542,7 +543,8 @@ extern "C" int eid_projection_bwd(int dtype, const void* x, const float* g,
                                   float* const* out, void* ws, int B, int Din,
                                   int Dout, int drop_mode, const void* mask,
                                   const int* seed, unsigned thresh,
-                                  float inv_keep, void* stream) {
+                                  float inv_keep, unsigned sample0,
+                                  void* stream) {
   if (B <= 0) return 0;
   if (!supported(dtype, Din, Dout)) return (int)cudaErrorInvalidValue;
   if (drop_mode < kDropNone || drop_mode > kDropSeed ||
@@ -579,6 +581,7 @@ extern "C" int eid_projection_bwd(int dtype, const void* x, const float* g,
     p.seed = seed;
     p.thresh = thresh;
     p.inv_keep = inv_keep;
+    p.sample0 = sample0;
     return launch_chain(l, p, base, out[2], s);
   }
   if (wi_t == nullptr || wr_t == nullptr) return (int)cudaErrorInvalidValue;
@@ -601,5 +604,6 @@ extern "C" int eid_projection_bwd(int dtype, const void* x, const float* g,
   a.seed = seed;
   a.thresh = thresh;
   a.inv_keep = inv_keep;
+  a.sample0 = sample0;
   return launch<float>(l, a, base, out, smem_layout(Din, Dout, 4).total, s);
 }

@@ -40,13 +40,15 @@ struct ChainFwd {
   const int* seed;                // one int32 on the device, mode 2
   uint32_t thresh;                // keep iff bits < thresh
   float inv_keep;                 // the kept value, mode 2
+  uint32_t sample0;               // mode 2: the global index of row 0
 };
 
 __device__ __forceinline__ float mask_factor(const ChainFwd& p, uint32_t seed,
                                              int row, int col) {
   if (p.mode == kDropMasks) return to_f(p.mask[(long)row * p.Dout + col]);
   if (p.mode == kDropSeed)
-    return keep_bits(seed, (uint32_t)row, kSiteProjection, (uint32_t)col) <
+    return keep_bits(seed, (uint32_t)row + p.sample0, kSiteProjection,
+                     (uint32_t)col) <
                    p.thresh
                ? p.inv_keep
                : 0.f;

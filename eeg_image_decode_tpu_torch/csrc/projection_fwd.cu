@@ -144,7 +144,7 @@ size_t ws_a32(long B, int Dout) { return align16((size_t)B * Dout * 4); }
 int launch_mma(const void* x, const void* const* w, float* out, void* ws,
                int B, int Din, int Dout, int mode, const void* mask,
                const int* seed, unsigned thresh, float inv_keep,
-               cudaStream_t s) {
+               unsigned sample0, cudaStream_t s) {
   using mma::bf16;
   auto W = [&](int i) { return static_cast<const bf16*>(w[i]); };
   unsigned char* base = static_cast<unsigned char*>(ws);
@@ -165,6 +165,7 @@ int launch_mma(const void* x, const void* const* w, float* out, void* ws,
   p.seed = seed;
   p.thresh = thresh;
   p.inv_keep = inv_keep;
+  p.sample0 = sample0;
   const int rc = proj::launch_chain_fwd(p, s);
   if (rc != 0) return rc;
   projection_fwd_ln_kernel<<<(B + kLnRows - 1) / kLnRows, 32 * kLnRows, 0,
@@ -186,7 +187,7 @@ __global__ void __launch_bounds__(kThreads)
                           int B, int Din, int Dout,
                           const T* __restrict__ mask,
                           const int* __restrict__ seed_ptr, uint32_t thresh,
-                          float inv_keep) {
+                          float inv_keep, uint32_t sample0) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* a = reinterpret_cast<float*>(smem);                   // rows x Dout
   T* xs = reinterpret_cast<T*>(smem + align16((size_t)kRows * Dout * 4));
@@ -213,8 +214,8 @@ __global__ void __launch_bounds__(kThreads)
         if constexpr (MODE == kDropMasks)
           z = z * to_f(mask[(long)(r0 + i) * Dout + n]);
         if constexpr (MODE == kDropSeed)
-          z = z * (keep_bits(seed, (uint32_t)(r0 + i), kSiteProjection,
-                             (uint32_t)n) < thresh
+          z = z * (keep_bits(seed, (uint32_t)(r0 + i) + sample0,
+                             kSiteProjection, (uint32_t)n) < thresh
                        ? inv_keep
                        : 0.f);
         a[i * Dout + n] = a[i * Dout + n] + z;
@@ -239,7 +240,8 @@ size_t fma_smem(int Din, int Dout) {
 template <int MODE>
 int launch_fma_mode(const void* x, const void* const* w, float* out, int B,
                     int Din, int Dout, const void* mask, const int* seed,
-                    unsigned thresh, float inv_keep, cudaStream_t s) {
+                    unsigned thresh, float inv_keep, unsigned sample0,
+                    cudaStream_t s) {
   const size_t smem = fma_smem(Din, Dout);
   cudaError_t e = cudaFuncSetAttribute(
       projection_fwd_kernel<float, MODE>,
@@ -249,21 +251,23 @@ int launch_fma_mode(const void* x, const void* const* w, float* out, int B,
   const int blocks = (B + kRows - 1) / kRows;
   projection_fwd_kernel<float, MODE><<<blocks, kThreads, smem, s>>>(
       static_cast<const float*>(x), W(0), W(1), W(2), W(3), W(4), W(5), out,
-      B, Din, Dout, static_cast<const float*>(mask), seed, thresh, inv_keep);
+      B, Din, Dout, static_cast<const float*>(mask), seed, thresh, inv_keep,
+      sample0);
   return (int)cudaGetLastError();
 }
 
 int launch_fma(int mode, const void* x, const void* const* w, float* out,
                int B, int Din, int Dout, const void* mask, const int* seed,
-               unsigned thresh, float inv_keep, cudaStream_t s) {
+               unsigned thresh, float inv_keep, unsigned sample0,
+               cudaStream_t s) {
   if (mode == kDropMasks)
     return launch_fma_mode<kDropMasks>(x, w, out, B, Din, Dout, mask, seed,
-                                       thresh, inv_keep, s);
+                                       thresh, inv_keep, sample0, s);
   if (mode == kDropSeed)
     return launch_fma_mode<kDropSeed>(x, w, out, B, Din, Dout, mask, seed,
-                                      thresh, inv_keep, s);
+                                      thresh, inv_keep, sample0, s);
   return launch_fma_mode<kDropNone>(x, w, out, B, Din, Dout, mask, seed,
-                                    thresh, inv_keep, s);
+                                    thresh, inv_keep, sample0, s);
 }
 
 }  // namespace
@@ -289,13 +293,15 @@ extern "C" long long eid_projection_fwd_workspace(int dtype, int B, int Din,
 // ln_b, all contiguous in dtype; out: (B, Dout) float32; ws:
 // eid_projection_fwd_workspace bytes. drop_mode 0: no dropout; 1: `mask`
 // (B, Dout) in dtype, pre-scaled; 2: `seed` (one int32 on the device), keep
-// iff bits < thresh, kept value inv_keep.
+// iff bits < thresh, kept value inv_keep, the mask of rows sample0 ...
+// sample0 + B - 1 (0 unless the launch takes a data-parallel rank's rows of
+// a larger batch).
 extern "C" int eid_projection_fwd(int dtype, const void* x,
                                   const void* const* w, void* out, void* ws,
                                   int B, int Din, int Dout, int drop_mode,
                                   const void* mask, const int* seed,
                                   unsigned thresh, float inv_keep,
-                                  void* stream) {
+                                  unsigned sample0, void* stream) {
   if (B <= 0) return 0;
   if (eid_projection_fwd_workspace(dtype, B, Din, Dout) < 0 ||
       drop_mode < kDropNone || drop_mode > kDropSeed ||
@@ -306,9 +312,9 @@ extern "C" int eid_projection_fwd(int dtype, const void* x,
   float* o = static_cast<float*>(out);
   if (dtype == kBF16)
     return launch_mma(x, w, o, ws, B, Din, Dout, drop_mode, mask, seed, thresh,
-                      inv_keep, s);
+                      inv_keep, sample0, s);
   return launch_fma(drop_mode, x, w, o, B, Din, Dout, mask, seed, thresh,
-                    inv_keep, s);
+                    inv_keep, sample0, s);
 }
 
 // Message for a CUDA error code returned by the launchers above.

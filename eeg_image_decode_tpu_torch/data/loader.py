@@ -22,7 +22,10 @@ yielded batch is valid until the next one is requested. On the CPU the same
 code yields the slots themselves, with no stream.
 
 The batch order is the JAX loader's: ``default_rng(seed·100003 + epoch)``,
-the formula of ``train/contrastive.py::epoch_permutation``.
+the formula of ``train/contrastive.py::epoch_permutation``. A
+data-parallel rank (``shard=(rank, dp)``) streams its B/dp rows of each
+global batch: block ``rank`` of the batch's indices, as the JAX loader's
+batch sharding hands a process its rows.
 """
 
 from __future__ import annotations
@@ -49,7 +52,12 @@ class PrefetchLoader:
 
     ``gather_s`` and ``wait_s`` hold, for the last epoch, each batch's
     gather time on the loader thread and the time the consumer's thread
-    waited for it."""
+    waited for it.
+
+    ``shard=(rank, dp)``: each yielded batch is block ``rank`` of ``dp``
+    equal blocks of the global batch of ``batch_size`` rows (which dp must
+    divide); the global batches and their count are the same on every
+    rank."""
 
     def __init__(
         self,
@@ -61,8 +69,17 @@ class PrefetchLoader:
         buffer_size: int = 2,
         host_dtype: str | None = None,
         device=None,
+        shard: tuple[int, int] = (0, 1),
     ):
         self.device = resolve_device(device)
+        rank, dp = shard
+        if batch_size % dp or not 0 <= rank < dp:
+            raise ValueError(f"shard {shard}: batch_size {batch_size} must "
+                             f"split into {dp} equal blocks")
+        if dp > 1 and not drop_remainder:
+            raise ValueError("a sharded loader drops the ragged last batch")
+        self.shard = (rank, dp)
+        self.local_batch = batch_size // dp
         cast = None if host_dtype is None else getattr(torch, host_dtype)
         self.arrays = {}
         for k, v in arrays.items():
@@ -86,7 +103,7 @@ class PrefetchLoader:
         # slot s holds batch i where i % n_slots == s
         self._n_slots = self.buffer_size + 1
         self._slots = [
-            {k: torch.empty((batch_size, *v.shape[1:]), dtype=v.dtype,
+            {k: torch.empty((self.local_batch, *v.shape[1:]), dtype=v.dtype,
                             pin_memory=self._cuda)
              for k, v in self.arrays.items()}
             for _ in range(self._n_slots)
@@ -147,12 +164,15 @@ class PrefetchLoader:
             np.random.default_rng(self.seed * 100003 + epoch)
             .permutation(self.n))
         n_batches, bs = len(self), self.batch_size
+        # this rank's block of each global batch
+        lo = self.shard[0] * self.local_batch
         self.gather_s, self.wait_s = [], []
 
         def submit(i: int) -> None:
             s = i % self._n_slots
+            rows = perm[i * bs + lo:i * bs + lo + self.local_batch]
             self._pending[i] = self._pool.submit(
-                self._gather, perm[i * bs:(i + 1) * bs], self._slots[s],
+                self._gather, rows, self._slots[s],
                 self._copied[s] if self._cuda else None)
 
         for i in range(min(self.buffer_size, n_batches)):
@@ -162,7 +182,7 @@ class PrefetchLoader:
             self._pending.pop(i).result()
             self.wait_s.append(time.perf_counter() - t0)
             s = i % self._n_slots
-            rows = min(bs, self.n - i * bs)
+            rows = min(self.local_batch, self.n - i * bs)
             if self._cuda:
                 batch = self._copy_in(s, rows)
             else:

@@ -45,6 +45,7 @@ from eeg_image_decode_tpu_torch.ops.attention import (
     draw_keep_masks,
     fused_attention_layer,
 )
+from eeg_image_decode_tpu_torch.parallel.collectives import sample_offset
 
 
 class ChannelAttentionLayer(nn.Module):
@@ -107,12 +108,15 @@ class ChannelAttentionLayer(nn.Module):
             p = self.dropout
             seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
                                  device=x.device, dtype=torch.int32)
+        # in a data-parallel scope: this rank's first global sample
+        sample0 = sample_offset(B)
         if self.use_kernel:
             return fused_attention_layer(x, self.params(), self.n_heads,
-                                         masks=masks, dropout_p=p, seed=seed)
+                                         masks=masks, dropout_p=p, seed=seed,
+                                         sample0=sample0)
         if seed is not None:
             masks = draw_keep_masks(seed.item(), B, self.n_heads, L, D, FF,
-                                    p, device=x.device)
+                                    p, row0=sample0, device=x.device)
         params = {k: v.to(x.dtype) for k, v in self.params().items()}
         return attention_layer_reference(x, params, self.n_heads, masks=masks,
                                          exact_gelu=self.exact_gelu)

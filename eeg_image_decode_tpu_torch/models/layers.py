@@ -25,6 +25,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from eeg_image_decode_tpu_torch.ops.projection import fused_projection_head
+from eeg_image_decode_tpu_torch.parallel.collectives import (
+    active_mesh,
+    draw_rows,
+    global_batch_stats,
+    sample_offset,
+)
 from eeg_image_decode_tpu_torch.ops.tsconv import (
     fold_pool_into_kernel,
     tsconv_pool_fused,
@@ -52,12 +58,15 @@ def dropout(h: torch.Tensor, p: float, *, train: bool, mask=None,
     pattern is drawn from ``generator`` on h's device and the kept values
     are divided by 1−p in h's dtype, as flax's ``nn.Dropout`` divides by
     ``keep_prob`` (in bfloat16, multiplying by a rounded 1/(1−p) would not
-    give the same bits at p = 0.25)."""
+    give the same bits at p = 0.25). Dim 0 is the batch: in a
+    data-parallel scope the pattern is drawn for the global batch and the
+    rank keeps its rows (``parallel/collectives.py::draw_rows``)."""
     if mask is not None:
         return h * mask.to(h.device, h.dtype)
     if not train or p == 0.0:
         return h
-    keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+    keep = draw_rows(lambda shape: torch.rand(
+        shape, generator=generator, device=h.device), h.shape) >= p
     return torch.where(keep, h / (1.0 - p), torch.zeros((), dtype=h.dtype,
                                                         device=h.device))
 
@@ -129,7 +138,12 @@ class BatchNorm(nn.Module):
     ``_compute_stats``), and the running statistics move to
     ``momentum·old + (1 − momentum)·batch`` with the biased batch variance.
     This is not ``torch.nn.BatchNorm``, whose running variance is the
-    unbiased one, with momentum 0.1 on the new value."""
+    unbiased one, with momentum 0.1 on the new value.
+
+    In a data-parallel scope (``parallel/collectives.py::data_parallel``)
+    E[x] and E[x²] are the global batch's (``global_batch_stats``), as flax's
+    statistics are under GSPMD, so the running statistics agree across
+    ranks."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -147,8 +161,13 @@ class BatchNorm(nn.Module):
         axis = axis % x.ndim
         if train:
             x32 = x.float().movedim(axis, -1).reshape(-1, x.shape[axis])
-            mean = x32.mean(0)
-            var = torch.clamp((x32 * x32).mean(0) - mean * mean, min=0.0)
+            mesh = active_mesh()
+            if mesh is None:
+                mean = x32.mean(0)
+                var = (x32 * x32).mean(0) - mean * mean
+            else:
+                mean, var = global_batch_stats(x32, mesh)
+            var = torch.clamp(var, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -264,7 +283,7 @@ class ProjectionHead(nn.Module):
                 "wi": self.in_proj.kernel, "bi": self.in_proj.bias,
                 "wr": self.res_proj.kernel, "br": self.res_proj.bias,
                 "ln_s": self.ln.scale, "ln_b": self.ln.bias,
-            }, None, p, seed)
+            }, None, p, seed, sample0=sample_offset(x.shape[0]))
         a = self.in_proj(x)
         h = self.res_proj(F.gelu(a, approximate="none"))
         h = dropout(h, self.dropout, train=train, mask=dropout_mask,

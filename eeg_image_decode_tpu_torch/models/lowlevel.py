@@ -23,6 +23,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from eeg_image_decode_tpu_torch.models.layers import Dense, lecun_normal_
+from eeg_image_decode_tpu_torch.parallel.collectives import (
+    active_mesh,
+    global_mean,
+)
 
 
 class TwoPassBatchNorm(nn.Module):
@@ -35,7 +39,9 @@ class TwoPassBatchNorm(nn.Module):
     running statistics move to 0.9·old + 0.1·batch. Eval: the running
     statistics. Neither ``torch.nn.BatchNorm2d`` (unbiased running
     variance, momentum 0.1 on the new value) nor the ATM-S
-    ``models/layers.py::BatchNorm`` (fast variance, last axis) is this."""
+    ``models/layers.py::BatchNorm`` (fast variance, last axis) is this.
+    In a data-parallel scope both passes are over the global batch
+    (``parallel/collectives.py::global_mean``), as flax's are under GSPMD."""
 
     momentum = 0.9
 
@@ -48,8 +54,15 @@ class TwoPassBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            mean = x.mean((0, 2, 3))
-            var = torch.square(x - mean[None, :, None, None]).mean((0, 2, 3))
+            mesh = active_mesh()
+            if mesh is None:
+                mean = x.mean((0, 2, 3))
+                var = torch.square(x - mean[None, :, None, None]).mean(
+                    (0, 2, 3))
+            else:
+                mean = global_mean(x, mesh, (0, 2, 3))
+                var = global_mean(torch.square(x - mean[None, :, None, None]),
+                                  mesh, (0, 2, 3))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -15,13 +15,18 @@ from eeg_image_decode_tpu_torch.models.layers import (
     dropout,
     sinusoidal_position_embedding,
 )
+from eeg_image_decode_tpu_torch.parallel.collectives import (
+    active_mesh,
+    global_any,
+)
 
 
 class SubjectToken(nn.Module):
     """Per-subject learned token with a shared fallback (ref
     ``Embed.py:109-121``). Reference quirk reproduced: if *any* id in the
     batch is ≥ ``num_subjects``, the shared token replaces the token of
-    every row of the batch."""
+    every row of the batch: of the global batch in a data-parallel scope,
+    as under GSPMD."""
 
     def __init__(self, num_subjects: int, d_model: int):
         super().__init__()
@@ -31,6 +36,9 @@ class SubjectToken(nn.Module):
 
     def forward(self, subject_ids: torch.Tensor) -> torch.Tensor:
         any_oor = (subject_ids >= self.num_subjects).any()
+        mesh = active_mesh()
+        if mesh is not None:
+            any_oor = global_any(any_oor, mesh)
         safe = subject_ids.clamp(0, self.num_subjects - 1).long()
         tok = torch.where(any_oor, self.shared_embedding,
                           self.subject_embedding[safe])

@@ -54,9 +54,9 @@ _LL = ctypes.c_longlong
 #: name → (argument types, result type)
 _SIGNATURES = {
     # dtype, x, w[16], out, ws, B, L, D, inner, FF, H, drop mode,
-    # masks[4], seed (device), thresh, keep value, stream
+    # masks[4], seed (device), thresh, keep value, sample0, stream
     "eid_attention_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _P, _P, _U, _F, _P], _I),
+                           _I, _P, _P, _U, _F, _U, _P], _I),
     # dtype, L, D, inner, FF, H → workspace bytes, or -1 for shapes the
     # dtype's design does not take
     "eid_attention_fwd_workspace": ([_I, _I, _I, _I, _I, _I], _LL),
@@ -64,9 +64,9 @@ _SIGNATURES = {
     "eid_attention_bwd_workspace": ([_I, _I, _I, _I, _I, _I, _I], _LL),
     # dtype, x, g, w[16], wt[6] (float32 only), dx, out[5], ws, B, L, D,
     # inner, FF, H, drop mode, masks[4], seed (device), thresh, keep value,
-    # stream
+    # sample0, stream
     "eid_attention_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _P, _P, _U, _F, _P], _I),
+                           _I, _I, _I, _P, _P, _U, _F, _U, _P], _I),
     # dtype, x, w, out, rows, T, M, F, P, stride, stream
     "eid_tsconv_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     # dtype, rows, T, M, F, P, stride → 1 if the dtype's design takes the
@@ -89,16 +89,16 @@ _SIGNATURES = {
     # design does not take
     "eid_projection_fwd_workspace": ([_I, _I, _I, _I], _LL),
     # dtype, x, w[6], out, ws, B, Din, Dout, drop mode, mask, seed
-    # (device), thresh, keep value, stream
+    # (device), thresh, keep value, sample0, stream
     "eid_projection_fwd": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _U,
-                            _F, _P], _I),
+                            _F, _U, _P], _I),
     # dtype, B, Din, Dout → workspace bytes
     "eid_projection_bwd_workspace": ([_I, _I, _I, _I], _LL),
     # dtype, x, g (fp32), w[6], wi^T, wr^T (null for bfloat16), dx, out[3],
     # ws, B, Din, Dout, drop mode, mask, seed (device), thresh, keep value,
-    # stream
+    # sample0, stream
     "eid_projection_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _P, _P, _U, _F, _P], _I),
+                            _I, _P, _P, _U, _F, _U, _P], _I),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -35,7 +35,9 @@ Dropout, three modes (as in the JAX kernel):
   ``ops/philox.py``).
   Each mask element is a pure function of (seed, global sample index, site,
   element index): key (seed, sample), counter (element // 4, site, 0, 0),
-  word element % 4. Keep iff ``bits < uint32(keep · 0xFFFFFFFF)``, value
+  word element % 4. The global index of a call's first sample is
+  ``sample0`` (a data-parallel rank's offset in the global batch, 0
+  otherwise), so a rank draws the whole batch's masks for its rows. Keep iff ``bits < uint32(keep · 0xFFFFFFFF)``, value
   ``1/keep`` (rounded to x's dtype in the forward, fp32 in the backward, as
   the JAX kernels do). The bits differ from the TPU hardware generator's;
   only the keep rule and the purity are shared with it.
@@ -518,12 +520,15 @@ def attention_layer_backward_tiled(
 class _Dropout:
     """How a call drops out: mode "none", "masks" (four tensors in x's
     dtype) or "seed" (an int32 seed, a Python int or a one-element tensor,
-    and the rate)."""
+    the rate, and ``sample0``, the global index of the call's first
+    sample)."""
 
-    def __init__(self, masks=None, dropout_p: float = 0.0, seed=None):
+    def __init__(self, masks=None, dropout_p: float = 0.0, seed=None,
+                 sample0: int = 0):
         self.masks = masks
         self.p = dropout_p
         self.seed = seed
+        self.sample0 = int(sample0)
         if masks is not None:
             self.mode = "masks"
         elif dropout_p > 0.0 and seed is not None:
@@ -538,12 +543,13 @@ class _Dropout:
         if self.mode == "seed":
             B, L, D = x.shape
             return draw_keep_masks(self.seed, B, n_heads, L, D, d_ff, self.p,
-                                   device=x.device)
+                                   row0=self.sample0, device=x.device)
         return None
 
     def c_args(self, x: torch.Tensor):
-        """(mode, mask pointer array, seed pointer, threshold, keep value)
-        for the launchers; keeps the device seed alive on ``self``."""
+        """(mode, mask pointer array, seed pointer, threshold, keep value,
+        sample0) for the launchers; keeps the device seed alive on
+        ``self``."""
         ptrs = [0, 0, 0, 0]
         seed_ptr, thresh, value = 0, 0, 0.0
         if self.mode == "masks":
@@ -555,7 +561,8 @@ class _Dropout:
             seed_ptr = self.seed.data_ptr()
             thresh, value = keep_rule(self.p)
         return (_MODES[self.mode], (ctypes.c_void_p * 4)(*ptrs), seed_ptr,
-                ctypes.c_uint(thresh), ctypes.c_float(value))
+                ctypes.c_uint(thresh), ctypes.c_float(value),
+                ctypes.c_uint(self.sample0))
 
 
 def _check_shapes(x, p, n_heads, masks):
@@ -604,11 +611,9 @@ def _forward(x, p, n_heads, drop: _Dropout) -> torch.Tensor:
     ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
-    mode, mptrs, seed_ptr, thresh, value = drop.c_args(x)
     rc = lib.eid_attention_fwd(
         code, x.data_ptr(), weights, out.data_ptr(), ws.data_ptr(), B, L, D,
-        inner, FF, n_heads, mode, mptrs, seed_ptr, thresh, value,
-        _build.stream_of(x))
+        inner, FF, n_heads, *drop.c_args(x), _build.stream_of(x))
     name = {"none": "attention_fwd", "masks": "attention_fwd_masks",
             "seed": "attention_fwd_seed"}[drop.mode]
     _build.check(rc, name)
@@ -653,11 +658,10 @@ def _backward(x, p, g, n_heads, drop: _Dropout):
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
     wt_ptrs = _build.pointer_array(wt) if wt else (ctypes.c_void_p * 6)()
     outs = _build.pointer_array([d_wqkv, d_wo, d_w1, d_w2, d_vec])
-    mode, mptrs, seed_ptr, thresh, value = drop.c_args(x)
     rc = lib.eid_attention_bwd(
         code, x.data_ptr(), g.data_ptr(), weights, wt_ptrs, dx.data_ptr(),
-        outs, ws.data_ptr(), B, L, D, inner, FF, n_heads, mode, mptrs,
-        seed_ptr, thresh, value, _build.stream_of(x))
+        outs, ws.data_ptr(), B, L, D, inner, FF, n_heads, *drop.c_args(x),
+        _build.stream_of(x))
     _build.check(rc, "attention_bwd")
     _build.LAUNCHES["attention_bwd"] += 1
     grads = {"wq": d_wqkv[:, :inner], "wk": d_wqkv[:, inner:2 * inner],
@@ -706,7 +710,7 @@ class _AttentionLayer(torch.autograd.Function):
 
 def fused_attention_layer(x: torch.Tensor, params: dict, n_heads: int = 4, *,
                           masks: dict | None = None, dropout_p: float = 0.0,
-                          seed=None) -> torch.Tensor:
+                          seed=None, sample0: int = 0) -> torch.Tensor:
     """Fused post-norm attention layer: (B, L, D) → (B, L, D), differentiable.
 
     ``params``: wq,bq,wk,bk,wv,bv (D, H·hd), wo (H·hd, D), bo, ln1_s, ln1_b,
@@ -714,12 +718,15 @@ def fused_attention_layer(x: torch.Tensor, params: dict, n_heads: int = 4, *,
     cast to x's dtype, as the JAX launcher does, and their gradients come
     back through that cast. ``masks`` (dict of the four keep-masks) selects
     mask mode; ``dropout_p > 0`` with ``seed`` (int32, an int or a
-    one-element tensor, which may lie on the card) selects seed mode. A CPU
-    tensor runs the plain versions; a CUDA tensor launches the kernels
-    (float32 or bfloat16) or raises."""
+    one-element tensor, which may lie on the card) selects seed mode;
+    ``sample0`` is then the global index of x's first sample, so a
+    data-parallel rank holding rows r·B … r·B + B − 1 of the batch draws
+    what one call over the whole batch draws for them. A CPU tensor runs the
+    plain versions; a CUDA tensor launches the kernels (float32 or
+    bfloat16) or raises."""
     dt = x.dtype
     flat = [params[k].to(dt).contiguous() for k in PARAM_ORDER]
     if masks is not None:
         masks = {k: masks[k].to(x.device, dt).contiguous() for k in MASK_ORDER}
-    drop = _Dropout(masks, dropout_p, seed)
+    drop = _Dropout(masks, dropout_p, seed, sample0)
     return _AttentionLayer.apply(x.contiguous(), n_heads, drop, *flat)

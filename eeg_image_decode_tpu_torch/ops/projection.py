@@ -26,8 +26,8 @@ add, three modes (as in the JAX kernel):
   and widened to fp32 where it multiplies;
 - ``dropout_p`` + ``seed``: the mask is drawn inside both kernels by the
   Philox-4x32-10 of ``csrc/philox.cuh`` (site 4; :func:`draw_keep_mask` is
-  the same draw in tensor arithmetic): key (seed, global row), counter
-  (column // 4, 4, 0, 0), word column % 4; keep iff
+  the same draw in tensor arithmetic): key (seed, global row, the call's
+  first being ``sample0``), counter (column // 4, 4, 0, 0), word column % 4; keep iff
   ``bits < uint32(keep · 0xFFFFFFFF)``, value the fp32 ``1/keep``. The bits
   differ from the TPU hardware generator's; the keep rule and the purity
   are shared with it.
@@ -161,13 +161,15 @@ def projection_head_backward_reference(
 
 class _Dropout:
     """How a call drops out: mode "none", "mask" (one tensor in x's dtype)
-    or "seed" (an int32 seed, a Python int or a one-element tensor, and the
-    rate)."""
+    or "seed" (an int32 seed, a Python int or a one-element tensor, the
+    rate, and ``sample0``, the global index of the call's first row)."""
 
-    def __init__(self, mask=None, dropout_p: float = 0.0, seed=None):
+    def __init__(self, mask=None, dropout_p: float = 0.0, seed=None,
+                 sample0: int = 0):
         self.mask = mask
         self.p = dropout_p
         self.seed = seed
+        self.sample0 = int(sample0)
         if mask is not None:
             self.mode = "mask"
         elif dropout_p > 0.0 and seed is not None:
@@ -179,12 +181,13 @@ class _Dropout:
         """The mask the plain versions apply: as given, or drawn."""
         if self.mode == "seed":
             return draw_keep_mask(self.seed, x.shape[0], d_out, self.p,
-                                  device=x.device)
+                                  row0=self.sample0, device=x.device)
         return self.mask
 
     def c_args(self, x: torch.Tensor):
-        """(mode, mask pointer, seed pointer, threshold, keep value) for the
-        launchers; keeps the device seed alive on ``self``."""
+        """(mode, mask pointer, seed pointer, threshold, keep value,
+        sample0) for the launchers; keeps the device seed alive on
+        ``self``."""
         mask_ptr, seed_ptr, thresh, value = 0, 0, 0, 0.0
         if self.mode == "mask":
             mask_ptr = self.mask.data_ptr()
@@ -194,7 +197,8 @@ class _Dropout:
             self.seed = self.seed.to(x.device, torch.int32).reshape(1)
             seed_ptr = self.seed.data_ptr()
             thresh, value = keep_rule(self.p)
-        return _MODES[self.mode], mask_ptr, seed_ptr, thresh, value
+        return (_MODES[self.mode], mask_ptr, seed_ptr, thresh, value,
+                self.sample0)
 
 
 def _check_shapes(x, p, mask):
@@ -238,10 +242,9 @@ def _forward(x, p, drop: _Dropout) -> torch.Tensor:
     ws = torch.empty(max(ws_bytes, 1), dtype=torch.uint8, device=x.device)
     out = torch.empty((B, d_out), dtype=torch.float32, device=x.device)
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
-    mode, mask_ptr, seed_ptr, thresh, value = drop.c_args(x)
     rc = lib.eid_projection_fwd(
         code, x.data_ptr(), weights, out.data_ptr(), ws.data_ptr(), B, d_in,
-        d_out, mode, mask_ptr, seed_ptr, thresh, value, _build.stream_of(x))
+        d_out, *drop.c_args(x), _build.stream_of(x))
     name = _LAUNCH_NAMES[drop.mode]
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
@@ -279,11 +282,10 @@ def _backward(x, p, g, drop: _Dropout):
     weights = _build.pointer_array([p[k] for k in PARAM_ORDER])
     # dWi, dWr and the vector [dbi dbr dln_s dln_b], which starts at dbi
     outs = _build.pointer_array([grads["wi"], grads["wr"], grads["bi"]])
-    mode, mask_ptr, seed_ptr, thresh, value = drop.c_args(x)
     rc = lib.eid_projection_bwd(
         code, x.data_ptr(), g.data_ptr(), weights, *wt_ptrs,
         dx.data_ptr(), outs, ws.data_ptr(), B, d_in, d_out,
-        mode, mask_ptr, seed_ptr, thresh, value, _build.stream_of(x))
+        *drop.c_args(x), _build.stream_of(x))
     _build.check(rc, "projection_bwd")
     _build.LAUNCHES["projection_bwd"] += 1
     return dx, grads
@@ -342,7 +344,8 @@ class _ProjectionHead(torch.autograd.Function):
 
 def fused_projection_head(x: torch.Tensor, params: dict,
                           mask: torch.Tensor | None = None,
-                          dropout_p: float = 0.0, seed=None) -> torch.Tensor:
+                          dropout_p: float = 0.0, seed=None,
+                          sample0: int = 0) -> torch.Tensor:
     """Fused head: (B, d_in) → (B, d_out) float32, differentiable.
 
     ``params``: wi (d_in, d_out), bi, wr (d_out, d_out), br, ln_s, ln_b in
@@ -351,11 +354,14 @@ def fused_projection_head(x: torch.Tensor, params: dict,
     bf16 they are rounded to bf16 first, as JAX's are). ``mask`` (B, d_out),
     a pre-scaled keep-mask, selects mask mode; ``dropout_p > 0`` with
     ``seed`` (int32, an int or a one-element tensor, which may lie on the
-    card) selects seed mode. A CPU tensor runs the plain versions; a CUDA
-    tensor launches the kernels (float32 or bfloat16) or raises."""
+    card) selects seed mode; ``sample0`` is then the global index of x's
+    first row, so a data-parallel rank holding rows r·B … r·B + B − 1 of
+    the batch draws what one call over the whole batch draws for them. A
+    CPU tensor runs the plain versions; a CUDA tensor launches the kernels
+    (float32 or bfloat16) or raises."""
     dt = x.dtype
     flat = [params[k].to(dt).contiguous() for k in PARAM_ORDER]
     if mask is not None:
         mask = mask.to(x.device, dt).contiguous()
-    drop = _Dropout(mask, dropout_p, seed)
+    drop = _Dropout(mask, dropout_p, seed, sample0)
     return _ProjectionHead.apply(x.contiguous(), drop, *flat)

@@ -36,8 +36,21 @@ PyTorch; there is no fallback.
   (``cfg.host_dtype="bfloat16"`` keeps the host copy in bf16, half the bytes
   a batch); the CLIP feature tables and the test split stay on the card.
   The batches, the generator and the step are the resident mode's, so the
-  two modes train the same run. The mesh and ``shard_samples`` are not
-  ported yet (ROADMAP.md).
+  two modes train the same run.
+- **Data parallel** (``mesh=``, ``core/mesh.py``): the step of the global
+  batch, as the JAX trainer's GSPMD program computes it. Each rank takes its
+  B/dp columns of the epoch's permutation, runs the model on its rows inside
+  ``parallel/collectives.py::data_parallel`` (BatchNorm's statistics over
+  the global batch, the dropout masks drawn for it, the kernels' seeded
+  masks at the rank's global sample offset), gathers the features and the
+  batch's target indices from every rank, and computes the global loss and
+  probe on the gathered batch; the parameter gradients are averaged over
+  the dp group before AdamW. ``shard_samples=True`` keeps only the rank's
+  N/dp rows of the split on its card, batches drawn shard-locally
+  (:func:`sharded_epoch_perm`, the JAX arrays); ``streaming`` streams the
+  rank's B/dp rows a step. Only rank 0 writes ``results.csv``, checkpoints,
+  ``summary.png`` and exported features; every rank can ``resume()`` from
+  the same checkpoint.
 """
 
 from __future__ import annotations
@@ -55,12 +68,20 @@ import torch
 
 from eeg_image_decode_tpu_torch.core.checkpoint import TrainState
 from eeg_image_decode_tpu_torch.core.config import ContrastiveTrainConfig
+from eeg_image_decode_tpu_torch.core.mesh import validate_dp_batch
 from eeg_image_decode_tpu_torch.data.loader import PrefetchLoader
 from eeg_image_decode_tpu_torch.data.things_eeg import EEGRetrievalData
 from eeg_image_decode_tpu_torch.losses import (
     reconstruction_loss,
     retrieval_loss,
 )
+from eeg_image_decode_tpu_torch.parallel.collectives import (
+    all_gather_rows,
+    data_parallel,
+    gather_rows,
+    pmean_tree,
+)
+from eeg_image_decode_tpu_torch.parallel.multihost import process_local_slice
 from eeg_image_decode_tpu_torch.train.evaluator import retrieval_eval
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
 
@@ -89,18 +110,22 @@ class DeviceData:
     class_img_feat: torch.Tensor  # (n_cls, D) probe features
 
     @staticmethod
-    def from_host(data: EEGRetrievalData, device) -> "DeviceData":
-        """The split on ``device``; arrays already there are not copied."""
-        def put(a, dtype):
-            return torch.as_tensor(a).to(device=device, dtype=dtype)
+    def from_host(data: EEGRetrievalData, device, *,
+                  rows: slice = slice(None)) -> "DeviceData":
+        """The split on ``device``; arrays already there are not copied.
+        ``rows``: the per-sample arrays' rows to keep (a rank's shard in
+        ``shard_samples`` mode); the feature tables are kept whole."""
+        def put(a, dtype, sl=slice(None)):
+            return torch.as_tensor(a)[sl].to(device=device, dtype=dtype)
 
         f32, i64 = torch.float32, torch.int64
         return DeviceData(
-            eeg=put(data.eeg, f32), labels=put(data.labels, i64),
-            subject_ids=put(data.subject_ids, i64),
+            eeg=put(data.eeg, f32, rows), labels=put(data.labels, i64, rows),
+            subject_ids=put(data.subject_ids, i64, rows),
             img_feat=put(data.img_features, f32),
             text_feat=put(data.text_features, f32),
-            img_idx=put(data.img_idx, i64), text_idx=put(data.text_idx, i64),
+            img_idx=put(data.img_idx, i64, rows),
+            text_idx=put(data.text_idx, i64, rows),
             class_img_feat=put(data.class_img_features(), f32))
 
 
@@ -113,38 +138,81 @@ def epoch_permutation(n: int, batch: int, seed: int, epoch: int) -> np.ndarray:
             .reshape(n_steps, batch).astype(np.int32))
 
 
+def sharded_epoch_perm(n: int, batch: int, dp: int, seed: int,
+                       epoch: int) -> np.ndarray:
+    """The shard-local (n_steps, batch) schedule of ``shard_samples``
+    mode (the JAX trainer's formula): column block d (width batch/dp) holds
+    indices into rank d's shard [0, n/dp), each rank an independent
+    permutation of its own shard per epoch, so every sample is visited once
+    an epoch."""
+    if n % dp or batch % dp:
+        raise ValueError(
+            f"n={n} and batch={batch} must both be divisible by the "
+            f"data-parallel axis (dp={dp})")
+    n_local, b_local = n // dp, batch // dp
+    n_steps = n // batch
+    cols = []
+    for d in range(dp):
+        rng = np.random.default_rng(seed * 100003 + epoch * 1009 + d)
+        cols.append(rng.permutation(n_local)[: n_steps * b_local]
+                    .reshape(n_steps, b_local))
+    return np.concatenate(cols, axis=1).astype(np.int32)
+
+
+def sharded_perm_rows(perm: np.ndarray, n: int, dp: int) -> np.ndarray:
+    """The global rows of a :func:`sharded_epoch_perm` schedule: column
+    block d's local index i is row d·n/dp + i of the split."""
+    b_local = perm.shape[1] // dp
+    shard = np.arange(perm.shape[1]) // b_local
+    return (perm + shard[None, :] * (n // dp)).astype(np.int32)
+
+
 #: the per-sample arrays of a batch; the feature rows come from the tables
 SAMPLE_FIELDS = ("eeg", "subject_ids", "img_idx", "text_idx", "labels")
 
 
 def with_features(rows: dict, img_feat: torch.Tensor,
-                  text_feat: torch.Tensor) -> dict:
+                  text_feat: torch.Tensor, mesh=None) -> dict:
     """A step's batch from its per-sample rows (on the device): the EEG in
     fp32 (a bf16 host copy is upcast here), the subject ids and labels, and
     the two feature rows gathered from the tables by ``img_idx`` and
-    ``text_idx``."""
+    ``text_idx``. Under a ``mesh`` the rows are the rank's; the labels and
+    the feature rows are the global batch's (one all-gather of the three
+    index columns), what the loss and the probe take."""
+    idx = torch.stack([rows["img_idx"], rows["text_idx"], rows["labels"]],
+                      dim=1)
+    if mesh is not None:
+        idx = all_gather_rows(idx, mesh.dp_group)
     return {
         "eeg": rows["eeg"].float(),
         "subject_ids": rows["subject_ids"],
-        "img_feat": img_feat.index_select(0, rows["img_idx"]),
-        "text_feat": text_feat.index_select(0, rows["text_idx"]),
-        "labels": rows["labels"],
+        "img_feat": img_feat.index_select(0, idx[:, 0]),
+        "text_feat": text_feat.index_select(0, idx[:, 1]),
+        "labels": idx[:, 2],
     }
 
 
-def _batch(data: DeviceData, idx: torch.Tensor) -> dict:
+def _batch(data: DeviceData, idx: torch.Tensor, mesh=None) -> dict:
     return with_features(
         {k: getattr(data, k).index_select(0, idx) for k in SAMPLE_FIELDS},
-        data.img_feat, data.text_feat)
+        data.img_feat, data.text_feat, mesh)
 
 
 def batch_loss(model: torch.nn.Module, cfg: ContrastiveTrainConfig,
-               batch: dict, *, generator=None, dropout_masks=None):
+               batch: dict, *, generator=None, dropout_masks=None,
+               mesh=None):
     """(loss, fp32 features) of one batch through the model's current mode:
-    the trainer's objective (retrieval, or reconstruction)."""
-    feats, scale = model(batch["eeg"], batch["subject_ids"],
-                         generator=generator, dropout_masks=dropout_masks)
+    the trainer's objective (retrieval, or reconstruction). Under a
+    ``mesh`` the model runs on the rank's rows in a data-parallel scope and
+    the loss on the gathered features of the global batch (the batch's
+    feature rows are global already: :func:`with_features`)."""
+    with data_parallel(mesh):
+        feats, scale = model(batch["eeg"], batch["subject_ids"],
+                             generator=generator,
+                             dropout_masks=dropout_masks)
     feats = feats.float()
+    if mesh is not None:
+        feats = gather_rows(feats, mesh)
     if cfg.recon_loss:
         loss = reconstruction_loss(feats, batch["img_feat"], scale,
                                    alpha=cfg.recon_alpha)
@@ -157,10 +225,12 @@ def batch_loss(model: torch.nn.Module, cfg: ContrastiveTrainConfig,
 def train_steps(state: TrainState, cfg: ContrastiveTrainConfig,
                 batches: Iterable[dict], n_steps: int,
                 class_img_feat: torch.Tensor,
-                generator: torch.Generator | None) -> dict:
+                generator: torch.Generator | None, mesh=None) -> dict:
     """The training step over ``n_steps`` batches (:func:`with_features`
     dicts on the device), resident or streamed: AdamW on ``state`` in place,
-    the loss and the probe accuracy kept on the device.
+    the loss and the probe accuracy kept on the device. Under a ``mesh``
+    the gradients are averaged over the dp group before the update, and the
+    loss and the probe are the global batch's (the same on every rank).
 
     Returns ``loss`` and ``train_acc`` (epoch means, device tensors),
     ``step_loss`` (n_steps,), and on a CUDA device ``step_ms``, each step's
@@ -177,9 +247,12 @@ def train_steps(state: TrainState, cfg: ContrastiveTrainConfig,
         events[0].record()
     s = -1
     for s, batch in enumerate(batches):
-        loss, feats = batch_loss(model, cfg, batch, generator=generator)
+        loss, feats = batch_loss(model, cfg, batch, generator=generator,
+                                 mesh=mesh)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            pmean_tree(model.parameters(), mesh)
         opt.step()
         state.step += 1
         with torch.no_grad():
@@ -200,19 +273,20 @@ def train_steps(state: TrainState, cfg: ContrastiveTrainConfig,
     return out
 
 
-def make_epoch_fn(cfg: ContrastiveTrainConfig) -> Callable:
+def make_epoch_fn(cfg: ContrastiveTrainConfig, mesh=None) -> Callable:
     """The resident one-epoch function ``(state, data, perm (n_steps, B) on
     the device, generator) →`` :func:`train_steps`' metrics, each batch
     gathered from ``data`` on the device. It trains ``state.model`` in
-    place."""
+    place. Under a ``mesh`` ``perm`` holds the rank's B/dp columns (of
+    ``epoch_permutation``, or of ``sharded_epoch_perm`` over a shard)."""
 
     def epoch_fn(state: TrainState, data: DeviceData, perm: torch.Tensor,
                  generator: torch.Generator | None) -> dict:
         dev = data.eeg.device
-        batches = (_batch(data, perm[s].to(dev, torch.int64))
+        batches = (_batch(data, perm[s].to(dev, torch.int64), mesh)
                    for s in range(perm.shape[0]))
         return train_steps(state, cfg, batches, perm.shape[0],
-                           data.class_img_feat, generator)
+                           data.class_img_feat, generator, mesh)
 
     return epoch_fn
 
@@ -252,13 +326,32 @@ class ContrastiveTrainer:
     batches through a :class:`PrefetchLoader` (``cfg.host_dtype``, the host
     copy's dtype); the feature tables and the test split stay on the
     device. The batch order, the generator and the step are the resident
-    mode's, so both train the same run. :meth:`close` stops the loader."""
+    mode's, so both train the same run. :meth:`close` stops the loader.
+
+    ``mesh`` (``core/mesh.py::create_mesh``): data-parallel training of the
+    global batch over the mesh's dp group, on the mesh's device (every rank
+    builds the trainer from the same model, seed and data).
+    ``shard_samples=True`` (needs a mesh) keeps only the rank's N/dp rows of
+    the split on its device; it and ``streaming`` exclude each other."""
 
     def __init__(self, model: torch.nn.Module, cfg: ContrastiveTrainConfig,
                  train_data: EEGRetrievalData, test_data: EEGRetrievalData,
                  *, output_dir: str | None = None, checkpointer=None,
-                 device=None, streaming: bool = False):
-        self.device = resolve_device(device)
+                 device=None, streaming: bool = False, mesh=None,
+                 shard_samples: bool = False):
+        if streaming and shard_samples:
+            raise ValueError(
+                "streaming and shard_samples are mutually exclusive "
+                "residency modes (host-streamed vs device-sharded)")
+        if shard_samples and mesh is None:
+            raise ValueError("shard_samples=True requires a mesh")
+        validate_dp_batch(mesh, cfg.batch_size)
+        self.mesh = mesh
+        self.shard_samples = shard_samples
+        #: rank 0 (or the one process) writes the run's files
+        self.is_writer = mesh is None or mesh.rank == 0
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     and device is None else device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.output_dir = output_dir
@@ -279,12 +372,17 @@ class ContrastiveTrainer:
                     "cpu", torch.float32 if k == "eeg" else torch.int64)
                  for k in SAMPLE_FIELDS},
                 cfg.batch_size, seed=cfg.seed, host_dtype=cfg.host_dtype,
-                device=self.device)
+                device=self.device,
+                shard=(0, 1) if mesh is None else (mesh.dp_rank, mesh.dp))
             self.data = None
             self.img_feat, self.text_feat, self.class_img_feat = (
                 torch.as_tensor(a).to(self.device, torch.float32)
                 for a in (train_data.img_features, train_data.text_features,
                           train_data.class_img_features()))
+        elif shard_samples:
+            self.data = DeviceData.from_host(
+                train_data, self.device,
+                rows=process_local_slice(train_data.n, mesh))
         else:
             self.data = DeviceData.from_host(train_data, self.device)
         test = DeviceData.from_host(test_data, self.device)
@@ -293,7 +391,7 @@ class ContrastiveTrainer:
         self.test_labels = test.labels
         self.test_class_img_feat = test.class_img_feat
         self.state = create_train_state(self.model, cfg)
-        self.epoch_fn = make_epoch_fn(cfg)
+        self.epoch_fn = make_epoch_fn(cfg, mesh)
         self.eval_fn = make_eval_features_fn(self.model)
         self.history: list[dict] = []
         self.start_epoch = 0
@@ -336,22 +434,41 @@ class ContrastiveTrainer:
         if self.loader is not None:
             self.loader.close()
 
-    def train_epoch(self, epoch: int) -> dict:
+    def epoch_perm(self, epoch: int) -> np.ndarray:
+        """The epoch's (n_steps, B) schedule over the global batch:
+        :func:`epoch_permutation`, or in ``shard_samples`` mode
+        :func:`sharded_epoch_perm` (shard-local indices)."""
+        n, bs = self.train_host.n, self.cfg.batch_size
+        if self.shard_samples:
+            return sharded_epoch_perm(n, bs, self.mesh.dp, self.cfg.seed,
+                                      epoch)
+        return epoch_permutation(n, bs, self.cfg.seed, epoch)
+
+    def train_epoch(self, epoch: int, perm: np.ndarray | None = None
+                    ) -> dict:
+        """One epoch: the schedule of :meth:`epoch_perm`, or ``perm``
+        (n_steps, B) given (resident modes), each rank taking its B/dp
+        columns under a mesh."""
         bs = self.cfg.batch_size
         generator = self._generator(self.cfg.seed + 7919 * epoch)
         t0 = time.perf_counter()
         if self.streaming:
             # the loader permutes with epoch_permutation's formula, so both
             # modes see the same batches in the same order
+            if perm is not None:
+                raise ValueError("a streamed epoch takes the loader's order")
             n_steps = len(self.loader)
-            batches = (with_features(rows, self.img_feat, self.text_feat)
+            batches = (with_features(rows, self.img_feat, self.text_feat,
+                                     self.mesh)
                        for rows in self.loader.epoch(epoch))
             out = train_steps(self.state, self.cfg, batches, n_steps,
-                              self.class_img_feat, generator)
+                              self.class_img_feat, generator, self.mesh)
         else:
-            perm = torch.as_tensor(
-                epoch_permutation(self.train_host.n, bs, self.cfg.seed,
-                                  epoch), device=self.device)
+            perm = self.epoch_perm(epoch) if perm is None else perm
+            if self.mesh is not None:
+                perm = perm[:, self.mesh.rows(perm.shape[1])]
+            perm = torch.as_tensor(np.ascontiguousarray(perm),
+                                   device=self.device)
             n_steps = perm.shape[0]
             out = self.epoch_fn(self.state, self.data, perm, generator)
         metrics = {"loss": float(out["loss"]),  # the epoch's one sync
@@ -387,22 +504,23 @@ class ContrastiveTrainer:
             eval_metrics = self.evaluate(epoch)
             row = {"epoch": epoch, **train_metrics, **eval_metrics}
             self.history.append(row)
-            if log_fn:
+            if log_fn and self.is_writer:
                 k200 = eval_metrics.get("top1_k200",
                                         eval_metrics.get("top1_k2", 0))
                 log_fn(f"epoch {epoch}: loss={train_metrics['loss']:.4f} "
                        f"train_acc={train_metrics['train_acc']:.4f} "
                        f"test_top1={k200:.4f} "
                        f"({train_metrics['samples_per_s']:.0f} samples/s)")
-            if (self.checkpointer is not None
+            if (self.checkpointer is not None and self.is_writer
                     and (epoch + 1) % self.cfg.ckpt_every_epochs == 0):
                 self.checkpointer.save(epoch + 1, self.state)
-            if self.output_dir:
+            if self.output_dir and self.is_writer:
                 self._write_csv()  # kept current so a killed run can resume
-        if (self.checkpointer is not None and epochs > self.start_epoch
+        if (self.checkpointer is not None and self.is_writer
+                and epochs > self.start_epoch
                 and self.checkpointer.latest_step() != epochs):
             self.checkpointer.save(epochs, self.state)  # final state
-        if self.output_dir:
+        if self.output_dir and self.is_writer:
             self._plot_summary()
         return self.history
 
@@ -433,14 +551,20 @@ class ContrastiveTrainer:
             chunks.append(f.cpu().numpy())
         return np.concatenate(chunks, axis=0)
 
-    def export_features(self, path: str) -> str:
+    def export_features(self, path: str) -> str | None:
         """Save train and test EEG features with the aligned CLIP targets as
         one ``.npz``: the artifact the diffusion-prior trainer consumes (the
-        reference's ``ATM_S_eeg_features_sub-08{,_test}.pt`` pair)."""
+        reference's ``ATM_S_eeg_features_sub-08{,_test}.pt`` pair). Under a
+        mesh rank 0 writes it (the others return None)."""
+        if not self.is_writer:
+            return None
+
         def host(a):
             return (a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a))
 
-        src = self.train_host if self.streaming else self.data
+        # the whole split: on the device unless it is streamed or sharded
+        src = (self.train_host if self.streaming or self.shard_samples
+               else self.data)
         train_feats = self.extract_features(src.eeg, src.subject_ids)
         test_feats = self.extract_features(self.test_eeg,
                                            self.test_subject_ids)

@@ -21,6 +21,13 @@ and under cuDNN's ``deterministic=True``, so a run and its resumed copy
 take the same algorithms and give the same bits. Plain PyTorch: no TPU
 kernel lies on this path.
 
+Under a ``mesh`` (``core/mesh.py``) training is data parallel as the JAX
+trainer's GSPMD epoch is: the EEG and the latents stay whole on every rank,
+each rank takes its B/dp columns of the permutation, BatchNorm's two passes
+run over the global batch (``models/lowlevel.py``), and the gradients are
+averaged over the dp group before AdamW; the loss read back is the dp mean.
+Rank 0 writes the checkpoints and the previews.
+
 With :meth:`LowLevelTrainer.set_preview_decoder` the trainer decodes a few
 predicted latents through a frozen SDXL VAE (``gen/vae.py``) to PNGs every
 ``preview_every`` epochs and after the last, as the reference does during
@@ -42,7 +49,13 @@ from eeg_image_decode_tpu_torch.core.checkpoint import (
     save_history,
 )
 from eeg_image_decode_tpu_torch.core.config import LowLevelConfig
+from eeg_image_decode_tpu_torch.core.mesh import validate_dp_batch
 from eeg_image_decode_tpu_torch.models.lowlevel import EncoderLowLevel
+from eeg_image_decode_tpu_torch.parallel.collectives import (
+    data_parallel,
+    mean_over_ranks,
+    pmean_tree,
+)
 from eeg_image_decode_tpu_torch.train.optim import OptaxAdam
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
 
@@ -63,11 +76,16 @@ def cosine_staircase(lr: float, epoch: int, t_max: int) -> float:
 class LowLevelTrainer:
     """The trainer on ``device`` (default: the CUDA card; raises without
     one; ``device="cpu"`` for the CPU). ``model``: an
-    :class:`EncoderLowLevel` (default: the published widths of ``cfg``)."""
+    :class:`EncoderLowLevel` (default: the published widths of ``cfg``).
+    ``mesh``: data parallel over its dp group, on its device."""
 
     def __init__(self, cfg: LowLevelConfig = LowLevelConfig(), *,
-                 model: EncoderLowLevel | None = None, device=None):
-        self.device = resolve_device(device)
+                 model: EncoderLowLevel | None = None, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     and device is None else device)
         # full fp32 products: no TF32 in matmuls (cuDNN: CUDNN_FLAGS)
         torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
@@ -142,9 +160,11 @@ class LowLevelTrainer:
         n = eeg.shape[0]
         n_steps = max(n // batch_size, 1)
         rng = np.random.default_rng(seed * 7907 + epoch)
-        perm = torch.as_tensor(
-            rng.permutation(n)[: n_steps * batch_size].reshape(
-                n_steps, batch_size), device=dev)
+        perm = rng.permutation(n)[: n_steps * batch_size].reshape(
+            n_steps, batch_size)
+        if self.mesh is not None:  # this rank's columns
+            perm = perm[:, self.mesh.rows(batch_size)]
+        perm = torch.as_tensor(np.ascontiguousarray(perm), device=dev)
         losses = torch.empty(n_steps, device=dev)
         timed = dev.type == "cuda"
         events = [torch.cuda.Event(enable_timing=True)
@@ -166,13 +186,17 @@ class LowLevelTrainer:
         model, opt = self.model, self.state.optimizer
         for s in range(perm.shape[0]):
             idx = perm[s]
-            pred = model(eeg.index_select(0, idx), train=True)
+            with data_parallel(self.mesh):
+                pred = model(eeg.index_select(0, idx), train=True)
             loss = torch.mean(torch.abs(pred - lat.index_select(0, idx)))
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if self.mesh is not None:
+                pmean_tree(model.parameters(), self.mesh)
             opt.step()
             self.state.step += 1
-            losses[s] = loss.detach()
+            losses[s] = (loss.detach() if self.mesh is None
+                         else mean_over_ranks(loss, self.mesh))
             if events:
                 events[s + 1].record()
 
@@ -198,6 +222,7 @@ class LowLevelTrainer:
                 "latents file needs one latent per trial (per-image latents "
                 "repeated over the repetitions)")
         batch_size = min(batch_size or cfg.batch_size, n)
+        validate_dp_batch(self.mesh, batch_size)
         n_steps = max(n // batch_size, 1)
         if self.state is None:
             self.init(total_steps=n_steps * epochs, steps_per_epoch=n_steps,
@@ -225,18 +250,21 @@ class LowLevelTrainer:
                     f"non-finite low-level loss {loss} at epoch {epoch}")
             history.append({"epoch": epoch, "loss": loss,
                             "epoch_time_s": time.perf_counter() - t0})
-            if log_fn and epoch % max(1, epochs // 10) == 0:
+            if log_fn and self.is_writer and epoch % max(1, epochs // 10) == 0:
                 log_fn(f"lowlevel epoch {epoch}: L1={loss:.4f}")
-            if self._preview and (epoch + 1) % self._preview["every"] == 0:
+            if (self._preview and self.is_writer
+                    and (epoch + 1) % self._preview["every"] == 0):
                 self._write_previews(epoch, eeg_all)
-            if checkpointer is not None and (epoch + 1) % ckpt_every_epochs == 0:
+            if (checkpointer is not None and self.is_writer
+                    and (epoch + 1) % ckpt_every_epochs == 0):
                 checkpointer.save(epoch + 1, self.state)
                 save_history(checkpointer, history)
-        if checkpointer is not None and epochs > start_epoch:
+        if (checkpointer is not None and self.is_writer
+                and epochs > start_epoch):
             if checkpointer.latest_step() != epochs:
                 checkpointer.save(epochs, self.state)
             save_history(checkpointer, history)
-        if (self._preview and epochs > start_epoch
+        if (self._preview and self.is_writer and epochs > start_epoch
                 and epochs % self._preview["every"] != 0):
             self._write_previews(epochs - 1, eeg_all)  # final previews
         return history

@@ -17,6 +17,13 @@
   "config", "params"}``, params a flax-layout tree of numpy arrays), read
   without importing JAX; each package reads the other's.
 
+Under a ``mesh`` (``core/mesh.py``) training is data parallel as the JAX
+pipe's GSPMD epoch is: the pairs stay whole on every rank, each rank takes
+its B/dp columns of the permutation, draws ε and t for the global batch and
+keeps its rows (the same generator on every rank), and the gradients are
+averaged over the dp group before the clip and the update; the loss read
+back is the dp mean. Rank 0 writes the checkpoints.
+
 Plain PyTorch: the prior is plain XLA in the JAX package, so no TPU kernel
 lies on this path.
 """
@@ -38,11 +45,18 @@ from eeg_image_decode_tpu_torch.core.checkpoint import (
     save_history,
 )
 from eeg_image_decode_tpu_torch.core.config import PriorConfig
+from eeg_image_decode_tpu_torch.core.mesh import validate_dp_batch
 from eeg_image_decode_tpu_torch.models.diffusion_prior import (
     DiffusionPriorUNet,
     init_flax_defaults,
 )
 from eeg_image_decode_tpu_torch.ops.ddpm import DDPMSchedule, make_cfg_sampler
+from eeg_image_decode_tpu_torch.parallel.collectives import (
+    data_parallel,
+    draw_rows,
+    mean_over_ranks,
+    pmean_tree,
+)
 from eeg_image_decode_tpu_torch.train.optim import OptaxAdam
 from eeg_image_decode_tpu_torch.utils.convert import (
     flax_from_params,
@@ -81,14 +95,19 @@ def make_prior_optimizer(params, cfg: PriorConfig,
 class PriorPipe:
     """Train and sample wrapper around :class:`DiffusionPriorUNet` (the
     reference's ``Pipe``), on ``device`` (default: the CUDA card; raises
-    without one; ``device="cpu"`` for the CPU)."""
+    without one; ``device="cpu"`` for the CPU), data parallel over
+    ``mesh`` when one is given (on the mesh's device)."""
 
     #: config fields that determine the parameter tree's architecture
     ARCH_FIELDS = ("embed_dim", "cond_dim", "hidden_dims", "time_embed_dim")
 
     def __init__(self, cfg: PriorConfig = PriorConfig(), *,
-                 model: DiffusionPriorUNet | None = None, device=None):
-        self.device = resolve_device(device)
+                 model: DiffusionPriorUNet | None = None, device=None,
+                 mesh=None):
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     and device is None else device)
         self.cfg = cfg
         self.model = (model or DiffusionPriorUNet(
             embed_dim=cfg.embed_dim, cond_dim=cfg.cond_dim,
@@ -140,6 +159,8 @@ class PriorPipe:
         opt = self.state.optimizer
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            pmean_tree(self.model.parameters(), self.mesh)
         opt.step()
         self.state.step += 1
 
@@ -157,10 +178,12 @@ class PriorPipe:
         for s in range(n_steps):
             h, c, t, noise, mask, train, gen = batch_fn(s)
             self.model.train(train)
-            loss = self._loss(h, c, t, noise, mask, train=train,
-                              generator=gen)
+            with data_parallel(self.mesh):
+                loss = self._loss(h, c, t, noise, mask, train=train,
+                                  generator=gen)
             self._update(loss)
-            losses[s] = loss.detach()
+            losses[s] = (loss.detach() if self.mesh is None
+                         else mean_over_ranks(loss, self.mesh))
             norms[s] = self.state.optimizer.last_grad_norm
             if timed:
                 events[s + 1].record()
@@ -176,14 +199,18 @@ class PriorPipe:
     def train_epoch(self, epoch: int, c_all: torch.Tensor,
                     h_all: torch.Tensor, batch_size: int) -> torch.Tensor:
         """One epoch over the device-resident pairs: the permutation and the
-        generator derive from (seed, epoch). Returns the per-step losses."""
+        generator derive from (seed, epoch). Returns the per-step losses.
+        Under a mesh each rank takes its B/dp columns of the permutation and
+        its rows of the global batch's ε and t."""
         cfg, dev = self.cfg, self.device
         n = c_all.shape[0]
         n_steps = max(n // batch_size, 1)
         rng = np.random.default_rng(cfg.seed * 9176 + epoch)
-        perm = torch.as_tensor(
-            rng.permutation(n)[: n_steps * batch_size].reshape(
-                n_steps, batch_size), device=dev)
+        perm = rng.permutation(n)[: n_steps * batch_size].reshape(
+            n_steps, batch_size)
+        if self.mesh is not None:
+            perm = perm[:, self.mesh.rows(batch_size)]
+        perm = torch.as_tensor(np.ascontiguousarray(perm), device=dev)
         gen = torch.Generator(device=dev).manual_seed(cfg.seed * 9176 + epoch)
 
         def batch(s):
@@ -192,9 +219,12 @@ class PriorPipe:
             # whole-batch cond dropout with p = 0.1 (ref :303-305)
             keep = (torch.rand((), generator=gen, device=dev)
                     >= cfg.cond_dropout_prob).float()
-            noise = torch.randn(h.shape, generator=gen, device=dev)
-            t = torch.randint(0, cfg.num_train_timesteps, (h.shape[0],),
-                              generator=gen, device=dev)
+            with data_parallel(self.mesh):  # the global batch's draws
+                noise = draw_rows(lambda shape: torch.randn(
+                    shape, generator=gen, device=dev), h.shape)
+                t = draw_rows(lambda shape: torch.randint(
+                    0, cfg.num_train_timesteps, shape, generator=gen,
+                    device=dev), (h.shape[0],))
             return h, c, t, noise, keep.expand(h.shape[0]), True, gen
 
         return self._run_epoch(n_steps, batch)
@@ -241,6 +271,7 @@ class PriorPipe:
             raise ValueError(f"{n} EEG features against "
                              f"{int(h_embeddings.shape[0])} image embeddings")
         batch_size = min(batch_size or cfg.batch_size, n)
+        validate_dp_batch(self.mesh, batch_size)
         n_steps = max(n // batch_size, 1)
         if self.state is None:
             self.init(total_steps=n_steps * epochs)
@@ -274,13 +305,15 @@ class PriorPipe:
                     f"non-finite prior loss {loss} at epoch {epoch}")
             dt = time.perf_counter() - t0
             history.append({"epoch": epoch, "loss": loss, "epoch_time_s": dt})
-            if log_fn and (epoch % max(1, epochs // 20) == 0
-                           or epoch == epochs - 1):
+            if log_fn and self.is_writer and (
+                    epoch % max(1, epochs // 20) == 0 or epoch == epochs - 1):
                 log_fn(f"prior epoch {epoch}: loss={loss:.4f} ({dt:.2f}s)")
-            if checkpointer is not None and (epoch + 1) % ckpt_every_epochs == 0:
+            if (checkpointer is not None and self.is_writer
+                    and (epoch + 1) % ckpt_every_epochs == 0):
                 checkpointer.save(epoch + 1, self.state)
                 save_history(checkpointer, history)
-        if checkpointer is not None and epochs > start_epoch:
+        if (checkpointer is not None and self.is_writer
+                and epochs > start_epoch):
             if checkpointer.latest_step() != epochs:
                 checkpointer.save(epochs, self.state)
             save_history(checkpointer, history)

@@ -8,7 +8,7 @@
   with ``--device cpu`` on a tree written by
   ``data/synthetic.py::write_synthetic_things_tree``; ``evaluate`` returns
   the trainer's own last evaluation; the scale-out flags (``--mesh``,
-  ``--multihost``, ``--shard-data``) are refused.
+  ``--multihost``, ``--shard-data``) run or name what they need.
 """
 
 import csv
@@ -32,6 +32,8 @@ from eeg_image_decode_tpu_torch.data.features import (
 from eeg_image_decode_tpu_torch.data.synthetic import (
     write_synthetic_things_tree,
 )
+from torch_port_case import run_cli_child
+
 
 SUBJECTS = ("sub-01", "sub-02")
 
@@ -189,11 +191,29 @@ def test_cli_train_resume_evaluate_and_sweep(tree, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--mesh", "--multihost", "--shard-data"])
-def test_cli_refuses_scale_out_flags_naming_the_roadmap(tree, flag):
+def test_cli_refuses_scale_out_flags_naming_the_roadmap(tree, flag, tmp_path,
+                                                       monkeypatch):
+    """The scale-out flags are ported (ROADMAP.md §1 item 3): each runs, or
+    exits naming what it needs. ``--mesh`` without a launcher on the CPU is
+    one rank (in a child process: the group outlives the call);
+    ``--multihost`` needs the launcher's variables and ``--shard-data`` a
+    mesh."""
     root, feats = tree
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main(["train-retrieval", "--data-path", root, "--features", feats,
-                  "--device", "cpu", flag])
+    argv = ["train-retrieval", "--data-path", root, "--features", feats,
+            "--device", "cpu", "--dtype", "float32", "--eval-ks", "2,3",
+            "--batch-size", "4", "--train-reps", "1", "--epochs", "1",
+            "--output-dir", str(tmp_path), flag]
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    if flag == "--mesh":
+        lines = run_cli_child(argv)
+        assert "mesh: 1 rank(s), backend gloo" in lines
+        assert np.isfinite(json.loads(lines[-1])["loss"])
+        return
+    want = {"--multihost": "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT",
+            "--shard-data": "--shard-data needs --mesh"}[flag]
+    with pytest.raises(SystemExit, match=want):
+        cli.main(argv)
 
 
 def test_cli_other_encoders_and_missing_inputs_raise(tree):

@@ -6,7 +6,9 @@ no JAX, so it runs on a GPU host without JAX or the test suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Shapes: a small one with ragged widths (not multiples of 4, 16 or 32) and
-the full ATM-S serving width; float32 and bfloat16. At the end, the CLIP
+the full ATM-S serving width; float32 and bfloat16. The seeded attention
+and projection kernels launched over the second half of a batch at
+``sample0`` = half: the whole batch's rows, bit for bit. At the end, the CLIP
 towers of ``cli features`` (plain PyTorch, no kernel of the port) in
 bfloat16 against float32, and the command itself, on the card; the prior
 and low-level steps against the CPU; the tiny SDXL generator against the
@@ -415,6 +417,78 @@ def test_projection_bwd_kernel_on_card(cuda, dtype, b, d_in, d_out, mode):
         assert a.dtype == dtype and torch.isfinite(a.float()).all(), name
         err = _rel_err(a, w.to(dtype))
         assert err <= BWD_TOL[dtype], (name, err)
+
+
+# ——— sample0: a data-parallel rank's rows of a larger batch ———
+
+# (dtype, half batch): the training batch in bf16 (B 512 of 1024), a small
+# one in fp32
+SAMPLE0_CASES = [(torch.bfloat16, 512), (torch.float32, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,half", SAMPLE0_CASES)
+def test_attention_sample0_launch_is_its_rows_of_the_whole_batch(
+        cuda, dtype, half):
+    """At full ATM-S width, seed mode: the launch over the second half at
+    sample0 = half gives the whole batch's output and dx rows bit for bit,
+    and mask mode fed the plain draw at row0 = half gives the same."""
+    from eeg_image_decode_tpu_torch.ops.attention import draw_keep_masks
+
+    rng = np.random.default_rng(21)
+    d, heads, ff, length = 250, 4, 256, 64
+    b = 2 * half
+    x = torch.from_numpy(rng.normal(size=(b, length, d)).astype(
+        np.float32)).to(cuda, dtype)
+    gout = torch.from_numpy(rng.normal(size=(b, length, d)).astype(
+        np.float32)).to(cuda, dtype)
+    params = {k: v.to(cuda, dtype) for k, v in
+              _t(attention_params(rng, d, (d // heads) * heads, ff)).items()}
+    seed = torch.tensor([2024], dtype=torch.int32, device=cuda)
+
+    def run(xs, g, **kw):
+        xs = xs.detach().clone().requires_grad_()
+        out = fused_attention_layer(xs, params, heads, **kw)
+        return out.detach(), torch.autograd.grad(out, xs, g)[0]
+
+    whole, dx_whole = run(x, gout, dropout_p=0.25, seed=seed)
+    part, dx_part = run(x[half:], gout[half:], dropout_p=0.25, seed=seed,
+                        sample0=half)
+    masks = draw_keep_masks(2024, half, heads, length, d, ff, 0.25,
+                            row0=half, device=cuda)
+    via_masks, _ = run(x[half:], gout[half:], masks=masks)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[half:])
+    assert torch.equal(dx_part, dx_whole[half:])
+    assert torch.equal(part, via_masks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,half", SAMPLE0_CASES)
+def test_projection_sample0_launch_is_its_rows_of_the_whole_batch(
+        cuda, dtype, half):
+    """The fused head at 1440 → 1024 in seed mode: the launch over the
+    second half at sample0 = half gives the whole batch's output and dx rows
+    bit for bit, and mask mode fed ``draw_keep_mask(row0=half)`` the same
+    output."""
+    rng = np.random.default_rng(22)
+    b = 2 * half
+    x, params, g = _proj_case(rng, cuda, dtype, b, 1440, 1024)
+    params = {k: v.detach() for k, v in params.items()}
+
+    def run(xs, gs, *args, **kw):
+        xs = xs.detach().clone().requires_grad_()
+        out = fused_projection_head(xs, params, *args, **kw)
+        return out.detach(), torch.autograd.grad(out, xs, gs)[0]
+
+    whole, dx_whole = run(x, g, None, 0.5, 31337)
+    part, dx_part = run(x[half:], g[half:], None, 0.5, 31337, sample0=half)
+    mask = draw_keep_mask(31337, half, 1024, 0.5, row0=half, device=cuda)
+    via_mask, _ = run(x[half:], g[half:], mask)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[half:])
+    assert torch.equal(dx_part, dx_whole[half:])
+    assert torch.equal(part, via_mask)
 
 
 # ——— the bfloat16 forwards on the tensor cores (design "mma_bf16") ———

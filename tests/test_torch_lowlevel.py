@@ -10,7 +10,8 @@ on the CPU, fp32, at stages (32, 16, 8, 8, 8, 8) with ``time_proj_dim`` 8
   per-epoch cosine staircase), NCHW and NHWC latents, a bit-equal
   kill-and-resume (the case the JAX trainer's ``init()`` fallback fails),
   the latents-count check, and ``cli train-lowlevel --device cpu`` on a
-  written THINGS-EEG tree.
+  written THINGS-EEG tree, also under ``--mesh`` (one CPU rank in a child
+  process).
 """
 
 import contextlib
@@ -45,7 +46,7 @@ from eeg_image_decode_tpu_torch.utils.convert import (
     flax_from_params,
     params_from_flax,
 )
-from torch_port_case import randomize
+from torch_port_case import randomize, run_cli_child
 
 STAGES, TP = cli.TINY_STAGES, cli.TINY_TIME_PROJ  # (32, 16, 8, 8, 8, 8), 8
 
@@ -260,8 +261,14 @@ def test_cli_train_lowlevel_resumes_and_refuses(tmp_path):
     np.savez(per_image, latents=lat[:2])
     with pytest.raises(ValueError, match="20 EEG trials against 2 latents"):
         cli.main([*common, "--latents", per_image, "--output-dir", out])
-    for flag, match in ((["--mesh"], "ROADMAP"),
-                        (["--preview-dir", str(tmp_path / "p")],
+    # --mesh (ported): one CPU rank in a child process, the same two epochs
+    # (the second epoch within the trajectory's 1e-4)
+    mesh = json.loads(run_cli_child(
+        [*common, "--epochs", "2", "--mesh", "--output-dir",
+         str(tmp_path / "ll_mesh")])[-1])
+    assert mesh["epoch"] == 1
+    np.testing.assert_allclose(mesh["loss"], row["loss"], rtol=1e-4)
+    for flag, match in ((["--preview-dir", str(tmp_path / "p")],
                          "needs --vae-params"),
                         (["--vae-params", "vae.pkl"],
                          "read only with --preview-dir")):

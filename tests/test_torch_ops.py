@@ -117,8 +117,9 @@ def test_package_imports_without_jax(tmp_path):
     captioned through the GIT decoder (no transformers either), ``cli
     metrics`` scores a tiny tree through a seeded AlexNet (no torchvision
     either), every encoder of the registry is built (no braindecode
-    either), and ``cli preprocess`` epochs and whitens a tiny raw tree (no
-    ml_dtypes either; scipy designs its FIR taps)."""
+    either), ``cli preprocess`` epochs and whitens a tiny raw tree (no
+    ml_dtypes either; scipy designs its FIR taps), and the prior trains
+    over a one-rank mesh (the scale-out modules)."""
     code = (
         "import sys\n"
         "import eeg_image_decode_tpu_torch.cli\n"
@@ -258,6 +259,14 @@ def test_package_imports_without_jax(tmp_path):
         "n_test_conditions=1, images_per_class=1)\n"
         "cli.main(['preprocess', '--sub', '1', '--n-ses', '1', "
         "'--project-dir', d + '/raw', '--device', 'cpu'])\n"
+        "import eeg_image_decode_tpu_torch.gen.sharding\n"
+        "import eeg_image_decode_tpu_torch.train.sweep\n"
+        "from eeg_image_decode_tpu_torch.parallel import multihost\n"
+        "from eeg_image_decode_tpu_torch.core.mesh import create_mesh\n"
+        "multihost.initialize(device='cpu')\n"
+        "PriorPipe(PriorConfig.tiny(), mesh=create_mesh(device='cpu')).train("
+        "r.normal(size=(16, 64)), r.normal(size=(16, 64)), epochs=1, "
+        "log_fn=None)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'transformers', "
         "'torchvision', 'braindecode', 'ml_dtypes', "

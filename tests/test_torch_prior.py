@@ -12,7 +12,8 @@
   clip active on some step), injected CFG sampling (≤ 1e-4), the
   ``prior-v1`` pickle read by both packages, a bit-equal kill-and-resume,
   the architecture guard, and ``cli train-prior --device cpu`` on the file
-  ``train-retrieval --export-features`` writes.
+  ``train-retrieval --export-features`` writes, also under ``--mesh`` (one
+  CPU rank in a child process).
 
 JAX weights are the JAX init with every leaf redrawn from a numpy seed,
 carried into the port by ``utils/convert.py::params_from_flax``.
@@ -52,7 +53,7 @@ from eeg_image_decode_tpu_torch.utils.convert import (
     flax_from_params,
     params_from_flax,
 )
-from torch_port_case import randomize
+from torch_port_case import randomize, run_cli_child
 
 TINY = PriorConfig.tiny()
 ARCH = dict(embed_dim=64, cond_dim=64, hidden_dims=(64, 32),
@@ -450,8 +451,12 @@ def test_cli_train_prior_on_exported_features(tmp_path):
         c = torch.from_numpy(z["eeg_features_test"])
     sample = port.generate(c, num_inference_steps=5)
     assert sample.shape == (2, 1024) and torch.isfinite(sample).all()
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        cli.main([*common, "--mesh", "--output-dir", out])
+    # --mesh (ported): one CPU rank in a child process, the same two epochs
+    mesh = json.loads(run_cli_child(
+        [*common, "--epochs", "2", "--mesh", "--output-dir",
+         str(tmp_path / "prior_mesh")])[-1])
+    assert mesh["epoch"] == 1
+    np.testing.assert_allclose(mesh["loss"], row["loss"], rtol=1e-5)
 
 
 def test_prior_pipe_needs_cuda_unless_asked_for_cpu():

@@ -13,8 +13,9 @@ profiler utilities, on the CPU.
   streamed ``fit`` killed after epoch 1 and resumed: bit-equal; the zero
   batch error; ``export_features`` equal to the resident one.
 - ``cli train-retrieval --streaming [--host-dtype bfloat16] --device cpu``
-  alone (bit-equal to the resident run), with ``--sweep`` and with
-  ``--joint``; ``--host-dtype`` without ``--streaming`` is ignored.
+  alone (bit-equal to the resident run), with ``--sweep``, with
+  ``--joint`` and under ``--mesh`` (one CPU rank, bit-equal to the streamed
+  run); ``--host-dtype`` without ``--streaming`` is ignored.
 - ``utils/logging.py::MetricsLogger``'s CSV and stdout rows equal the JAX
   logger's byte for byte, and a missing wandb raises;
   ``utils/profiling.py``'s ``StepTimer``, ``assert_finite`` and ``trace``.
@@ -48,7 +49,7 @@ from eeg_image_decode_tpu_torch.models.registry import build_encoder
 from eeg_image_decode_tpu_torch.train.contrastive import ContrastiveTrainer
 from eeg_image_decode_tpu_torch.utils import logging as port_logging
 from eeg_image_decode_tpu_torch.utils import profiling
-from torch_port_case import SMALL
+from torch_port_case import SMALL, run_cli_child
 
 C, T = SMALL["n_channels"], SMALL["seq_len"]
 TIMING = ("epoch_time_s", "samples_per_s")
@@ -246,8 +247,19 @@ def test_cli_streaming_sweep_and_joint(tree, tmp_path, capsys):
     joint = _train(tree, tmp_path, capsys, "joint", "--streaming", "--joint",
                    "--subjects", "sub-01,sub-02", "--test-subject", "sub-01")
     assert joint["epoch"] == 0 and np.isfinite(joint["loss"])
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        _train(tree, tmp_path, capsys, "mesh", "--streaming", "--mesh")
+    # --streaming under --mesh (one CPU rank) against the streamed run,
+    # both in child processes (the group outlives the call)
+    root, feats = tree
+    rows = []
+    for name, extra in (("streamed", []), ("mesh", ["--mesh"])):
+        row = json.loads(run_cli_child(
+            ["train-retrieval", "--data-path", root, "--features", feats,
+             "--device", "cpu", "--dtype", "float32", "--eval-ks", "2,3",
+             "--batch-size", "8", "--train-reps", "1", "--epochs", "1",
+             "--output-dir", str(tmp_path / name), "--streaming",
+             *extra])[-1])
+        rows.append({k: v for k, v in row.items() if k not in TIMING})
+    assert rows[0] == rows[1]
 
 
 def test_metrics_logger_rows_equal_jax(tmp_path, monkeypatch):

@@ -77,3 +77,69 @@ def keep_masks(rng, b, heads, length, d, ff, p=0.25):
     return {"m_attn": keep(b, heads, length, length),
             "m_res": keep(b, length, d), "m_ffn1": keep(b, length, ff),
             "m_ffn2": keep(b, length, d)}
+
+
+def launch_ranks(world: int, directory: str, cases: list[str],
+                 timeout: float = 240.0) -> dict:
+    """Run ``tests/_torch_dist_worker.py`` as ``world`` gloo ranks over a
+    ``file://`` rendezvous in ``directory`` on the cases whose inputs lie
+    in ``directory/<case>.pt``; returns {case: [output of rank r, …]}. A
+    rank that fails or outlives ``timeout`` fails the launch (the others
+    are killed)."""
+    import os
+    import subprocess
+    import sys
+    import time
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rdv = os.path.join(directory, "rendezvous")
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "CUDA_VISIBLE_DEVICES": ""}
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(var, None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "_torch_dist_worker.py"),
+         str(r), str(world), rdv, directory, *cases],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            logs.append(out)
+            if p.returncode != 0:
+                raise RuntimeError(f"rank {len(logs) - 1} exited "
+                                   f"{p.returncode}:\n{out}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {c: [torch.load(os.path.join(directory, f"{c}_r{r}.pt"),
+                           weights_only=False) for r in range(world)]
+            for c in cases}
+
+
+def run_cli_child(argv: list[str], timeout: float = 300.0) -> list[str]:
+    """``python -m eeg_image_decode_tpu_torch.cli argv`` in a child process
+    without a launcher's variables (a ``--mesh`` run there is one rank, and
+    its process group dies with it); returns its stdout lines. A nonzero
+    exit fails with its stderr."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": repo}
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(var, None)
+    done = subprocess.run(
+        [sys.executable, "-m", "eeg_image_decode_tpu_torch.cli", *argv],
+        env=env, capture_output=True, text=True, timeout=timeout)
+    assert done.returncode == 0, done.stderr
+    return done.stdout.strip().splitlines()

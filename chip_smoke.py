@@ -290,7 +290,28 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    mp = 2, B 2 at 128 × 128 latents: cosine ≥ 0.999 against the unsharded
    forward made here first, with both forwards' seconds. (c), (f) and (g)
    are correctness runs of two processes on one card, not scaling numbers.
-16. One JSON line listing the kernels, then the result line
+16. The acceptance runbook (``scripts/acceptance_torch.py``, in this
+   process). (a) ``--dry-run --device cuda``: exit code 0, the report ok,
+   all four stages, every PNG written, finite metric rows. (b) Its real
+   mode at full width on a written tree in the reference's pickle layout
+   (63 channels × 250 samples, class-template EEG from ``SEED``: 200
+   training concepts × 10 images × 4 repetitions and 200 test concepts × 4,
+   THINGS-EEG's 1,654 training concepts and 80 test repetitions cut as
+   the phase prints; written by the runbook's own tree writer),
+   ``--epochs-retrieval 2 --epochs-prior 2 --seeds 1 --batch-size 1024``
+   with phase 12's metric pickles and no generator weights, so ``generate``
+   runs at its default chunk, as a lab's run does: ATM-S in bf16 through rows 1′, 3, 4 and 5, the
+   export through rows 1 and 4 (counted into the main path), the prior at
+   ``PriorConfig()`` width, SDXL-turbo + IP-Adapter at full width from
+   seeded weights, ``cli metrics`` at 425 px. Every stage must run, the
+   exported features, the prior pickle, 200 PNGs and a finite 14-row
+   table must exist, and the exit code must be ``0 if report["ok"] else
+   1``; each stage's status, numbers and seconds (from the runbook's
+   report) are printed. The
+   retrieval and prior bands are BASELINE.md's for real THINGS data after
+   40 and 150 epochs, so their status after 2 synthetic epochs is data,
+   not a check.
+17. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -4817,6 +4838,145 @@ def scale_out_paths(torch, card: str, train_host, test,
 
 
 
+# ——— phase 16: the acceptance runbook ———
+
+#: phase 16 (b)'s tree, written by the runbook's own tree writer: THINGS-EEG's
+#: layout and widths (63 channels × 250 samples, 10 images × 4 repetitions a
+#: training concept, 200 test concepts), cut to 200 of its 1,654 training
+#: concepts and 4 of its 80 test repetitions
+RUNBOOK_TREE = {"n_cls": 200, "test_reps": 4, "seed": SEED + 160}
+
+
+def load_runbook():
+    """``scripts/acceptance_torch.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "acceptance_torch.py")
+    spec = importlib.util.spec_from_file_location("acceptance_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _runbook(runbook, argv: list[str]) -> tuple[int, dict, dict]:
+    """The runbook's ``main(argv)`` in this process: (exit code, the
+    report, seconds per stage as the report records them)."""
+    rc = runbook.main(argv)
+    work = argv[argv.index("--work-dir") + 1]
+    with open(os.path.join(work, "acceptance_report.json")) as f:
+        report = json.load(f)
+    return rc, report, {r["stage"]: r.get("seconds")
+                        for r in report["stages"]}
+
+
+def _report_stages(report: dict, what: str) -> dict:
+    stages = {r["stage"]: r for r in report["stages"]}
+    if set(stages) != {"retrieval", "prior", "generate", "metrics"}:
+        raise RuntimeError(f"runbook ({what}): stages {sorted(stages)}")
+    return stages
+
+
+def runbook_path(pk: dict, main_launches: dict) -> dict:
+    """Phase 16, (a) and (b), with phase 12's metric pickles ``pk``; the
+    launches of both count into the main path. Returns (b)'s row."""
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    runbook = load_runbook()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runbook_") as tmp:
+        # (a) the dry run on the card
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        work = os.path.join(tmp, "dry")
+        rc, report, stage_s = _runbook(runbook, ["--dry-run", "--device",
+                                                 "cuda", "--work-dir", work])
+        dry_s = time.perf_counter() - t0
+        add_launches(main_launches, _build.LAUNCHES)
+        stages = _report_stages(report, "dry run")
+        table = stages["metrics"].get("table", {})
+        dry = {"phase": "runbook_dry_run", "rc": rc, "ok": report["ok"],
+               "status": {k: v["status"] for k, v in stages.items()},
+               "images": stages["generate"]["images"],
+               "expected": stages["generate"]["expected"], "table": table,
+               "stage_s": stage_s, "s": dry_s,
+               "launches": dict(_build.LAUNCHES)}
+        emit(dry)
+        if (rc != 0 or not report["ok"]
+                or dry["images"] != dry["expected"] or not table
+                or not all(np.isfinite(v) for v in table.values())):
+            raise RuntimeError(f"runbook dry run on the card: {dry}")
+
+        # (b) the real mode at full width
+        t0 = time.perf_counter()
+        data_path, features, gt_dir, n_test = runbook._write_dry_run_tree(
+            os.path.join(tmp, "tree"), **RUNBOOK_TREE)
+        write_s = time.perf_counter() - t0
+        n_cls = RUNBOOK_TREE["n_cls"]
+        n_train = n_cls * 10 * 4
+        print("runbook tree:", json.dumps({
+            "shapes": {"training": [n_cls * 10, 4, 63, 250],
+                       "test": [n_test, RUNBOOK_TREE["test_reps"], 63, 250]},
+            "tree": RUNBOOK_TREE,
+            "cut": "THINGS-EEG: 1,654 training concepts (here 200) and 80 "
+                   "test repetitions (here 4); widths as published"}),
+            flush=True)
+        work = os.path.join(tmp, "real")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rc, report, stage_s = _runbook(runbook, [
+            "--data-path", data_path, "--features", features,
+            "--ground-truth", gt_dir,
+            "--backbone-params", pk["backbone_params"],
+            "--clip-params", pk["clip_params"], "--epochs-retrieval", "2",
+            "--epochs-prior", "2", "--seeds", "1", "--batch-size", "1024",
+            "--device", "cuda", "--work-dir", work])
+        real_s = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        add_launches(main_launches, launches)
+        stages = _report_stages(report, "full width")
+        with np.load(os.path.join(work, "eeg_features.npz")) as d:
+            exported = {k: list(d[k].shape) for k in d.files}
+            finite = all(np.isfinite(d[k]).all() for k in d.files)
+        pngs = len([p for _, _, files in os.walk(os.path.join(
+            work, "generated")) for p in files if p.endswith(".png")])
+        table = stages["metrics"].get("table", {})
+        steps = 2 * (n_train // 1024)
+        out = {"phase": "runbook", "rc": rc, "ok": report["ok"],
+               "stages": report["stages"], "exported": exported,
+               "prior_pickle": os.path.exists(os.path.join(
+                   work, "prior", "diffusion_prior.pkl")),
+               "pngs": pngs, "write_tree_s": write_s, "s": real_s,
+               "stage_s": stage_s, "launches": launches,
+               "training_steps": steps}
+        emit(out)
+        for name, r in stages.items():
+            numbers = {k: v for k, v in r.items()
+                       if k not in ("stage", "status")}
+            print(f"runbook stage {name}: {r['status']} "
+                  f"{json.dumps(numbers, default=str)}", flush=True)
+        for stage, sec in stage_s.items():
+            print(f"runbook {stage}: {sec:.3f} s", flush=True)
+        check_metric_table(table, "runbook, full width")
+        wrong = [k for k in ("attention_fwd_seed", "attention_bwd",
+                             "tsconv_bwd") if launches[k] != steps] + [
+            k for k in ("attention_fwd", "tsconv_fwd") if not launches[k]]
+        if (rc != (0 if report["ok"] else 1) or wrong or not finite
+                or exported.get("eeg_features") != [n_train, 1024]
+                or exported.get("eeg_features_test") != [n_test, 1024]
+                or not out["prior_pickle"]
+                or pngs != n_test
+                or stages["generate"]["images"] != pngs
+                or "top1_k200" not in stages["retrieval"]):
+            raise RuntimeError(f"runbook at full width: launch counts "
+                               f"wrong {wrong}, {out}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"runbook phase 16: {phase_s:.3f} s", flush=True)
+    emit({"phase": "phase16_total", "s": phase_s, "dry_run_s": dry_s,
+          "full_width_s": real_s})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4929,8 +5089,7 @@ def main() -> int:
     del encoder, prior
     gc.collect()
     torch.cuda.empty_cache()
-    with metric_dir:
-        metrics_path(torch, card, pickles)
+    metrics_path(torch, card, pickles)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4958,6 +5117,12 @@ def main() -> int:
     # phase 15 trains phase 4's split from the host copy over a mesh
     scale_out_paths(torch, card, train_host, test, main_path)
     del train_host, test
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 16 runs the acceptance runbook with phase 12's metric pickles
+    with metric_dir:
+        runbook_path(pickles, main_path)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -106,22 +106,25 @@ class PixelProjector(nn.Module):
     Each embedding channel is expanded to ``num_tokens`` tokens by a shared
     Linear(1 → num_tokens) and a LayerNorm over the token axis, then each
     token goes through Linear(in_dim → out_dim) and a LayerNorm. Both
-    LayerNorms are flax's default, eps 1e-6, computed in fp32 (the
-    reference's ``torch.nn.LayerNorm`` uses 1e-5: ROADMAP.md §3). The
-    parameters stay fp32; the products run in ``dtype``, the JAX module's
-    rounding points: cast, the expand product on (B, D, 1), the fp32
-    LayerNorm, the transpose and cast back, the projection, the fp32
+    LayerNorms take ``eps``, computed in fp32: by default flax's 1e-6, the
+    JAX module's and that of the pickles ``cli train-adapter`` writes; the
+    reference's ``torch.nn.LayerNorm`` uses 1e-5, which
+    ``utils/convert.py::reference_pixel_projector`` sets for its weights.
+    The parameters stay fp32; the products run in ``dtype``, the JAX
+    module's rounding points: cast, the expand product on (B, D, 1), the
+    fp32 LayerNorm, the transpose and cast back, the projection, the fp32
     LayerNorm. The reference's ``Sequential`` (indices 1, 2, 4, 5) loads
     through ``utils/convert.py::convert_pixel_projector``."""
 
     def __init__(self, num_tokens: int = 257, in_dim: int = 1024,
-                 out_dim: int = 1024, dtype: torch.dtype = torch.float32):
+                 out_dim: int = 1024, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
         super().__init__()
         self.dtype = dtype
         self.expand = nn.Linear(1, num_tokens)
-        self.ln_tokens = nn.LayerNorm(num_tokens, eps=1e-6)
+        self.ln_tokens = nn.LayerNorm(num_tokens, eps=eps)
         self.proj = nn.Linear(in_dim, out_dim)
-        self.ln = nn.LayerNorm(out_dim, eps=1e-6)
+        self.ln = nn.LayerNorm(out_dim, eps=eps)
 
     def forward(self, clip_embeds: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

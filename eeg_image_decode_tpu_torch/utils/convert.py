@@ -687,11 +687,27 @@ def pixel_projector_tree_from_state_dict(sd: dict) -> dict:
             for name in _PROJECTOR}
 
 
+def reference_pixel_projector(**overrides):
+    """``models/git_caption.py::PixelProjector`` for weights converted from
+    the reference (:func:`convert_pixel_projector`): its LayerNorms take
+    torch's default eps, 1e-5, the function those weights were trained in.
+    The port's default, 1e-6, stays JAX's and that of the pickles ``cli
+    train-adapter`` writes. No ``cli`` command loads reference projector
+    weights yet, so the 1e-5 reaches only callers of this builder."""
+    from eeg_image_decode_tpu_torch.models.git_caption import PixelProjector
+
+    overrides.setdefault("eps", 1e-5)
+    return PixelProjector(**overrides)
+
+
 def convert_pixel_projector(sd: dict) -> dict[str, torch.Tensor]:
     """The reference's ``PixelProjector_best.bin`` (a torch ``Sequential``:
     1 = Linear(1, 257), 2 = LayerNorm(257), 4 = Linear(1024, 1024),
-    5 = LayerNorm(1024); 0 and 3 are parameter-free rearranges) → the
-    port's ``state_dict`` (fp32; load strictly)."""
+    5 = LayerNorm(1024), all at torch's default eps 1e-5; 0 and 3 are
+    parameter-free rearranges) → the port's ``state_dict`` (fp32; load
+    strictly into :func:`reference_pixel_projector`, whose LayerNorms take
+    that eps: the port's default module, at flax's 1e-6, computes another
+    function of those weights)."""
     names = {"1": "expand", "2": "ln_tokens", "4": "proj", "5": "ln"}
     out = {}
     for k, v in sd.items():

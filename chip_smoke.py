@@ -311,10 +311,36 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    retrieval and prior bands are BASELINE.md's for real THINGS data after
    40 and 150 epochs, so their status after 2 synthetic epochs is data,
    not a check.
-17. One JSON line listing the kernels, then the result line
+17. The stage-1 BatchNorm modes of JAX's ``TSConv`` (``ATMSConfig.
+   tsconv_bn1``) and bf16 GIT, run after phase 5 on phase 4's split (late
+   in a run ``torch.profiler``'s traces came back without the port's
+   kernels). (a) The tsconv forward at B 1024, full width, bf16 and
+   fp32: without an epilogue bit-equal to the kernel before the epilogue
+   existed (``TSCONV_FWD_SHA256``), and with each epilogue mode the model
+   takes (``scale_shift_elu`` for ``'gram2d'``, ``shift`` for
+   ``'gramfold'``, on the BatchNorm of these inputs) against its plain
+   version within two bf16 ulps of the largest output (1e-4 in fp32),
+   twice bit for bit, with ms, plain ms, device ms, bound and a library
+   yardstick (``torch.addmm`` for ``shift``). (b) One ATM-S training step
+   at B 1024 in bf16 under each of ``'flax'``, ``'gram'``, ``'gram2d'``
+   and ``'gramfold'`` from one seeded init, batch and dropout seed: the
+   gradients' cosine against the ``'flax'`` step (≥ 0.99) and the worst
+   parameter's relative L2, then 12 steps for the step p50, the launches
+   counted from 0 around each mode's steps (``tsconv_fwd_epilogue`` in
+   ``'gram2d'`` and ``'gramfold'``), and BN1's device ms (stage 1 + BN1 +
+   ELU forward and backward, less the tsconv kernels alone). (c) The
+   default ``ATMSConfig()`` takes ``'gram'`` on the card: its flag, and
+   its step's BN1 running statistics bit-equal to the ``'gram'`` model's
+   and unlike ``'flax'``'s. (d) GIT at ``git_large_coco()`` from seeded
+   weights, a 16-row greedy decode of 25 tokens in bf16 and in fp32: each
+   p50 and the share of bf16 ids equal to the fp32 ids.
+18. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
+   The forward's two epilogue modes have rows of their own
+   (``tsconv_fwd_scale_shift_elu``, ``tsconv_fwd_shift``), their launches
+   those of phase 17's ``'gram2d'`` and ``'gramfold'`` steps.
    The mask-mode forwards are reached through the ops only (a pinned mask
    in the model routes around the fused head), so they are reported in
    phase 2 and not in that line.
@@ -1324,7 +1350,8 @@ def plain_versions():
                    lambda x, p, h=4, **_: attention_layer_reference(
                        x, cast(p, x), h)),
         mock.patch("eeg_image_decode_tpu_torch.models.layers.tsconv_pool_fused",
-                   lambda x, w, s=5: tsconv_pool_reference(x, w.to(x.dtype), s)),
+                   lambda x, w, s=5, **ep: tsconv_pool_reference(
+                       x, w.to(x.dtype), s, **ep)),
         mock.patch("eeg_image_decode_tpu_torch.models.layers."
                    "fused_projection_head",
                    lambda x, p, *_, **__: projection_head_reference(
@@ -1449,6 +1476,7 @@ def plain_training_ops(torch):
         projection_head_reference,
     )
     from eeg_image_decode_tpu_torch.ops.tsconv import (
+        epilogue_backward,
         tsconv_pool_backward_reference,
         tsconv_pool_reference,
     )
@@ -1472,16 +1500,22 @@ def plain_training_ops(torch):
 
     class PlainTSConv(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, x, w, stride):
-            ctx.save_for_backward(x, w)
-            ctx.stride = stride
-            return tsconv_pool_reference(x, w, stride)
+        def forward(ctx, x, w, stride, scale, shift, elu):
+            ctx.save_for_backward(x, w, scale, shift)
+            ctx.stride, ctx.elu = stride, elu
+            return tsconv_pool_reference(x, w, stride, scale, shift, elu)
 
         @staticmethod
         def backward(ctx, g):
-            x, w = ctx.saved_tensors
+            x, w, scale, shift = ctx.saved_tensors
+            d_scale = d_shift = None
+            if scale is not None or shift is not None or ctx.elu:
+                g, d_scale, d_shift = epilogue_backward(
+                    g, tsconv_pool_reference(x, w, ctx.stride), scale, shift,
+                    ctx.elu)
             dx, dw = tsconv_pool_backward_reference(x, w, g, ctx.stride)
-            return dx.to(x.dtype), dw.to(w.dtype), None
+            return dx.to(x.dtype), dw.to(w.dtype), None, d_scale, d_shift, \
+                None
 
     class PlainProjection(torch.autograd.Function):
         @staticmethod
@@ -1511,8 +1545,11 @@ def plain_training_ops(torch):
                                     row0=sample0, device=x.device)
         return PlainAttention.apply(x, n_heads, masks, *flat)
 
-    def tsconv(x, w_tilde, stride=5):
-        return PlainTSConv.apply(x, w_tilde.to(x.dtype), stride)
+    def tsconv(x, w_tilde, stride=5, *, scale=None, shift=None, elu=False):
+        vec = [None if v is None else v.float().contiguous()
+               for v in (scale, shift)]
+        return PlainTSConv.apply(x, w_tilde.to(x.dtype), stride, *vec,
+                                 bool(elu))
 
     def projection(x, params, mask=None, dropout_p=0.0, seed=None,
                    sample0=0):
@@ -1540,6 +1577,20 @@ def plain_training_ops(torch):
 #: moves an intermediate by 2^-8; 5e-2 is about ten such flips per value
 #: on average across a gradient
 GRAD_TOL = 5e-2
+
+
+def grad_rel_l2(got: dict, want: dict) -> dict:
+    """Per parameter, ||got − want|| / ||want||; the attention's q/k/v
+    biases against the largest of their norms (the key bias's gradient is
+    zero in exact arithmetic, so both sides hold rounding there)."""
+    norms = {k: v.norm().item() for k, v in want.items()}
+    qkv = [k for k in norms if k.split(".")[-2] in ("q_proj", "k_proj",
+                                                    "v_proj")
+           and k.endswith("bias")]
+    bias_scale = max((norms[k] for k in qkv), default=0.0)
+    return {k: (got[k] - want[k]).norm().item()
+            / max(bias_scale if k in qkv else norms[k], 1e-30)
+            for k in want}
 
 
 def grad_check(torch, trainer, seeded: bool = False) -> dict:
@@ -1599,14 +1650,7 @@ def grad_check(torch, trainer, seeded: bool = False) -> dict:
         raise RuntimeError("the plain step launched a kernel")
     model.load_state_dict(saved)
     model.zero_grad(set_to_none=True)
-    norms = {k: v.norm().item() for k, v in grads_p.items()}
-    qkv = [k for k in norms if k.split(".")[-2] in ("q_proj", "k_proj",
-                                                    "v_proj")
-           and k.endswith("bias")]
-    bias_scale = max((norms[k] for k in qkv), default=0.0)
-    rel = {k: (grads_k[k] - grads_p[k]).norm().item()
-           / max(bias_scale if k in qkv else norms[k], 1e-30)
-           for k in grads_p}
+    rel = grad_rel_l2(grads_k, grads_p)
     worst = max(rel, key=rel.get)
     row = {"phase": "train_grad_check", "dtype": "bfloat16",
            "encoder": type(model.encoder).__name__,
@@ -4977,6 +5021,351 @@ def runbook_path(pk: dict, main_launches: dict) -> dict:
     return out
 
 
+# ——— phase 17: stage-1 BatchNorm modes on the tsconv kernels, bf16 GIT ———
+
+#: the first 16 hex digits of the SHA-256 of the tsconv forward's output
+#: without an epilogue on :func:`tsconv_digest_inputs`, from the kernel as
+#: it was before the epilogue existed (``scripts/ab_torch_kernels.py``'s
+#: ``train_digest`` row of the parent checkout, which draws the same
+#: inputs): the launch without an epilogue must still give these bits
+TSCONV_FWD_SHA256 = {"bfloat16": "1cb4841841dce9d4",
+                     "float32": "94f128b0902116e8"}
+#: the epilogue modes the model takes: TSConv's 'gram2d' (scale, shift and
+#: ELU on the fp32 sums) and 'gramfold' (the shift; the scale is in the taps)
+EPILOGUE_MODES = {"scale_shift_elu": "gram2d", "shift": "gramfold"}
+BN1_MODES = ("flax", "gram", "gram2d", "gramfold")
+#: steps of epoch 0's permutation a mode trains for its step p50
+BN1_STEPS = 12
+#: the bf16 GIT decode: rows, new tokens, timed repeats
+GIT_BF16_ROWS, GIT_BF16_TOKENS, GIT_BF16_REPS = 16, 25, 3
+
+
+def tsconv_digest_inputs(torch, dtype):
+    """(x (1024, 63, 250), w̃ (75, 40)) in ``dtype`` as
+    ``scripts/ab_torch_kernels.py`` draws its ``train_digest`` tsconv case:
+    a generator seeded ``SEED + 40`` gives the 25 taps (× 0.2), folded with
+    the 51-wide pool, then x."""
+    from eeg_image_decode_tpu_torch.ops.tsconv import fold_pool_into_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    w = torch.randn(25, 40, generator=g, device="cuda") * 0.2 + 0.0
+    w = fold_pool_into_kernel(w, 51).to(dtype)
+    x = torch.randn(TRAIN_BATCH, 63, 250, generator=g, device="cuda")
+    return (x * 1.0 + 0.0).to(dtype), w
+
+
+def sha16(torch, *tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def epilogue_kernels(torch) -> dict:
+    """(a) The tsconv forward at the training shape (B 1024, 63 × 250, 75
+    taps, 40 filters, stride 5), bf16 and fp32: without an epilogue its
+    output bit-equal to the kernel before the epilogue
+    (``TSCONV_FWD_SHA256``), and in each of ``EPILOGUE_MODES`` against its
+    plain version (``tsconv_pool_reference`` with the same epilogue) on
+    the BatchNorm of these inputs (``GramStage1BN.affine``: scale 1, bias
+    0), a rerun bit-equal; each mode's ms, plain ms, device ms, bound and
+    library yardstick (``torch.addmm`` of x2, the dense E and the shift
+    for ``shift``; no one call adds ELU)."""
+    from eeg_image_decode_tpu_torch.models.layers import GramStage1BN
+    from eeg_image_decode_tpu_torch.ops.tsconv import (
+        expand_folded_kernel,
+        forward_design,
+        tsconv_pool_fused,
+        tsconv_pool_reference,
+    )
+
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        x, w = tsconv_digest_inputs(torch, dtype)
+        digest = sha16(torch, tsconv_pool_fused(x, w, 5))
+        want = TSCONV_FWD_SHA256[dname]
+        emit({"phase": "bn1_kernels", "mode": "none", "dtype": dname,
+              "sha256": digest, "sha256_before_epilogue": want,
+              "bit_equal": digest == want})
+        if digest != want:
+            raise RuntimeError(f"tsconv_fwd {dname} without an epilogue: "
+                               f"digest {digest}, before the epilogue {want}")
+        b, c, t = x.shape
+        m, f = w.shape
+        e = expand_folded_kernel(w, t, 5)
+        p = e.shape[1] // f
+        x2 = x.reshape(b * c, t)
+        with torch.no_grad():
+            mul, add = GramStage1BN(f).cuda().affine(x2, e, p, True)
+        sz = x.element_size()
+        for mode, impl in EPILOGUE_MODES.items():
+            if mode == "shift":
+                w_k = (w.float() * mul).to(dtype)
+                kw = {"shift": add}
+                e_k = expand_folded_kernel(w_k, t, 5)
+                bias = add.repeat(p).to(dtype)
+                library = lambda: torch.addmm(bias, x2, e_k)  # noqa: E731
+            else:
+                w_k, kw, library = w, {"scale": mul, "shift": add,
+                                       "elu": True}, None
+            kern = lambda: tsconv_pool_fused(x, w_k, 5, **kw)  # noqa: E731
+            plain = lambda: tsconv_pool_reference(x, w_k, 5, **kw)  # noqa
+            got, again, ref = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            repeat = torch.equal(got, again)
+            err = (got.float() - ref.float()).abs().max().item()
+            top = ref.float().abs().max().item()
+            # one rounding of the epilogue's fp32 value: 2 ulps of the
+            # largest output in bf16; fp32 sums in another order
+            tol = (2.0 ** -7 * top if dtype == torch.bfloat16
+                   else 1e-4 * max(1.0, top))
+            flops = 2 * b * c * p * m * f + 3 * b * c * p * f
+            nbytes = (x.numel() + w.numel() + b * c * p * f) * sz + 2 * f * 4
+            b_ms, b_by = bound(flops, nbytes, dname)
+            row = {"phase": "bn1_kernels", "name": f"tsconv_fwd_{mode}",
+                   "model_mode": impl, "dtype": dname,
+                   "design": forward_design(dtype), "batch": TRAIN_BATCH,
+                   "max_abs_err": err, "max_abs_out": top, "tolerance": tol,
+                   "bit_identical_rerun": repeat,
+                   "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+                   "library_ms": cuda_ms(torch, library) if library else None,
+                   "library": ("torch.addmm(shift, x2, E)" if library else
+                               "none: no one call adds the scale and ELU"),
+                   "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+                   "bytes": nbytes, "device_ms": device_ms(torch, kern),
+                   "plain_device_ms": device_ms(torch, plain)}
+            if library:
+                row["library_device_ms"] = device_ms(torch, library)
+            emit(row)
+            if not (repeat and torch.isfinite(got).all() and err <= tol):
+                raise RuntimeError(f"tsconv_fwd_{mode} {dname}: rerun "
+                                   f"bit-equal {repeat}, |Δ| {err} > {tol}")
+            rows[(mode, dname)] = dict(
+                row, replaces="eeg_image_decode_tpu/ops/tsconv.py:84",
+                source="eeg_image_decode_tpu_torch/csrc/tsconv_fwd.cu")
+    return rows
+
+
+def bn1_stage_ms(torch, mode: str) -> dict:
+    """Device ms of stage 1 + BN1 + ELU forward and backward in ``mode``
+    (``TSConv.stage1`` at full width, B 1024, bf16, train mode; one
+    cotangent), and of the product alone (the tsconv forward and backward
+    kernels): their difference is BN1's."""
+    from eeg_image_decode_tpu_torch.models.layers import TSConv
+    from eeg_image_decode_tpu_torch.ops.tsconv import tsconv_pool_fused
+
+    x, w = tsconv_digest_inputs(torch, torch.bfloat16)
+    ts = TSConv(bn1_impl=mode).cuda()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    with torch.no_grad():
+        ts.temporal_conv_kernel.copy_(
+            torch.randn(25, 40, generator=g, device="cuda") * 0.2)
+    xg = x.detach().requires_grad_()
+    params = [ts.temporal_conv_kernel, ts.bn1.scale, ts.bn1.bias]
+    y = ts.stage1(xg, True)
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(y.dtype)
+    wg = w.detach().requires_grad_()
+
+    def stage():
+        return torch.autograd.grad(ts.stage1(xg, True), [xg, *params], gy)
+
+    def product():
+        return torch.autograd.grad(tsconv_pool_fused(xg, wg, 5), [xg, wg],
+                                   gy)
+
+    stage_ms, product_ms = device_ms(torch, stage), device_ms(torch, product)
+    return {"stage1_bn1_elu_device_ms": stage_ms,
+            "product_device_ms": product_ms,
+            "bn1_device_ms": stage_ms - product_ms,
+            "gram_mode": ts.gram_mode(xg)}
+
+
+def bn1_modes_path(torch, card: str, train, test) -> dict:
+    """(b) One ATM-S training step at B 1024 in bf16 under each
+    ``tsconv_bn1`` (one seeded init, one batch, one dropout generator
+    seed): the step's gradients against the ``'flax'`` step's (cosine over
+    all parameters, and the largest relative L2 of one parameter,
+    :func:`grad_rel_l2`) and against the same step in fp32 (``'flax'``,
+    the reference: cosine, and the relative L2 of the temporal kernel's
+    and BN1's gradients, where bf16 rounding meets BatchNorm's
+    cancellation), then ``BN1_STEPS`` steps
+    of epoch 0's permutation for the step p50, the launches counted from 0
+    around each mode's steps (``tsconv_fwd_epilogue`` in 'gram2d' and
+    'gramfold'), and BN1's device ms (:func:`bn1_stage_ms`). (c) The
+    default ``ATMSConfig()`` on the card takes 'gram': its flag, and its
+    step's BN1 running statistics bit-equal to the explicit 'gram' model's
+    (and not to 'flax''s)."""
+    from eeg_image_decode_tpu_torch.core.config import (
+        ATMSConfig,
+        ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.models.registry import build_encoder
+    from eeg_image_decode_tpu_torch.ops import _build
+    from eeg_image_decode_tpu_torch.train.contrastive import (
+        ContrastiveTrainer,
+        batch_loss,
+        epoch_permutation,
+    )
+
+    tcfg = ContrastiveTrainConfig()
+    perm = torch.as_tensor(epoch_permutation(
+        train.n, TRAIN_BATCH, tcfg.seed, 0)[:BN1_STEPS], device="cuda")
+    results, grads0, stats = {}, {}, {}
+    for mode in (*BN1_MODES, "default", "fp32"):
+        cfg = ATMSConfig() if mode == "default" else ATMSConfig(
+            tsconv_bn1="flax" if mode == "fp32" else mode)
+        dtype = torch.float32 if mode == "fp32" else torch.bfloat16
+        model = build_encoder("atms", config=cfg, dtype=dtype,
+                              device="cuda", seed=SEED)
+        trainer = ContrastiveTrainer(model, tcfg, train, test, device="cuda")
+        idx = perm[0].to(torch.int64)
+        data = trainer.data
+        batch = {"eeg": data.eeg[idx], "subject_ids": data.subject_ids[idx],
+                 "img_feat": data.img_feat[data.img_idx[idx]],
+                 "text_feat": data.text_feat[data.text_idx[idx]]}
+        model.train()
+        loss, _ = batch_loss(model, tcfg, batch, generator=torch.Generator(
+            device="cuda").manual_seed(SEED + 62))
+        loss.backward()
+        per_param = {k: q.grad.float().reshape(-1)
+                     for k, q in model.named_parameters()}
+        grads0[mode] = torch.cat(list(per_param.values()))
+        bn1 = model.encoder.enc_eeg.bn1
+        stats[mode] = (bn1.mean.clone(), bn1.var.clone())
+        gram = model.encoder.enc_eeg.gram_mode(batch["eeg"])
+        model.zero_grad(set_to_none=True)
+        results[mode] = {"per_param": per_param, "loss0": loss.item(),
+                         "gram_mode": gram}
+        if mode in ("default", "fp32"):
+            del trainer, model
+            continue
+        _build.reset_launches()
+        out = trainer.epoch_fn(trainer.state, trainer.data, perm,
+                               torch.Generator(device="cuda").manual_seed(
+                                   tcfg.seed))
+        launches = dict(_build.LAUNCHES)
+        losses, step_ms = out["step_loss"].tolist(), out["step_ms"]
+        if not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"bn1 {mode}: non-finite loss {losses}")
+        want_ep = BN1_STEPS if mode in ("gram2d", "gramfold") else 0
+        if (launches["tsconv_fwd_epilogue"] != want_ep
+                or launches["tsconv_bwd"] != BN1_STEPS):
+            raise RuntimeError(f"bn1 {mode}: launches {launches}")
+        results[mode].update(step_ms_p50=float(np.median(step_ms[3:])),
+                             losses=losses, launches=launches)
+        del trainer, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    flax, ref = results["flax"]["per_param"], results["fp32"]["per_param"]
+    ref_all = grads0["fp32"]
+    rows = {}
+    for mode in BN1_MODES:
+        r = results[mode]
+        a, b = grads0[mode], grads0["flax"]
+        cos = float((a @ b) / (a.norm() * b.norm()))
+        rel = grad_rel_l2(r["per_param"], flax)
+        worst = max(rel, key=rel.get)
+        rel32 = grad_rel_l2(r["per_param"], ref)
+        tk = "encoder.enc_eeg.temporal_conv_kernel"
+        row = {"phase": "bn1_modes", "card": card, "mode": mode,
+               "dtype": "bfloat16", "batch": TRAIN_BATCH,
+               "gram_mode": r["gram_mode"], "loss_step0": r["loss0"],
+               "grad_cosine_vs_flax": cos, "worst_param_vs_flax": worst,
+               "worst_rel_l2_vs_flax": rel[worst],
+               "grad_cosine_vs_fp32_flax": float(
+                   (a @ ref_all) / (a.norm() * ref_all.norm())),
+               "temporal_kernel_rel_l2_vs_fp32_flax": rel32[tk],
+               "bn1_rel_l2_vs_fp32_flax": max(rel32[f"encoder.enc_eeg.bn1.{n}"]
+                                              for n in ("scale", "bias")),
+               "step_ms_p50": r["step_ms_p50"], "steps": BN1_STEPS,
+               "loss_first": r["losses"][0], "loss_last": r["losses"][-1],
+               "launches": r["launches"], **bn1_stage_ms(torch, mode)}
+        emit(row)
+        if r["gram_mode"] != (mode != "flax") or not cos > 0.99:
+            raise RuntimeError(f"bn1 {mode}: gram mode {r['gram_mode']}, "
+                               f"gradient cosine against flax {cos}")
+        rows[mode] = row
+    same = [torch.equal(x, y) for x, y in zip(stats["default"],
+                                              stats["gram"])]
+    differ = [not torch.equal(x, y) for x, y in zip(stats["default"],
+                                                    stats["flax"])]
+    gram = results["default"]["gram_mode"]
+    row = {"phase": "bn1_default", "config": "ATMSConfig()",
+           "tsconv_bn1": ATMSConfig().tsconv_bn1, "gram_mode": gram,
+           "bn1_stats_equal_gram": all(same),
+           "bn1_stats_differ_from_flax": all(differ)}
+    emit(row)
+    if not (gram and all(same) and all(differ)):
+        raise RuntimeError(f"the default config did not take 'gram': {row}")
+    return rows
+
+
+def git_bf16_path(torch, card: str) -> dict:
+    """(d) GIT at ``git_large_coco()`` widths from seeded weights, in bf16
+    and fp32 (the same weights): a 16-row greedy decode of 25 tokens from
+    one draw of visual tokens, each decode's p50 over ``GIT_BF16_REPS``
+    (host clock, synced), and the share of the bf16 ids equal to the fp32
+    ids position for position."""
+    from eeg_image_decode_tpu_torch.models.git_caption import (
+        GITCaptioner,
+        GITConfig,
+    )
+
+    cfg = GITConfig.git_large_coco()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    vis = torch.randn(GIT_BF16_ROWS, cfg.num_visual_tokens, cfg.visual_dim,
+                      generator=g, device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.device("cuda"):
+            git = GITCaptioner(cfg, dtype=dtype).init_random(SEED).eval()
+        ids = git.generate(vis, max_new_tokens=GIT_BF16_TOKENS)
+        times = []
+        for _ in range(GIT_BF16_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = git.generate(vis, max_new_tokens=GIT_BF16_TOKENS)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(ids, again):
+            raise RuntimeError(f"GIT {dtype}: two decodes differ")
+        out[str(dtype).split(".")[-1]] = (ids.cpu().numpy(),
+                                          float(np.median(times)))
+        del git
+    ids32, ms32 = out["float32"]
+    ids16, ms16 = out["bfloat16"]
+    new = slice(1, None)
+    share = float((ids16[:, new] == ids32[:, new]).mean())
+    rows_equal = int((ids16 == ids32).all(axis=1).sum())
+    row = {"phase": "git_bf16", "card": card, "config": "git_large_coco",
+           "rows": GIT_BF16_ROWS, "new_tokens": GIT_BF16_TOKENS,
+           "decode_ms_p50_bf16": ms16, "decode_ms_p50_fp32": ms32,
+           "ids_equal_share": share, "rows_equal": rows_equal,
+           "ids_in_vocab": bool((ids16 >= 0).all()
+                                and (ids16 < cfg.vocab_size).all())}
+    emit(row)
+    if not row["ids_in_vocab"] or ids16.shape != ids32.shape:
+        raise RuntimeError(f"bf16 GIT decode: {row}")
+    return row
+
+
+def bn1_gram_paths(torch, card: str, train, test) -> dict:
+    """Phase 17: (a) the epilogue kernels, (b)-(c) the four stage-1
+    BatchNorm modes and the default on phase 4's split on the card, (d)
+    the bf16 GIT decode."""
+    t0 = time.perf_counter()
+    kernels = epilogue_kernels(torch)
+    modes = bn1_modes_path(torch, card, train, test)
+    gc.collect()
+    torch.cuda.empty_cache()
+    git = git_bf16_path(torch, card)
+    emit({"phase": "phase17_total", "s": time.perf_counter() - t0})
+    return {"kernels": kernels, "modes": modes, "git": git}
+
+
 def main() -> int:
     import torch
 
@@ -5056,6 +5445,10 @@ def main() -> int:
     add_launches(main_path, export_launches)
     fused_joint_path(torch, card, train, test, train_row["step_ms_p50"],
                      main_path)
+    # phase 17 runs here, on phase 4's split, while torch.profiler still
+    # traces the port's kernels (late in a run its traces came back
+    # without them); its own launches are not the main path's
+    bn1 = bn1_gram_paths(torch, card, train, test)
     eeg_test = test.eeg[:40].cpu().numpy()
     # phase 6's tree and phase 4's split stay for phase 13
     cli_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
@@ -5142,6 +5535,24 @@ def main() -> int:
             **{key: k[key] for key in ("design", "device_ms",
                                        "plain_device_ms") if key in k},
         })
+    # the forward's epilogue modes: launched by phase 17's 'gram2d' and
+    # 'gramfold' steps, each counted from 0 around its mode's steps
+    for mode, impl in EPILOGUE_MODES.items():
+        k = bn1["kernels"][(mode, "bfloat16")]
+        launches = bn1["modes"][impl]["launches"]["tsconv_fwd_epilogue"]
+        if not launches:
+            raise RuntimeError(f"tsconv_fwd_{mode} was not launched on "
+                               f"'{impl}''s path")
+        line.append({
+            "name": f"tsconv_fwd_{mode}", "route": "cuda",
+            "source": k["source"], "replaces": k["replaces"],
+            "launches": launches, "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"], "design": k["design"],
+            "device_ms": k["device_ms"],
+            "plain_device_ms": k["plain_device_ms"],
+            "path": f"phase 17, TSConv(bn1_impl='{impl}')"})
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -89,6 +89,12 @@ class ATMSConfig:
     fused_attention: bool | str = "auto"
     #: CUDA tsconv stage-1 kernel (ops/tsconv.py)
     fused_tsconv: bool | str = "auto"
+    #: stage-1 BatchNorm: 'gram' takes the batch statistics from the
+    #: stage-1 product's inputs (models/layers.py::GramStage1BN), as JAX's
+    #: default does; 'gram2d' / 'gramfold' put its affine in the tsconv
+    #: kernel's fp32 epilogue. Active on the fused path only (a CUDA input
+    #: under 'auto'): 'flax' elsewhere and on demand
+    tsconv_bn1: str = "gram"
     #: CUDA projection-head kernel (ops/projection.py); 'auto' keeps the
     #: plain exact-erf head, as in the JAX package
     fused_projection: bool | str = "auto"

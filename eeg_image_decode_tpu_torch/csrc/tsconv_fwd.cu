@@ -48,6 +48,19 @@
 // operands to TF32, so fp32 keeps the first version of this file: each block
 // stages 32 rows of x and all of w~ in shared memory and each thread
 // computes a 4-position by 4-filter register tile of one row with FMAs.
+//
+// Both designs take an optional fp32 epilogue on the accumulator before the
+// rounding to the output type: out = elu(acc * scale[f] + shift[f]), each of
+// the three parts only where it is asked for (a multiply and an add, not a
+// fused multiply-add, as the plain version rounds them; ELU's e^v - 1 to
+// about 1e-6 relative in bfloat16, expm1f in float32). The stage-1
+// BatchNorm of JAX's TSConv(bn1_impl='gram2d') (scale, shift, ELU) and
+// 'gramfold' (shift: the scale is folded into w~) rides there, as it rides
+// in the epilogue of JAX's x2 @ E matmul (eeg_image_decode_tpu/models/
+// layers.py, TSConv). The vectors are staged in shared memory once per
+// block and each lane keeps its filters' factors in registers; with no
+// epilogue the stores are those of the kernel without it, bit for bit. The
+// epilogue adds no bytes to the bound (2 F floats read).
 
 #include "common.cuh"
 #include "mma_tile.cuh"
@@ -56,6 +69,42 @@
 namespace {
 
 using namespace eid;
+
+// epilogue parts (the mode word's bits)
+constexpr int kEpScale = 1, kEpShift = 2, kEpElu = 4;
+constexpr int kEpAny = -1;  // a kernel that reads the parts at run time
+constexpr int kEpMax = 40;  // filters the staged epilogue vectors cover
+
+// e^v - 1 for v <= 0 within about 1e-6 relative, for a bf16 result: a
+// degree-6 Taylor polynomial above -0.35 (remainder < 5e-7 relative), the
+// hardware exp2 less 1 below (|result| >= 0.29, so its 2^-22 relative error
+// stays under 1e-6). Both are computed and one is selected: no branch for
+// the lanes of a warp to diverge on. expm1f costs several times as many
+// instructions and branches, and the bf16 kernel, one block of eight warps
+// an SM, feels each of them.
+__device__ __forceinline__ float expm1_neg(float v) {
+  const float p =
+      v * (1.f + v * (0.5f + v * (1.f / 6.f +
+                                  v * (1.f / 24.f +
+                                       v * (1.f / 120.f + v * (1.f / 720.f))))));
+  const float q = __expf(v) - 1.f;
+  return v > -0.35f ? p : q;
+}
+
+// acc * scale, + shift, ELU: each where its bit is set, rounded apart.
+// FAST: ELU's e^v - 1 by expm1_neg (the bf16 design), else expm1f.
+template <bool FAST>
+__device__ __forceinline__ float epilogue(float v, float sc, float sh,
+                                          int mode) {
+  if (mode & kEpScale) v = __fmul_rn(v, sc);
+  if (mode & kEpShift) v = __fadd_rn(v, sh);
+  if (mode & kEpElu) {
+    // the negative branch for every lane, then a select
+    const float n = FAST ? expm1_neg(fminf(v, 0.f)) : expm1f(fminf(v, 0.f));
+    v = v > 0.f ? v : n;
+  }
+  return v;
+}
 
 // ——— float32, the first version ———
 
@@ -67,6 +116,8 @@ constexpr int kTF = 4;     // filters per thread (one float4 of w~)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tsconv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift, int ep,
                       T* __restrict__ out, int rows, int Tn, int M, int F,
                       int P, int stride) {
   extern __shared__ __align__(16) float sm[];
@@ -120,7 +171,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int q = 0; q < kTF; ++q) {
         const int f = fg * kTF + q;
-        if (f < F) orow[(p0 + j) * F + f] = from_f<T>(acc[j][q]);
+        if (f >= F) continue;
+        float v = acc[j][q];
+        if (ep)
+          v = epilogue<false>(v, scale ? scale[f] : 1.f,
+                              shift ? shift[f] : 0.f, ep);
+        orow[(p0 + j) * F + f] = from_f<T>(v);
       }
     }
   }
@@ -131,7 +187,8 @@ size_t fma_smem(int Tn, int M, int F) {
   return ((size_t)M * Fp + (size_t)kRows * Tn) * sizeof(float);
 }
 
-int launch_fma(const void* x, const void* w, void* out, int rows, int Tn,
+int launch_fma(const void* x, const void* w, const float* scale,
+               const float* shift, int ep, void* out, int rows, int Tn,
                int M, int F, int P, int stride, cudaStream_t s) {
   const size_t smem = fma_smem(Tn, M, F);
   cudaError_t e = cudaFuncSetAttribute(
@@ -140,8 +197,8 @@ int launch_fma(const void* x, const void* w, void* out, int rows, int Tn,
   if (e != cudaSuccess) return (int)e;
   const int blocks = (rows + kRows - 1) / kRows;
   tsconv_fwd_kernel<float><<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), rows, Tn, M, F, P, stride);
+      static_cast<const float*>(x), static_cast<const float*>(w), scale,
+      shift, ep, static_cast<float*>(out), rows, Tn, M, F, P, stride);
   return (int)cudaGetLastError();
 }
 
@@ -163,6 +220,9 @@ constexpr int kWarps = kThreads / 32;
 struct MmaParams {
   const bf16* x;
   const bf16* w;
+  const float* scale;  // the epilogue's vectors (F), or null
+  const float* shift;
+  int ep;              // the epilogue's parts (kEp* bits), 0: none
   bf16* out;
   int rows, Tn, M, F, P, s;
   int Tx;       // rows of xT: T, or past it as far as the padded taps reach
@@ -174,7 +234,7 @@ struct MmaParams {
 };
 
 struct MmaSmem {
-  size_t xt, out, total;
+  size_t xt, out, ep, total;
 };
 
 __host__ __device__ inline MmaSmem mma_smem(int Tx, int Op) {
@@ -184,7 +244,9 @@ __host__ __device__ inline MmaSmem mma_smem(int Tx, int Op) {
   // two output tiles; at the start the first holds the staged w~
   const size_t tiles = 2 * (size_t)kTileRows * Op * 2;
   const size_t wst = (size_t)16 * kKT * kWp * 2;
-  l.total = l.out + (tiles > wst ? tiles : wst);
+  // then the epilogue's scale and shift, kEpMax floats each
+  l.ep = align16(l.out + (tiles > wst ? tiles : wst));
+  l.total = l.ep + 2 * kEpMax * sizeof(float);
   return l;
 }
 
@@ -220,9 +282,12 @@ __device__ __forceinline__ void bulk_wait_all() {
 
 // EXACT: the ATM-S shape (stride 5, F 40, kKT tap steps), whose offsets
 // are constants; otherwise every step and block is guarded at run time.
-template <bool EXACT>
+// EP: the epilogue's parts known when compiling (the modes TSConv takes:
+// none, shift, scale + shift + ELU), or kEpAny to read p.ep.
+template <bool EXACT, int EP>
 __global__ void __launch_bounds__(kThreads, 1)
     tsconv_fwd_mma_kernel(const MmaParams p) {
+  const int ep = EP == kEpAny ? p.ep : EP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int s = EXACT ? 5 : p.s;
   const int F = EXACT ? 40 : p.F;
@@ -233,6 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const MmaSmem l = mma_smem(p.Tx, Op);
   bf16* xT = reinterpret_cast<bf16*>(smem_raw + l.xt);      // Tx x kXp
   bf16* outs = reinterpret_cast<bf16*>(smem_raw + l.out);   // 2 x 32 x Op
+  float* eps = reinterpret_cast<float*>(smem_raw + l.ep);   // scale, shift
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tg = lane & 3;
 
@@ -246,6 +312,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int m = i / kWp, f = i - m * kWp;
     wst[i] = m < p.M && f < F ? p.w[m * F + f] : __float2bfloat16(0.f);
   }
+  for (int i = tid; i < kEpMax; i += kThreads) {
+    eps[i] = p.scale && i < F ? p.scale[i] : 1.f;
+    eps[kEpMax + i] = p.shift && i < F ? p.shift[i] : 0.f;
+  }
   __syncthreads();
   uint32_t b[kKT][kNP][4];
 #pragma unroll
@@ -253,6 +323,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < kNP; ++j)
       mma::frag_b_mnmajor(b[k][j], wst, kWp, 16 * k, 16 * j);
+  // this lane's epilogue factors, filters 8 j + 2 tg (+ 1), held in
+  // registers: read from shared memory beside the tile's stores, the
+  // compiler would order each read after them
+  float ep_sc[kNT][2], ep_sh[kNT][2];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      ep_sc[j][q] = eps[8 * j + 2 * tg + q];
+      ep_sh[j][q] = eps[kEpMax + 8 * j + 2 * tg + q];
+    }
 
   // this lane's ldmatrix.trans address inside xT for the unit at position 0,
   // rows 0..15: xT row (lane & 7) + 8 (lane >> 4), column 8 ((lane >> 3) & 1)
@@ -304,8 +385,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           bf16* dst = o + hh * 8 * Op + 8 * j;
-          const bf16 v0 = __float2bfloat16(c[j][2 * hh]);
-          const bf16 v1 = __float2bfloat16(c[j][2 * hh + 1]);
+          float a0 = c[j][2 * hh], a1 = c[j][2 * hh + 1];
+          if (ep) {
+            a0 = epilogue<true>(a0, ep_sc[j][0], ep_sh[j][0], ep);
+            a1 = epilogue<true>(a1, ep_sc[j][1], ep_sh[j][1], ep);
+          }
+          const bf16 v0 = __float2bfloat16(a0);
+          const bf16 v1 = __float2bfloat16(a1);
           if (EXACT) {
             __nv_bfloat162 v;
             v.x = v0;
@@ -381,23 +467,41 @@ MmaPlan mma_plan(int rows, int Tn, int M, int F, int P, int stride) {
   return pl;
 }
 
-template <bool EXACT>
-int launch_mma_as(const MmaParams& p, const MmaPlan& pl, cudaStream_t s) {
+template <bool EXACT, int EP>
+int launch_mma_ep(const MmaParams& p, const MmaPlan& pl, cudaStream_t s) {
   cudaError_t e = cudaFuncSetAttribute(
-      tsconv_fwd_mma_kernel<EXACT>,
+      tsconv_fwd_mma_kernel<EXACT, EP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (e != cudaSuccess) return (int)e;
-  tsconv_fwd_mma_kernel<EXACT><<<pl.blocks, kThreads, pl.smem, s>>>(p);
+  tsconv_fwd_mma_kernel<EXACT, EP><<<pl.blocks, kThreads, pl.smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-int launch_mma(const void* x, const void* w, void* out, int rows, int Tn,
+template <bool EXACT>
+int launch_mma_as(const MmaParams& p, const MmaPlan& pl, cudaStream_t s) {
+  switch (p.ep) {
+    case 0:
+      return launch_mma_ep<EXACT, 0>(p, pl, s);
+    case kEpShift:
+      return launch_mma_ep<EXACT, kEpShift>(p, pl, s);
+    case kEpScale | kEpShift | kEpElu:
+      return launch_mma_ep<EXACT, kEpScale | kEpShift | kEpElu>(p, pl, s);
+    default:
+      return launch_mma_ep<EXACT, kEpAny>(p, pl, s);
+  }
+}
+
+int launch_mma(const void* x, const void* w, const float* scale,
+               const float* shift, int ep, void* out, int rows, int Tn,
                int M, int F, int P, int stride, cudaStream_t s) {
   const MmaPlan pl = mma_plan(rows, Tn, M, F, P, stride);
   if (!pl.ok) return (int)cudaErrorInvalidValue;
   MmaParams p;
   p.x = static_cast<const bf16*>(x);
   p.w = static_cast<const bf16*>(w);
+  p.scale = scale;
+  p.shift = shift;
+  p.ep = ep;
   p.out = static_cast<bf16*>(out);
   p.rows = rows;
   p.Tn = Tn;
@@ -435,15 +539,21 @@ extern "C" int eid_tsconv_fwd_takes(int dtype, int rows, int Tn, int M, int F,
 }
 
 // x: (rows, Tn), w: (M, F), out: (rows, P*F), all contiguous in dtype, with
-// P = (Tn - M) / stride + 1.
+// P = (Tn - M) / stride + 1. The epilogue: scale and shift, fp32 (F) or
+// null, and elu (0 or 1); with neither vector and elu 0, none.
 extern "C" int eid_tsconv_fwd(int dtype, const void* x, const void* w,
-                              void* out, int rows, int Tn, int M, int F,
-                              int P, int stride, void* stream) {
+                              const float* scale, const float* shift,
+                              int elu, void* out, int rows, int Tn, int M,
+                              int F, int P, int stride, void* stream) {
   if (rows <= 0) return 0;
   if (!eid_tsconv_fwd_takes(dtype, rows, Tn, M, F, P, stride))
     return (int)cudaErrorInvalidValue;
+  const int ep = (scale ? kEpScale : 0) | (shift ? kEpShift : 0) |
+                 (elu ? kEpElu : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
-    return launch_mma(x, w, out, rows, Tn, M, F, P, stride, s);
-  return launch_fma(x, w, out, rows, Tn, M, F, P, stride, s);
+    return launch_mma(x, w, scale, shift, ep, out, rows, Tn, M, F, P, stride,
+                      s);
+  return launch_fma(x, w, scale, shift, ep, out, rows, Tn, M, F, P, stride,
+                    s);
 }

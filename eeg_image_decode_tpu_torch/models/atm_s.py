@@ -145,7 +145,8 @@ class ATMS(nn.Module):
             filters=cfg.conv_filters, temporal_kernel=cfg.temporal_kernel,
             pool_size=cfg.pool_size, pool_stride=cfg.pool_stride,
             emb_size=cfg.emb_size, spatial_extent=cfg.n_channels,
-            dropout=cfg.conv_dropout, fused_stage1=cfg.fused_tsconv)
+            dropout=cfg.conv_dropout, fused_stage1=cfg.fused_tsconv,
+            bn1_impl=cfg.tsconv_bn1)
         k_fused = cfg.temporal_kernel + cfg.pool_size - 1
         n_pos = (cfg.d_model - k_fused) // cfg.pool_stride + 1
         self.proj_eeg = ProjectionHead(

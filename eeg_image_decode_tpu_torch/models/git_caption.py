@@ -15,14 +15,17 @@ config and leaves the vision tower, ``git.image_encoder.*``, to
 ``utils/convert_clip.py::convert_hf_clip_vision``). The JAX package's
 pickled param tree loads through :meth:`GITCaptioner.load_params`.
 
-The decoder runs in fp32, as the JAX CLI and service run it. The
+The decoder runs in fp32 by default, as the JAX CLI and service run it,
+or in ``dtype`` (bfloat16), as JAX's ``GITCaptioner(dtype=…)``. The
 arithmetic is the JAX module's, rounding point for rounding point:
 BERT-style post-LN blocks (LayerNorm eps 1e-12; exact GELU), flax's
 attention (q scaled by 1/√head_dim before the product, masked logits
-filled with ``finfo(float32).min``), the visual projection's LayerNorm at
+filled with ``finfo(dtype).min``), the visual projection's LayerNorm at
 eps 1e-5, and an untied lm head with no final LayerNorm. Every dense layer
-is a product followed by the bias add, as flax's ``Dense`` computes it.
-Plain PyTorch: the JAX decoder is plain XLA.
+is a product followed by the bias add in ``dtype``, as flax's ``Dense``
+computes it; the LayerNorms run in fp32 and are cast back to ``dtype``,
+the embeddings are cast to it, and the lm head runs in fp32. Plain
+PyTorch: the JAX decoder is plain XLA.
 
 Attention layout (GIT, Wang et al. 2022): image queries attend only to
 image tokens; text query i attends to every image token and the text
@@ -126,8 +129,10 @@ class PixelProjector(nn.Module):
         self.proj = nn.Linear(in_dim, out_dim)
         self.ln = nn.LayerNorm(out_dim, eps=eps)
 
-    def forward(self, clip_embeds: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
+    def forward(self, clip_embeds: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``dtype`` (default: the module's) sets the products' dtype."""
+        dt = dtype or self.dtype
         x = _dense(clip_embeds.to(dt)[:, :, None], self.expand, dt)
         x = _layer_norm(x, self.ln_tokens).transpose(1, 2).to(dt)
         return _layer_norm(_dense(x, self.proj, dt), self.ln)
@@ -198,31 +203,40 @@ class _GITLayer(nn.Module):
         self.intermediate = _Intermediate(cfg.d_model, cfg.d_ff)
         self.output = _DenseLN(cfg.d_ff, cfg.d_model)
 
-    def _attend(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """flax ``MultiHeadDotProductAttention`` with a boolean mask."""
+    def _attend(self, x: torch.Tensor, mask: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        """flax ``MultiHeadDotProductAttention(dtype=dtype)`` with a boolean
+        mask; below fp32 the softmax's steps (x − max, exp, the row sum,
+        the quotient) are each rounded to ``dtype``, as flax computes it
+        without ``force_fp32_for_softmax``."""
         B, n, d = x.shape
         hd = d // self.n_heads
         sa = getattr(self.attention, "self")
 
         def heads(lin):
-            return _dense(x, lin, _F32).view(B, n, self.n_heads,
-                                           hd).transpose(1, 2)
+            return _dense(x, lin, dtype).view(B, n, self.n_heads,
+                                            hd).transpose(1, 2)
 
         q, k, v = heads(sa.query), heads(sa.key), heads(sa.value)
-        # flax: q / sqrt(depth), the divisor rounded to fp32
-        q = q / float(torch.tensor(math.sqrt(hd), dtype=_F32))
+        # flax: q / sqrt(depth), the divisor rounded to fp32, then to dtype
+        q = q / float(torch.tensor(math.sqrt(hd), dtype=_F32).to(dtype))
         w = torch.matmul(q, k.transpose(-1, -2))
-        w = w.masked_fill(~mask, torch.finfo(_F32).min)
-        w = torch.softmax(w, dim=-1)
+        w = w.masked_fill(~mask, torch.finfo(dtype).min)
+        if dtype == _F32:
+            w = torch.softmax(w, dim=-1)
+        else:
+            e = torch.exp(w - w.amax(-1, keepdim=True))
+            w = e / e.sum(-1, keepdim=True)
         a = torch.matmul(w, v).transpose(1, 2).reshape(B, n, d)
-        return _dense(a, self.attention.output.dense, _F32)
+        return _dense(a, self.attention.output.dense, dtype)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = _layer_norm(x + self._attend(x, mask),
-                        self.attention.output.LayerNorm)
-        f = F.gelu(_dense(x, self.intermediate.dense, _F32))
-        f = _dense(f, self.output.dense, _F32)
-        return _layer_norm(x + f, self.output.LayerNorm)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                dtype: torch.dtype = _F32) -> torch.Tensor:
+        x = _layer_norm(x + self._attend(x, mask, dtype),
+                        self.attention.output.LayerNorm).to(dtype)
+        f = F.gelu(_dense(x, self.intermediate.dense, dtype))
+        f = _dense(f, self.output.dense, dtype)
+        return _layer_norm(x + f, self.output.LayerNorm).to(dtype)
 
 
 class _Embeddings(nn.Module):
@@ -271,12 +285,16 @@ def git_attention_mask(n_visual: int, n_text: int, device=None
 
 
 class GITCaptioner(nn.Module):
-    """The GIT decoder in fp32 (as the JAX CLI and service run it); built
+    """The GIT decoder, its products in ``dtype`` (fp32 by default, as the
+    JAX CLI and service run it; bfloat16 as JAX's ``GITCaptioner(dtype=
+    jnp.bfloat16)``) with fp32 parameters, LayerNorms and lm head; built
     on the current default device."""
 
-    def __init__(self, config: GITConfig = GITConfig()):
+    def __init__(self, config: GITConfig = GITConfig(),
+                 dtype: torch.dtype = _F32):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         self.git = _GitModel(config)
         # untied lm head (flax ``Dense(dtype=float32)``)
         self.output = nn.Linear(config.d_model, config.vocab_size)
@@ -285,18 +303,18 @@ class GITCaptioner(nn.Module):
                 token_ids: torch.Tensor) -> torch.Tensor:
         """(B, V, visual_dim) visual tokens, (B, L) ids → fp32 logits
         (B, L, vocab) at the text positions."""
-        g = self.git
+        g, dt = self.git, self.dtype
         V, L = visual_tokens.shape[1], token_ids.shape[1]
         proj, vis_ln = g.visual_projection.visual_projection
-        vis = _layer_norm(_dense(visual_tokens, proj, _F32), vis_ln)
+        vis = _layer_norm(_dense(visual_tokens, proj, dt), vis_ln).to(dt)
         emb = g.embeddings
-        tok = emb.word_embeddings(token_ids)
-        pos = emb.position_embeddings.weight[:L]
-        txt = _layer_norm(tok + pos[None], emb.LayerNorm)
+        tok = emb.word_embeddings(token_ids).to(dt)
+        pos = emb.position_embeddings.weight[:L].to(dt)
+        txt = _layer_norm(tok + pos[None], emb.LayerNorm).to(dt)
         x = torch.cat([vis, txt], dim=1)
         mask = git_attention_mask(V, L, device=x.device)
         for layer in g.encoder.layer:
-            x = layer(x, mask)
+            x = layer(x, mask, dt)
         return _dense(x[:, V:], self.output, _F32)
 
     @torch.inference_mode()
@@ -356,11 +374,12 @@ def caption_embeddings(captioner: GITCaptioner, projector: PixelProjector,
     """EEG-predicted CLIP embeddings → caption strings (``PixelProjector``
     → greedy GIT → WordPiece decode; ``GIT_caption_batch.ipynb`` cell 8).
     With ``tokenizer=None`` each string is the row's raw ids, separated by
-    spaces."""
+    spaces. The projector runs at the captioner's dtype, as JAX builds it
+    there."""
     dev = captioner.output.weight.device
     with torch.inference_mode():
         grids = projector(torch.as_tensor(clip_embeds, dtype=torch.float32
-                                          ).to(dev))
+                                          ).to(dev), dtype=captioner.dtype)
         tokens = captioner.generate(grids, max_new_tokens=max_new_tokens)
     if tokenizer is None:
         return [" ".join(str(t) for t in row) for row in tokens.cpu().numpy()]

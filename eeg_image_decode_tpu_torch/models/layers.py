@@ -1,6 +1,7 @@
 """Shared building blocks (counterpart of
 ``eeg_image_decode_tpu/models/layers.py``): the ATM-S tsconv stack,
-projection head and raw logit scale, the diffusion prior's
+projection head and raw logit scale, the stage-1 BatchNorm of its gram
+modes (:class:`GramStage1BN`), the diffusion prior's
 :class:`MLPBlock`, and what flax gives the encoder zoo (``models/nice.py``,
 ``eegnetv4.py``, ``atm_e.py``, ``baselines.py``): :class:`Conv` (flax
 ``nn.Conv``'s kernel layout run by ``F.conv1d`` / ``F.conv2d``),
@@ -27,11 +28,13 @@ from torch import nn
 from eeg_image_decode_tpu_torch.ops.projection import fused_projection_head
 from eeg_image_decode_tpu_torch.parallel.collectives import (
     active_mesh,
+    all_reduce_sum,
     draw_rows,
     global_batch_stats,
     sample_offset,
 )
 from eeg_image_decode_tpu_torch.ops.tsconv import (
+    expand_folded_kernel,
     fold_pool_into_kernel,
     tsconv_pool_fused,
     tsconv_pool_reference,
@@ -183,6 +186,72 @@ class BatchNorm(nn.Module):
         return ((x - mean) * mul + bias).to(dtype or x.dtype)
 
 
+class GramStage1BN(BatchNorm):
+    """The stage-1 BatchNorm of the tsconv stack (counterpart of JAX's
+    ``GramStage1BN``, ``models/layers.py``), whose batch statistics come
+    from the stage-1 product's inputs instead of its output.
+
+    With y = x2 @ E ((B·C, T) × (T, P·F), ``ops/tsconv.py::
+    expand_folded_kernel``), the column sums and second moments of y are
+    (bi)linear in the inputs: Σ_r y = (1ᵀx2)·E and Σ_r y² = Σ_t E ⊙ (x2ᵀx2
+    @ E), so the per-filter mean and variance over (B, C, P) cost a (T, T)
+    Gram matrix and two small products, taken in fp32 from x2 and E in the
+    working dtype, instead of passes over the (B, C, P, F) activation.
+    Gradients flow through them to x and the taps by autograd, as in JAX.
+
+    It is the port's :class:`BatchNorm` (the same ``scale``, ``bias``,
+    ``mean`` and ``var``, so every tree and ``state_dict`` is the same in
+    every mode), with :meth:`affine` for the gram statistics; called
+    without ``x2`` it is that BatchNorm (``TSConv``'s ``'flax'`` mode). In
+    a data-parallel scope the sums are all-reduced over the dp group before
+    the division by the global count, as JAX's are global under GSPMD; over
+    one rank the values are the plain module's, bit for bit."""
+
+    def affine(self, x2: torch.Tensor, e: torch.Tensor, n_pos: int,
+               train: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        """The per-filter fp32 ``(mul, add)`` of ``y·mul + add``: from the
+        gram statistics of (x2, E) in train mode, which also move the
+        running statistics (momentum, no gradient), else from the running
+        ones."""
+        if train:
+            x32, e32 = x2.float(), e.float()
+            colsum = x32.sum(0) @ e32                        # (P·F,)
+            gram = x32.T @ x32                               # (T, T)
+            m2_col = ((gram @ e32) * e32).sum(0)             # (P·F,)
+            sums = torch.stack([colsum.reshape(n_pos, -1).sum(0),
+                                m2_col.reshape(n_pos, -1).sum(0)])
+            n = x2.shape[0] * n_pos
+            mesh = active_mesh()
+            if mesh is not None:
+                sums = all_reduce_sum(sums, mesh.dp_group)
+                n *= mesh.dp
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = self.scale * torch.rsqrt(var + self.eps)
+        return mul, self.bias - mean * mul
+
+    def forward(self, y: torch.Tensor, train: bool = False, *,
+                x2: torch.Tensor | None = None, e: torch.Tensor | None = None,
+                **kw) -> torch.Tensor:
+        """``y`` (B, C, P, F) normalised by the gram statistics of ``x2``
+        and ``e``, the affine in y's dtype (``y·mul + add``, both cast to
+        it, as JAX applies it); without ``x2``, :class:`BatchNorm`."""
+        if x2 is None:
+            return super().forward(y, train, **kw)
+        mul, add = self.affine(x2, e, y.shape[-2], train)
+        return y * mul.to(y.dtype) + add.to(y.dtype)
+
+
+#: TSConv's stage-1 BatchNorm modes (JAX ``TSConv.bn1_impl``)
+BN1_IMPLS = ("flax", "gram", "gram2d", "gramfold")
+
+
 class TSConv(nn.Module):
     """Temporal→spatial conv stack (ShallowNet-style ``tsconv``).
 
@@ -194,23 +263,41 @@ class TSConv(nn.Module):
     The JAX module is NHWC: stage 1 gives (B, C, P, F), the spatial conv is
     a (C, 1) HWIO kernel contracting C and F, and the tokens come out
     p-major, f-minor. Here the spatial kernel is stored as (C·F, F_out) with
-    c-major rows, which is the HWIO kernel reshaped."""
+    c-major rows, which is the HWIO kernel reshaped.
+
+    ``bn1_impl`` picks stage 1's BatchNorm, with JAX's rounding points:
+    ``'flax'``, the batch statistics of the (B, C, P, F) output
+    (:class:`BatchNorm`); ``'gram'``, the kernel's product rounded to the
+    working dtype, then :class:`GramStage1BN`'s affine in that dtype and
+    ELU; ``'gram2d'``, the affine and ELU in the forward kernel's fp32
+    epilogue, one rounding; ``'gramfold'``, the scale folded into the taps
+    (``(w̃·mul)`` rounded to the dtype), the shift in the epilogue, ELU in
+    the dtype. As in JAX the gram modes take effect on the fused path only:
+    ``fused_stage1=True`` on any device (the kernel on CUDA, its plain
+    version on the CPU), ``'auto'`` for a CUDA input; elsewhere stage 1 is
+    ``'flax'``."""
 
     def __init__(self, filters: int = 40, temporal_kernel: int = 25,
                  pool_size: int = 51, pool_stride: int = 5,
                  emb_size: int = 40, spatial_extent: int = 63,
-                 dropout: float = 0.5, fused_stage1: bool | str = "auto"):
+                 dropout: float = 0.5, fused_stage1: bool | str = "auto",
+                 bn1_impl: str = "flax"):
         super().__init__()
         check_fused(fused_stage1, "fused_tsconv")
+        if bn1_impl not in BN1_IMPLS:
+            raise ValueError(f"bn1_impl must be one of {BN1_IMPLS}; got "
+                             f"{bn1_impl!r}")
         self.dropout = dropout
         self.pool_size = pool_size
         self.pool_stride = pool_stride
         self.spatial_extent = spatial_extent
+        self.fused_stage1 = fused_stage1
+        self.bn1_impl = bn1_impl
         self.use_kernel = bool(fused_stage1)  # True and 'auto'
         # no conv bias ahead of BatchNorm, as in the JAX package
         self.temporal_conv_kernel = nn.Parameter(
             torch.zeros(temporal_kernel, filters))
-        self.bn1 = BatchNorm(filters)
+        self.bn1 = GramStage1BN(filters)
         self.spatial_conv = nn.Module()
         self.spatial_conv.kernel = nn.Parameter(
             torch.zeros(spatial_extent * filters, filters))
@@ -227,14 +314,7 @@ class TSConv(nn.Module):
         if c != self.spatial_extent:
             raise ValueError(f"expected {self.spatial_extent} channel rows, "
                              f"got {c}")
-        # fold in fp32, then round the taps to the working dtype
-        w_tilde = fold_pool_into_kernel(
-            self.temporal_conv_kernel, self.pool_size).to(dtype)
-        if self.use_kernel:  # the kernel on CUDA, its plain version on CPU
-            y = tsconv_pool_fused(x, w_tilde, self.pool_stride)
-        else:
-            y = tsconv_pool_reference(x, w_tilde, self.pool_stride)
-        y = F.elu(self.bn1(y, train))                        # (B, C, P, F)
+        y = self.stage1(x, train)                            # (B, C, P, F)
         p, f = y.shape[2], y.shape[3]
         y = y.permute(0, 2, 1, 3).reshape(b * p, c * f)    # (B·P, C·F)
         y = torch.matmul(y, self.spatial_conv.kernel.to(dtype))
@@ -243,6 +323,48 @@ class TSConv(nn.Module):
                     mask=dropout_mask, generator=generator).reshape(b * p, -1)
         y = self.proj_conv(y)                                # (B·P, emb)
         return y.reshape(b, p, -1)
+
+    def stage1(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Stage 1, BN1 and ELU: (B, C, T) in the working dtype → (B, C, P,
+        F), in the mode :meth:`gram_mode` takes for x."""
+        # fold in fp32, then round the taps to the working dtype
+        w_tilde = fold_pool_into_kernel(
+            self.temporal_conv_kernel, self.pool_size).to(x.dtype)
+        if self.gram_mode(x):
+            return self._stage1_gram(x, w_tilde, train)
+        if self.use_kernel:  # the kernel on CUDA, its plain version on CPU
+            y = tsconv_pool_fused(x, w_tilde, self.pool_stride)
+        else:
+            y = tsconv_pool_reference(x, w_tilde, self.pool_stride)
+        return F.elu(self.bn1(y, train))
+
+    def gram_mode(self, x: torch.Tensor) -> bool:
+        """Whether stage 1 takes a gram mode for input ``x``: a gram
+        ``bn1_impl`` on the fused path (JAX's ``_use_fused()``)."""
+        fused = (x.device.type == "cuda" if self.fused_stage1 == "auto"
+                 else bool(self.fused_stage1))
+        return fused and self.bn1_impl != "flax"
+
+    def _stage1_gram(self, x: torch.Tensor, w_tilde: torch.Tensor,
+                     train: bool) -> torch.Tensor:
+        """Stage 1 + BN1 + ELU in a gram mode (JAX ``TSConv``'s open
+        ``x2 @ E`` path): x2 and E in the working dtype feed the
+        statistics, the kernel computes the product."""
+        b, c, t = x.shape
+        s = self.pool_stride
+        x2 = x.reshape(b * c, t)
+        e = expand_folded_kernel(w_tilde, t, s)               # (T, P·F)
+        n_pos = e.shape[1] // w_tilde.shape[1]
+        if self.bn1_impl == "gram":
+            y = tsconv_pool_fused(x, w_tilde, s)
+            return F.elu(self.bn1(y, train, x2=x2, e=e))
+        mul, add = self.bn1.affine(x2, e, n_pos, train)
+        if self.bn1_impl == "gram2d":
+            return tsconv_pool_fused(x, w_tilde, s, scale=mul, shift=add,
+                                     elu=True)
+        # 'gramfold': the taps absorb mul, the epilogue adds add
+        w_eff = (w_tilde.float() * mul).to(x.dtype)
+        return F.elu(tsconv_pool_fused(x, w_eff, s, shift=add))
 
 
 class ProjectionHead(nn.Module):

@@ -41,7 +41,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: dict[str, int] = {
     "attention_fwd": 0, "attention_fwd_masks": 0, "attention_fwd_seed": 0,
-    "attention_bwd": 0, "tsconv_fwd": 0, "tsconv_bwd": 0,
+    "attention_bwd": 0, "tsconv_fwd": 0, "tsconv_fwd_epilogue": 0,
+    "tsconv_bwd": 0,
     "projection_fwd": 0, "projection_fwd_masks": 0, "projection_fwd_seed": 0,
     "projection_bwd": 0,
 }
@@ -67,8 +68,10 @@ _SIGNATURES = {
     # sample0, stream
     "eid_attention_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P, _P, _U, _F, _U, _P], _I),
-    # dtype, x, w, out, rows, T, M, F, P, stride, stream
-    "eid_tsconv_fwd": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    # dtype, x, w, scale, shift (fp32 (F,) or null), elu, out, rows, T, M,
+    # F, P, stride, stream
+    "eid_tsconv_fwd": ([_I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                        _P], _I),
     # dtype, rows, T, M, F, P, stride → 1 if the dtype's design takes the
     # shape, else 0
     "eid_tsconv_fwd_takes": ([_I, _I, _I, _I, _I, _I, _I], _I),

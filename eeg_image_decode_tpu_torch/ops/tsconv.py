@@ -19,11 +19,21 @@ run on the tensor cores in bfloat16 and as full-fp32 FMA loops in float32;
 ``tsconv_pool_forward_tiled`` and ``tsconv_pool_backward_tiled`` are the
 bfloat16 designs' tiling and index math in plain PyTorch, for the CPU
 tests.
+
+The forward takes an optional fp32 epilogue, ``elu(acc·scale[f] +
+shift[f])`` on the fp32 sums before their one rounding to the working
+dtype: the stage-1 BatchNorm of JAX's ``TSConv(bn1_impl='gram2d' |
+'gramfold')`` rides there (``models/layers.py::GramStage1BN``), as JAX's
+rides in the matmul's epilogue. Its backward is plain PyTorch
+(:func:`epilogue_backward`) ahead of the backward kernel.
+:func:`expand_folded_kernel` builds the dense (T, P·F) operand E of JAX's
+``x2 @ E`` formulation, from which the gram statistics are taken.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from eeg_image_decode_tpu_torch.ops import _build
 
@@ -63,14 +73,110 @@ def out_positions(t: int, k_fused: int, stride: int) -> int:
     return (t - k_fused) // stride + 1
 
 
-def tsconv_pool_reference(x: torch.Tensor, w_tilde: torch.Tensor,
-                          stride: int = 5) -> torch.Tensor:
-    """Plain PyTorch stage 1: (B, C, T) × (M, F) → (B, C, P, F) in x's dtype,
-    fp32 accumulation."""
+class _ExpandFolded(torch.autograd.Function):
+    """E (T, P, F) with ``E[p·s + m, p, f] = w̃[m, f]`` and 0 elsewhere:
+    the taps of position p are one strided view of E, so the forward
+    copies w̃ into it and the backward sums the P views (one reduction,
+    the same bits on every run)."""
+
+    @staticmethod
+    def _taps(e, m, stride):
+        t, n_pos, f = e.shape
+        return e.as_strided((m, n_pos, f), (n_pos * f, stride * n_pos * f + f,
+                                            1))
+
+    @staticmethod
+    def forward(ctx, w_tilde, t, stride):
+        m, f = w_tilde.shape
+        n_pos = out_positions(t, m, stride)
+        ctx.m, ctx.stride = m, stride
+        e = torch.zeros((t, n_pos, f), dtype=w_tilde.dtype,
+                        device=w_tilde.device)
+        _ExpandFolded._taps(e, m, stride).copy_(
+            w_tilde[:, None, :].expand(m, n_pos, f))
+        return e
+
+    @staticmethod
+    def backward(ctx, g):
+        taps = _ExpandFolded._taps(g.contiguous(), ctx.m, ctx.stride)
+        return taps.sum(1), None, None
+
+
+def expand_folded_kernel(w_tilde: torch.Tensor, t: int,
+                         stride: int) -> torch.Tensor:
+    """(M, F) folded taps → the dense (T, P·F) operand E of JAX's
+    ``expand_folded_kernel``: ``E[t, p·F + f] = w̃[t − p·stride, f]``, zero
+    outside the taps, so stage 1 is ``x2 @ E``. Differentiable in w̃; the
+    port runs stage 1 through the kernel and uses E for the statistics of
+    ``models/layers.py::GramStage1BN`` only."""
+    e = _ExpandFolded.apply(w_tilde, t, stride)
+    return e.reshape(t, -1)
+
+
+def has_epilogue(scale, shift, elu: bool) -> bool:
+    return scale is not None or shift is not None or bool(elu)
+
+
+def apply_epilogue(acc: torch.Tensor, scale=None, shift=None,
+                   elu: bool = False) -> torch.Tensor:
+    """The forward's epilogue on fp32 sums ``acc`` (…, F): ``acc·scale``,
+    then ``+ shift`` (two roundings, per filter), then ELU, each part only
+    where it is given."""
+    if scale is not None:
+        acc = acc * scale
+    if shift is not None:
+        acc = acc + shift
+    return F.elu(acc) if elu else acc
+
+
+def epilogue_backward(g: torch.Tensor, acc: torch.Tensor, scale=None,
+                      shift=None, elu: bool = False):
+    """The epilogue's backward in plain PyTorch: from the cotangent g of
+    the rounded output and the product ``acc`` (both (B, C, P, F); ``acc``
+    is read only with ``scale`` or ``elu``), the cotangent of the product
+    (fp32) and the fp32 gradients of ``scale`` and ``shift`` (None where
+    not given), each summed over (B, C, P)."""
+    g_z = g.float()
+    if elu:
+        z = apply_epilogue(acc.float(), scale, shift)
+        g_z = g_z * torch.where(z > 0, torch.ones_like(z), torch.exp(z))
+    d_shift = g_z.sum((0, 1, 2)) if shift is not None else None
+    d_scale = None
+    if scale is not None:
+        d_scale = (g_z * acc.float()).sum((0, 1, 2))
+        g_z = g_z * scale
+    return g_z, d_scale, d_shift
+
+
+def _windows(x: torch.Tensor, m: int, stride: int) -> torch.Tensor:
     b, c, t = x.shape
+    return x.reshape(b * c, t).unfold(1, m, stride)     # (B·C, P, M) view
+
+
+def plain_sums(x: torch.Tensor, w_tilde: torch.Tensor,
+               stride: int = 5) -> torch.Tensor:
+    """Stage 1's fp32 sums before any rounding: (B, C, P, F) fp32 of the
+    operands in x's dtype (exact fp32 products)."""
+    b, c, _ = x.shape
     m, f = w_tilde.shape
-    windows = x.reshape(b * c, t).unfold(1, m, stride)  # (B·C, P, M) view
-    out = torch.matmul(windows, w_tilde.to(x.dtype))    # (B·C, P, F)
+    acc = torch.matmul(_windows(x, m, stride).float(),
+                       w_tilde.to(x.dtype).float())
+    return acc.reshape(b, c, -1, f)
+
+
+def tsconv_pool_reference(x: torch.Tensor, w_tilde: torch.Tensor,
+                          stride: int = 5, scale=None, shift=None,
+                          elu: bool = False) -> torch.Tensor:
+    """Plain PyTorch stage 1: (B, C, T) × (M, F) → (B, C, P, F) in x's dtype,
+    fp32 accumulation. With an epilogue (``scale``, ``shift``: fp32 (F,);
+    ``elu``) :func:`apply_epilogue` runs on the fp32 sums before the one
+    rounding to x's dtype."""
+    if has_epilogue(scale, shift, elu):
+        return apply_epilogue(plain_sums(x, w_tilde, stride), scale, shift,
+                              elu).to(x.dtype)
+    b, c, _ = x.shape
+    m, f = w_tilde.shape
+    out = torch.matmul(_windows(x, m, stride), w_tilde.to(x.dtype))
     return out.reshape(b, c, -1, f)
 
 
@@ -221,10 +327,22 @@ def tsconv_pool_backward_tiled(x: torch.Tensor, w_tilde: torch.Tensor,
     return dx.to(x.dtype).reshape(b, c, t), dw[:m, :f]
 
 
-def _forward(x: torch.Tensor, w_tilde: torch.Tensor,
-             stride: int) -> torch.Tensor:
+def _check_epilogue(x: torch.Tensor, f: int, vectors: dict) -> None:
+    for k, v in vectors.items():
+        if v is None:
+            continue
+        if v.device != x.device or v.dtype != torch.float32:
+            raise TypeError(f"tsconv_pool_fused: {k} must be float32 on "
+                            f"{x.device}, got {v.dtype} on {v.device}")
+        if tuple(v.shape) != (f,) or not v.is_contiguous():
+            raise ValueError(f"tsconv_pool_fused: {k} must be a contiguous "
+                             f"({f},) vector, got {tuple(v.shape)}")
+
+
+def _forward(x: torch.Tensor, w_tilde: torch.Tensor, stride: int,
+             scale=None, shift=None, elu: bool = False) -> torch.Tensor:
     if x.device.type == "cpu":
-        return tsconv_pool_reference(x, w_tilde, stride)
+        return tsconv_pool_reference(x, w_tilde, stride, scale, shift, elu)
     if x.device.type != "cuda":
         raise ValueError(f"tsconv_pool_fused: no kernel for {x.device}")
     b, c, t = x.shape
@@ -233,6 +351,7 @@ def _forward(x: torch.Tensor, w_tilde: torch.Tensor,
     if n_pos <= 0:
         raise ValueError(f"{m} taps do not fit in {t} samples")
     _build.check_cuda_args("tsconv_pool_fused", x, {"w_tilde": w_tilde})
+    _check_epilogue(x, f, {"scale": scale, "shift": shift})
     lib = _build.lib()
     code = _build.DTYPE_CODES[x.dtype]
     if not lib.eid_tsconv_fwd_takes(code, b * c, t, m, f, n_pos, stride):
@@ -243,10 +362,15 @@ def _forward(x: torch.Tensor, w_tilde: torch.Tensor,
             "output tiles within the card's shared memory)")
     out = torch.empty((b, c, n_pos, f), dtype=x.dtype, device=x.device)
     rc = lib.eid_tsconv_fwd(
-        code, x.data_ptr(), w_tilde.data_ptr(), out.data_ptr(), b * c, t, m,
-        f, n_pos, stride, _build.stream_of(x))
+        code, x.data_ptr(), w_tilde.data_ptr(),
+        0 if scale is None else scale.data_ptr(),
+        0 if shift is None else shift.data_ptr(), int(bool(elu)),
+        out.data_ptr(), b * c, t, m, f, n_pos, stride, _build.stream_of(x))
     _build.check(rc, "tsconv_fwd")
-    _build.LAUNCHES["tsconv_fwd"] += 1
+    if has_epilogue(scale, shift, elu):
+        _build.LAUNCHES["tsconv_fwd_epilogue"] += 1
+    else:
+        _build.LAUNCHES["tsconv_fwd"] += 1
     return out
 
 
@@ -301,27 +425,52 @@ def _backward(x: torch.Tensor, w_tilde: torch.Tensor, g: torch.Tensor,
     return dx, dw
 
 
+def _product(x: torch.Tensor, w_tilde: torch.Tensor,
+             stride: int) -> torch.Tensor:
+    """The epilogue backward's product: the fp32 sums (plain, on the CPU),
+    or the kernel's forward without an epilogue, rounded to x's dtype as it
+    leaves the kernel (exact in float32)."""
+    if x.device.type == "cpu":
+        return plain_sums(x, w_tilde, stride)
+    return _forward(x, w_tilde, stride)
+
+
 class _TSConvPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w_tilde, stride):
-        ctx.stride = stride
-        ctx.save_for_backward(x, w_tilde)
-        return _forward(x, w_tilde, stride)
+    def forward(ctx, x, w_tilde, stride, scale, shift, elu):
+        ctx.stride, ctx.elu = stride, elu
+        ctx.save_for_backward(x, w_tilde, scale, shift)
+        return _forward(x, w_tilde, stride, scale, shift, elu)
 
     @staticmethod
     def backward(ctx, g):
-        x, w_tilde = ctx.saved_tensors
+        x, w_tilde, scale, shift = ctx.saved_tensors
+        d_scale = d_shift = None
+        if has_epilogue(scale, shift, ctx.elu):
+            # the product only where the epilogue's derivative reads it
+            acc = (_product(x, w_tilde, ctx.stride)
+                   if scale is not None or ctx.elu else None)
+            g, d_scale, d_shift = epilogue_backward(g, acc, scale, shift,
+                                                    ctx.elu)
         dx, dw = _backward(x, w_tilde, g, ctx.stride)
-        return dx.to(x.dtype), dw.to(w_tilde.dtype), None
+        return (dx.to(x.dtype), dw.to(w_tilde.dtype), None, d_scale, d_shift,
+                None)
 
 
 def tsconv_pool_fused(x: torch.Tensor, w_tilde: torch.Tensor,
-                      stride: int = 5) -> torch.Tensor:
+                      stride: int = 5, *, scale=None, shift=None,
+                      elu: bool = False) -> torch.Tensor:
     """Folded conv + pool: (B, C, T) × (M, F) → (B, C, P, F) in x's dtype,
-    differentiable in x and w̃.
+    differentiable in x and w̃, and in ``scale`` and ``shift`` (fp32 (F,))
+    where an epilogue is given: ``elu(acc·scale + shift)`` on the fp32 sums
+    before the rounding (:func:`apply_epilogue`).
 
     w̃ is cast to x's dtype, as the JAX launcher does. A CPU tensor runs
     the plain versions; a CUDA tensor launches the kernels (float32 or
-    bfloat16) or raises."""
+    bfloat16) or raises. The backward kernel takes the cotangent of the
+    product, which :func:`epilogue_backward` forms in plain PyTorch from a
+    second forward launch without the epilogue."""
+    vec = [None if v is None else v.float().contiguous()
+           for v in (scale, shift)]
     return _TSConvPool.apply(x.contiguous(), w_tilde.to(x.dtype).contiguous(),
-                             stride)
+                             stride, *vec, bool(elu))

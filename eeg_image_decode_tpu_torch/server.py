@@ -26,7 +26,8 @@ Design notes:
 - One ``_Coalescer`` per service batches the requests that queue while the
   card is busy into one dispatch. A reconstruction or caption request's
   rows carry their (seed, row) pairs, so a row's image or caption does not
-  depend on what it was coalesced with.
+  depend on what it was coalesced with. ``coalesce=False`` serves each
+  request alone under the device lock, as the JAX daemon's option does.
 """
 
 from __future__ import annotations
@@ -57,16 +58,17 @@ class _Coalescer:
     (``eeg``, ``sids``) and must return a tuple of row-aligned arrays (the
     service's contract). Requests are only coalesced when their extra kwargs
     (k) AND their per-row trailing shapes match — a wrong-shaped request must
-    fail alone, never poison a merged dispatch. ``_max_rows`` bounds one
+    fail alone, never poison a merged dispatch. ``max_rows`` bounds one
     drained batch (the service's own ``max_batch`` chunking makes any bound
-    safe, so it is a fairness knob, not a correctness one).
+    safe, so it is a fairness knob, not a correctness one); a request
+    larger than it rides alone.
     """
 
-    _max_rows = 4096
-
-    def __init__(self, fn, device_lock: threading.Lock):
+    def __init__(self, fn, device_lock: threading.Lock, *,
+                 max_rows: int = 4096):
         self._fn = fn
         self._device_lock = device_lock
+        self._max_rows = max_rows
         self._mu = threading.Lock()
         self._pending: list[dict] = []
 
@@ -150,12 +152,16 @@ class EEGDecodeServer:
     ``ReconstructionService`` and ``CaptionService`` of
     :mod:`eeg_image_decode_tpu_torch.serve`, or None. An absent service's
     route answers 501 (service not configured), as the JAX daemon does.
+    ``coalesce``: batch concurrent requests per service (default), or serve
+    each alone, one at a time under the device lock.
     """
 
-    def __init__(self, *, retrieval=None, reconstruction=None, caption=None):
+    def __init__(self, *, retrieval=None, reconstruction=None, caption=None,
+                 coalesce: bool = True):
         self.retrieval = retrieval
         self.reconstruction = reconstruction
         self.caption = caption
+        self.coalesce = coalesce
         self._device_lock = threading.Lock()
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -168,23 +174,33 @@ class EEGDecodeServer:
             return lambda rows, **kw: self._device.submit(fn, rows,
                                                           **kw).result()
 
-        # one coalescer per service, all on the single device lock: the
-        # batching happens in the queue that forms while the card runs the
-        # current batch. Seeded services take per-row seeds, not a batch
-        # seed: a row's noise must not depend on what it was merged with.
-        self._coalescers = {
-            "retrieval": _Coalescer(on_device(
-                lambda rows, k: self.retrieval.top_k(
-                    rows["eeg"], rows["sids"], k=k)), self._device_lock),
-            "reconstruction": _Coalescer(on_device(
+        # the services over the coalescer's (rows, **kw) convention, shared
+        # by the coalesced and the lock-serialised paths. Seeded services
+        # take per-row seeds, not a batch seed: a row's noise must not
+        # depend on what it was merged with.
+        self._calls = {
+            "retrieval": on_device(lambda rows, k: self.retrieval.top_k(
+                rows["eeg"], rows["sids"], k=k)),
+            "reconstruction": on_device(
                 lambda rows: (self.reconstruction.reconstruct(
                     rows["eeg"], rows["sids"], row_seeds=rows["row_seeds"]),
-                )), self._device_lock),
-            "caption": _Coalescer(on_device(
-                lambda rows: (np.asarray(self.caption.caption(
-                    rows["eeg"], rows["sids"], row_seeds=rows["row_seeds"]),
-                    dtype=object),)), self._device_lock),
+                )),
+            "caption": on_device(lambda rows: (np.asarray(
+                self.caption.caption(rows["eeg"], rows["sids"],
+                                     row_seeds=rows["row_seeds"]),
+                dtype=object),)),
         }
+        # one coalescer per service, all on the single device lock: the
+        # batching happens in the queue that forms while the card runs the
+        # current batch
+        self._coalescers = {name: _Coalescer(fn, self._device_lock)
+                            for name, fn in self._calls.items()}
+
+    def _dispatch(self, name: str, rows: dict, **kw):
+        if self.coalesce:
+            return self._coalescers[name].submit(rows, **kw)
+        with self._device_lock:
+            return self._calls[name](rows, **kw)
 
     def warmup(self, eeg_shape: tuple[int, int]) -> None:
         """Each configured service's ``warmup`` on the device thread, so
@@ -241,15 +257,14 @@ class EEGDecodeServer:
         if name != "retrieval":
             rows["row_seeds"] = _default_row_seeds(eeg.shape[0],
                                                    int(req.get("seed", 0)))
-            (out,) = self._coalescers[name].submit(rows)
+            (out,) = self._dispatch(name, rows)
             if name == "caption":
                 return (json.dumps({"captions": [str(c) for c in out]}
                                    ).encode(), "application/json")
             buf = io.BytesIO()
             np.savez(buf, images=np.asarray(out, np.float32))
             return buf.getvalue(), "application/octet-stream"
-        scores, idx = self._coalescers[name].submit(rows,
-                                                    k=int(req.get("k", 5)))
+        scores, idx = self._dispatch(name, rows, k=int(req.get("k", 5)))
         return (
             json.dumps(
                 {"scores": np.asarray(scores).tolist(),

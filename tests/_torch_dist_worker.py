@@ -194,6 +194,29 @@ def case_unet_tp(inp, mesh):
             "params_full": n_full}
 
 
+def case_gram_stats(inp, mesh):
+    """GramStage1BN's affine on this rank's rows under the mesh, and the
+    gradients of a probe of (mul, add) to the rows and the taps."""
+    from eeg_image_decode_tpu_torch.models.layers import GramStage1BN
+    from eeg_image_decode_tpu_torch.ops.tsconv import expand_folded_kernel
+    from eeg_image_decode_tpu_torch.parallel.collectives import (
+        data_parallel,
+    )
+
+    bn = GramStage1BN(inp["w"].shape[1])
+    with torch.no_grad():
+        bn.scale.copy_(inp["scale"])
+        bn.bias.copy_(inp["bias"])
+    x = inp["x2"][mesh.rows(inp["x2"].shape[0])].clone().requires_grad_(True)
+    w = inp["w"].clone().requires_grad_(True)
+    e = expand_folded_kernel(w, x.shape[1], inp["stride"])
+    with data_parallel(mesh):
+        mul, add = bn.affine(x, e, e.shape[1] // w.shape[1], True)
+    (torch.stack([mul, add]) * inp["probe"]).sum().backward()
+    return {"mul": mul.detach(), "add": add.detach(), "mean": bn.mean,
+            "var": bn.var, "dx": x.grad, "dw": w.grad}
+
+
 def main() -> None:
     rank, world, rdv, directory = (int(sys.argv[1]), int(sys.argv[2]),
                                    sys.argv[3], sys.argv[4])

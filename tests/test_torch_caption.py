@@ -180,6 +180,90 @@ def test_greedy_ids_match_jax_with_early_eos(git_pair):
     assert (got[early, 2:] == CFG.pad_token_id).all()
 
 
+def test_bf16_git_matches_jax(git_pair):
+    """``GITCaptioner(dtype=bfloat16)`` against JAX's on the same tiny
+    weights: the logits relative to max|logit| (both sides round the
+    products, the residual sums and each softmax step to bf16 and run the
+    LayerNorms and the lm head in fp32, but sum in other orders and take
+    GELU and the softmax's exp through other fp32 paths, so an activation
+    may sit one bf16 step apart: measured 7.1e-3 of max|logit|; 3e-2
+    stated), and the greedy ids of the whole decode. A row may leave JAX's
+    ids only at a near-tie: where the two tokens' logits in JAX's own
+    forward of its prefix lie within that tolerance (measured: one row of
+    six, at a gap of 8.9e-3 that JAX's jitted decode and its forward
+    resolve differently); the rest of such a row follows another prefix."""
+    tree = git_pair[0]
+    rng = np.random.default_rng(6)
+    vis = rng.normal(size=(6, CFG.num_visual_tokens, CFG.visual_dim)
+                     ).astype(np.float32)
+    ids = rng.integers(0, CFG.vocab_size, size=(6, 6)).astype(np.int32)
+    jmodel = jgit.GITCaptioner(CFG, dtype=jnp.bfloat16)
+    want = np.asarray(jax.jit(jmodel.apply)({"params": tree}, vis, ids))
+    pcfg = pgit.GITConfig(**{f: getattr(CFG, f) for f in
+                             CFG.__dataclass_fields__})
+    port = pgit.GITCaptioner(pcfg, dtype=torch.bfloat16).load_params(tree)
+    with torch.no_grad():
+        got = port(torch.from_numpy(vis), torch.from_numpy(ids).long())
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=3e-2 * np.abs(want).max())
+    tol = 3e-2 * np.abs(want).max()
+    want_ids = np.asarray(jmodel.generate({"params": tree}, jnp.asarray(vis),
+                                          max_new_tokens=6))
+    got_ids = port.generate(torch.from_numpy(vis), max_new_tokens=6).numpy()
+    assert got_ids.shape == want_ids.shape == (6, 7)
+    equal_rows = 0
+    for r in range(6):
+        diff = np.nonzero(got_ids[r] != want_ids[r])[0]
+        if not len(diff):
+            equal_rows += 1
+            continue
+        i = diff[0]
+        logits = np.asarray(jax.jit(jmodel.apply)(
+            {"params": tree}, vis[r:r + 1], want_ids[r:r + 1, :i]))[0, -1]
+        gap = abs(logits[want_ids[r, i]] - logits[got_ids[r, i]])
+        assert gap <= tol, (r, i, gap, tol)
+    assert equal_rows >= 5, equal_rows
+    # the fp32 default is the module it was: the same logits as before
+    with torch.no_grad():
+        f32 = git_pair[1](torch.from_numpy(vis), torch.from_numpy(ids).long())
+    assert git_pair[1].dtype == torch.float32
+    assert float((f32 - got).abs().max()) > 0
+
+
+def test_bf16_caption_embeddings_match_jax(git_pair):
+    """``caption_embeddings`` runs the projector at the captioner's dtype,
+    as JAX builds it (``PixelProjector(dtype=captioner.dtype)``): the same
+    ids from an fp32-built projector as from JAX's bf16 one."""
+    tree = git_pair[0]
+    rng = np.random.default_rng(7)
+    d = 24
+    jproj = jgit.PixelProjector(num_tokens=CFG.num_visual_tokens,
+                                out_dim=CFG.visual_dim)
+    ptree = randomize(jax.tree_util.tree_map(
+        lambda sh: np.zeros(sh.shape, np.float32),
+        jax.eval_shape(jproj.init, jax.random.key(0),
+                       jnp.zeros((1, d)))["params"]), 8)
+    emb = (rng.normal(size=(5, d)) / np.sqrt(d)).astype(np.float32)
+
+    class Ids:
+        @staticmethod
+        def decode(row):
+            return " ".join(str(t) for t in row)
+
+    want = jgit.caption_embeddings(
+        jgit.GITCaptioner(CFG, dtype=jnp.bfloat16), {"params": tree}, ptree,
+        jnp.asarray(emb), Ids(), max_new_tokens=5)
+    pcfg = pgit.GITConfig(**{f: getattr(CFG, f) for f in
+                             CFG.__dataclass_fields__})
+    proj = pgit.PixelProjector(CFG.num_visual_tokens, d, CFG.visual_dim)
+    proj.load_state_dict(pconvert.pixel_projector_state_dict_from_flax(ptree),
+                         strict=True)
+    git = pgit.GITCaptioner(pcfg, dtype=torch.bfloat16).load_params(tree)
+    got = pgit.caption_embeddings(git, proj, emb, None, max_new_tokens=5)
+    assert got == want and len(got) == 5
+
+
 # ——— the converters ———
 
 

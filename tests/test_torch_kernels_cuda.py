@@ -574,6 +574,133 @@ def test_tsconv_fwd_mma_refuses_shapes_past_its_limits(cuda):
         tsconv_pool_fused(x.bfloat16(), w_tilde.bfloat16(), 5)
 
 
+# ——— the tsconv forward's fp32 epilogue (the stage-1 BatchNorm modes) ———
+
+EPILOGUES = {"scale_shift_elu": ("scale", "shift", "elu"),
+             "shift": ("shift",), "scale": ("scale",), "elu": ("elu",)}
+
+
+def _epilogue_case(cuda, dtype, rows, t, parts, seed=16):
+    rng = np.random.default_rng(seed)
+    w = torch.from_numpy((rng.normal(size=(25, 40)) / 5.0).astype(np.float32))
+    w_tilde = fold_pool_into_kernel(w, 51).to(cuda, dtype)
+    x = torch.from_numpy(rng.normal(size=(1, rows, t)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, 40).astype(np.float32))
+    shift = torch.from_numpy((0.3 * rng.normal(size=40)).astype(np.float32))
+    kw = {"scale": scale.to(cuda) if "scale" in parts else None,
+          "shift": shift.to(cuda) if "shift" in parts else None,
+          "elu": "elu" in parts}
+    return x.to(cuda, dtype), w_tilde, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(EPILOGUES))
+@pytest.mark.parametrize("rows,t", [(37, 253), (1024 * 63, 250)])
+def test_tsconv_fwd_epilogue_on_card(cuda, dtype, mode, rows, t):
+    """The forward's fp32 epilogue in both designs (``mma_bf16``,
+    ``fma_fp32``) against the plain version, the same epilogue on the fp32
+    sums: within two bf16 ulps of the largest output (one rounding) and
+    1e-4 in fp32 (sums in another order); a rerun bit-equal; the launches
+    counted as the epilogue's."""
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    x, w_tilde, kw = _epilogue_case(cuda, dtype, rows, t, EPILOGUES[mode])
+    _build.reset_launches()
+    got = tsconv_pool_fused(x, w_tilde, 5, **kw)
+    again = tsconv_pool_fused(x, w_tilde, 5, **kw)
+    want = tsconv_pool_reference(x, w_tilde, 5, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["tsconv_fwd_epilogue"] == 2
+    assert _build.LAUNCHES["tsconv_fwd"] == 0
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    top = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2.0 ** -7 * top if dtype == torch.bfloat16 else 1e-4 * max(1.0, top)
+    assert err <= tol, (err, tol)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tsconv_fwd_without_epilogue_keeps_its_bits(cuda, dtype):
+    """Without an epilogue the forward gives the bits of the kernel before
+    the epilogue existed: the SHA-256 of its output on ``chip_smoke.py``'s
+    seeded training-shape inputs equals the digest recorded there."""
+    cs = _chip_smoke()
+    x, w_tilde = cs.tsconv_digest_inputs(torch, getattr(torch, dtype))
+    got = cs.sha16(torch, tsconv_pool_fused(x, w_tilde, 5))
+    assert got == cs.TSCONV_FWD_SHA256[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["scale_shift_elu", "shift"])
+def test_tsconv_epilogue_backward_on_card(cuda, dtype, mode):
+    """The gradients of x, w̃, scale and shift through the kernels (the
+    epilogue's plain backward on a second forward launch, then the backward
+    kernel) against autograd of the plain version with the same epilogue,
+    at 37 rows of T 253: fp32 within 1e-4, bf16 within 5e-2 of each
+    gradient's largest entry."""
+    x, w_tilde, kw = _epilogue_case(cuda, dtype, 37, 253, EPILOGUES[mode],
+                                    seed=17)
+    leaves = {"x": x, "w_tilde": w_tilde,
+              **{k: v for k, v in kw.items() if torch.is_tensor(v)}}
+    g = torch.from_numpy(np.random.default_rng(18).normal(
+        size=(1, 37, 36, 40)).astype(np.float32)).to(cuda, dtype)
+
+    def grads(fn):
+        ins = {k: v.detach().clone().requires_grad_() for k, v in
+               leaves.items()}
+        out = fn(ins["x"], ins["w_tilde"], scale=ins.get("scale"),
+                 shift=ins.get("shift"), elu=kw["elu"])
+        return dict(zip(ins, torch.autograd.grad(out, list(ins.values()),
+                                                 g)))
+
+    got = grads(lambda a, b, **e: tsconv_pool_fused(a, b, 5, **e))
+    want = grads(lambda a, b, scale, shift, elu: _PlainEpilogue.apply(
+        a, b, scale, shift, elu))
+    tol = BWD_TOL[dtype]
+    for k in leaves:
+        assert _rel_err(got[k], want[k]) <= tol, k
+
+
+class _PlainEpilogue(torch.autograd.Function):
+    """The plain version of the forward with an epilogue, differentiated
+    through the epilogue's and the product's plain backwards."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, elu):
+        ctx.save_for_backward(x, w, scale, shift)
+        ctx.elu = elu
+        return tsconv_pool_reference(x, w, 5, scale, shift, elu)
+
+    @staticmethod
+    def backward(ctx, g):
+        from eeg_image_decode_tpu_torch.ops.tsconv import (
+            epilogue_backward,
+            tsconv_pool_backward_reference,
+        )
+
+        x, w, scale, shift = ctx.saved_tensors
+        g, d_scale, d_shift = epilogue_backward(
+            g, tsconv_pool_reference(x, w, 5), scale, shift, ctx.elu)
+        dx, dw = tsconv_pool_backward_reference(x, w, g, 5)
+        return dx.to(x.dtype), dw.to(w.dtype), d_scale, d_shift, None
+
+
 # ——— the attention layer on the tensor cores (design "mma_bf16") ———
 
 

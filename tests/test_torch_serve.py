@@ -171,6 +171,83 @@ def test_server_answers_as_the_service(small):
         server.stop()
 
 
+def test_coalescer_bounds_batches_by_max_rows():
+    """``_Coalescer(max_rows=)`` as JAX's (``tests/test_server.py::
+    test_coalescer_batches_and_demuxes``): a backlog under ``max_rows=64``
+    merges into fewer dispatches and every request gets its own rows; at
+    ``max_rows=4`` a request of 9 rows rides alone and each dispatch of a
+    backlog holds at most 4 rows unless one request alone is larger."""
+    import concurrent.futures
+    import time
+
+    from eeg_image_decode_tpu_torch.server import _Coalescer
+
+    calls = []
+
+    def fn(rows, k):
+        calls.append(rows["eeg"].shape[0])
+        time.sleep(0.05)  # the device's time: lets a backlog form
+        return rows["eeg"][:, 0, 0][:, None] * np.ones((1, k)), rows["sids"]
+
+    def one(co, i, n):
+        eeg = np.full((n, 2, 3), float(i), np.float32)
+        scores, sids = co.submit({"eeg": eeg, "sids": np.full(n, i,
+                                                              np.int32)}, k=2)
+        assert scores.shape == (n, 2) and (scores == i).all()
+        assert (sids == i).all()
+        return n
+
+    lock = threading.Lock()
+    for max_rows in (64, 4):
+        co = _Coalescer(fn, lock, max_rows=max_rows)
+        calls.clear()
+        sizes = [1 + i % 3 for i in range(12)]
+        with concurrent.futures.ThreadPoolExecutor(12) as ex:
+            assert sum(ex.map(lambda a: one(co, *a),
+                              enumerate(sizes))) == sum(sizes)
+        assert sum(calls) == sum(sizes) and len(calls) < 12, calls
+        assert max(calls) <= max_rows, calls
+    calls.clear()
+    assert one(co, 7, 9) == 9 and calls == [9]
+
+
+def test_server_without_coalescing_answers_as_the_service(small):
+    """``EEGDecodeServer(coalesce=False)``: each request is served alone
+    under the device lock (JAX's ``_dispatch`` when ``coalesce`` is False),
+    with the same answers as the service called directly, concurrent
+    clients included."""
+    _, _, model, gallery, eeg = small
+    svc = RetrievalService(model, gallery, max_batch=8, device="cpu")
+    server = EEGDecodeServer(retrieval=svc, coalesce=False)
+    seen = []
+    top_k = svc.top_k
+    svc.top_k = lambda e, s, k: seen.append(len(e)) or top_k(e, s, k=k)
+    port = server.start(port=0)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        results = {}
+
+        def client(i):
+            results[i] = _post(base + "/v1/retrieve",
+                               _npz(eeg=eeg[i:i + 2], subject_ids=np.int32(1),
+                                    k=np.int64(3)),
+                               "application/octet-stream")[1]
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert seen == [2, 2, 2, 2]
+        for i in range(4):
+            np.testing.assert_array_equal(
+                results[i]["indices"], top_k(eeg[i:i + 2], 1, k=3)[1])
+    finally:
+        server.stop()
+
+
 def test_cli_serve_builds_the_service(tmp_path):
     """``serve --weights`` at full ATM-S width, fp32 on the CPU: the
     service's answers equal the JAX model's top-k on the same weights; and

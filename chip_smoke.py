@@ -334,7 +334,33 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    and unlike ``'flax'``'s. (d) GIT at ``git_large_coco()`` from seeded
    weights, a 16-row greedy decode of 25 tokens in bf16 and in fp32: each
    p50 and the share of bf16 ids equal to the fp32 ids.
-18. One JSON line listing the kernels, then the result line
+18. The full-size rehearsals, timed with CUDA events. (a) Every
+   published checkpoint's key grammar (``scripts/checkpoint_grammar_
+   torch.py``: the sdxl-turbo UNet with ``ip-adapter_sdxl_vit-h``, the
+   SDXL VAE, SDXL's two text towers, OpenCLIP ViT-H/14, git-large-coco
+   with its ViT-L/14 image encoder, the reference's diffusion prior)
+   synthesized from a seed on the card, handed to the host as fp16,
+   converted there by the port's converter, loaded ``strict=True`` into
+   the module built on ``meta`` and given memory on the card in bf16, and
+   run (``scripts/rehearse_fullsize_torch.py``): finite outputs of their
+   shapes, the UNet's ε and the VAE's decode each row's cosine ≥ 0.99 to
+   the same weights in fp32, one line per model with its elements and
+   its convert, load and forward times, its peak device memory and host
+   peak RSS. (b) ``train-retrieval`` on one subject at THINGS-EEG's stored
+   size (16,540 × 4 × 63 × 300 fp32 in the published pickle layout, 5.00
+   GB, and 200 × 80 test repetitions) through the CLI in this process at
+   its defaults (bf16, B 1024, ``'gram'``), ``scripts/rehearse_fullscale_
+   torch.py``: 2 epochs from cold (the pickles read, the sidecars
+   written), the same trainer's uninterrupted third epoch, ``--resume-dir
+   … --epochs 4 --export-features`` from the sidecars (its first epoch's
+   step losses against the uninterrupted epoch's within ``RESUME_TOL``),
+   ``evaluate`` equal to the trainer's last row, ``results.csv`` at epochs
+   0-3; the seconds of each write, ingest, epoch, evaluation, checkpoint
+   and the export, the step p50 and samples/s, the resident split, peak
+   memory and the bytes on disk. Its launches (rows 1, 1′, 3, 4 and 5:
+   every step of the 5 epochs, every evaluation and the export) count
+   into the main path.
+19. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -4891,16 +4917,21 @@ def scale_out_paths(torch, card: str, train_host, test,
 RUNBOOK_TREE = {"n_cls": 200, "test_reps": 4, "seed": SEED + 160}
 
 
-def load_runbook():
-    """``scripts/acceptance_torch.py`` of this checkout, as a module."""
+def load_script(name: str):
+    """``scripts/<name>.py`` of this checkout, as a module."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "scripts", "acceptance_torch.py")
-    spec = importlib.util.spec_from_file_location("acceptance_torch", path)
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_runbook():
+    """``scripts/acceptance_torch.py`` of this checkout, as a module."""
+    return load_script("acceptance_torch")
 
 
 def _runbook(runbook, argv: list[str]) -> tuple[int, dict, dict]:
@@ -5366,6 +5397,89 @@ def bn1_gram_paths(torch, card: str, train, test) -> dict:
     return {"kernels": kernels, "modes": modes, "git": git}
 
 
+# ——— phase 18: the full-size rehearsals ———
+
+#: phase 18 (b)'s epochs: cold, then resumed to (THINGS-EEG's full subject)
+FULLSCALE_EPOCHS = (2, 4)
+
+
+def fullsize_path(torch, card: str) -> list:
+    """Phase 18 (a): every published checkpoint's grammar synthesized,
+    converted on the host and run in bf16 on the card
+    (``scripts/rehearse_fullsize_torch.py``, each leg raising on a
+    failure)."""
+    fullsize = load_script("rehearse_fullsize_torch")
+    rows = []
+    for name in fullsize.LEGS:
+        row = {"phase": "fullsize", "card": card,
+               **fullsize.run_leg(name, "cuda")}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def fullscale_path(torch, card: str, main_launches: dict) -> dict:
+    """Phase 18 (b): ``train-retrieval`` on one subject at THINGS-EEG's
+    stored size through the CLI (``scripts/rehearse_fullscale_torch.py``),
+    its launches counted into the main path."""
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    fullscale = load_script("rehearse_fullscale_torch")
+    epochs, resume = FULLSCALE_EPOCHS
+    _build.reset_launches()
+    report = fullscale.main(["--device", "cuda", "--epochs", str(epochs),
+                             "--resume-epochs", str(resume)])
+    launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, launches)
+    steps = report["training_steps"]
+    wrong = [k for k in ("attention_fwd_seed", "attention_bwd",
+                         "tsconv_bwd") if launches[k] != steps] + [
+        k for k in ("attention_fwd", "tsconv_fwd") if not launches[k]]
+    cold, warm = report["cold"], report["resumed"]
+    row = {"phase": "fullscale_cli", "card": card,
+           "epochs": report["results_csv_epochs"],
+           "write_s": report["write"]["s"],
+           "pickle_write_s": {k: report["write"][k]["write_s"]
+                              for k in ("training", "test")},
+           "ingest_cold_s": cold["ingest_s"][0],
+           "ingest_sidecar_s": warm["ingest_s"][0],
+           "epoch_s": [e["s"] for e in cold["epochs"] + warm["epochs"]],
+           "evaluate_s": (cold["evaluate_s"] or []) + (warm["evaluate_s"]
+                                                       or []),
+           "checkpoint_s": (cold["checkpoint_s"] or [])
+           + (warm["checkpoint_s"] or []),
+           "export_s": warm["export_s"], "cli_evaluate_s":
+           report["evaluate"]["s"], "step_ms_p50": report["step_ms_p50"],
+           "samples_per_s": report["samples_per_s"],
+           "resident_gb": cold["resident_gb"],
+           "peak_device_gb": max(cold["peak_device_gb"],
+                                 warm["peak_device_gb"]),
+           "host_peak_rss_gb": max(cold["host_peak_rss_gb"],
+                                   warm["host_peak_rss_gb"]),
+           "bytes": report["bytes"],
+           "resume_max_abs_dloss": warm["max_abs_dloss"],
+           "resume_bit_equal": warm["bit_equal"],
+           "resume_tolerance": warm["resume_tol"],
+           "evaluate_equals_trainer": report["evaluate"]["equal"],
+           "training_steps": steps, "launches": launches}
+    emit(row)
+    if wrong or not report["ok"]:
+        raise RuntimeError(f"full-scale CLI: launches wrong {wrong}, {row}")
+    return row
+
+
+def rehearsal_paths(torch, card: str, main_launches: dict) -> dict:
+    """Phase 18: (a) the converted full-size models, (b) the full-scale
+    ``train-retrieval``."""
+    t0 = time.perf_counter()
+    legs = fullsize_path(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_row = fullscale_path(torch, card, main_launches)
+    emit({"phase": "phase18_total", "s": time.perf_counter() - t0})
+    return {"legs": legs, "cli": cli_row}
+
+
 def main() -> int:
     import torch
 
@@ -5516,6 +5630,12 @@ def main() -> int:
     # phase 16 runs the acceptance runbook with phase 12's metric pickles
     with metric_dir:
         runbook_path(pickles, main_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 18: the full-size rehearsals, timed with CUDA events (no
+    # profiler: late in a run its traces lose the port's kernels)
+    rehearsal_paths(torch, card, main_path)
     gc.collect()
     torch.cuda.empty_cache()
 

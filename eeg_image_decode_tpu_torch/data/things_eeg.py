@@ -130,6 +130,17 @@ def _time_window_mask(times: np.ndarray, window: tuple[float, float],
     return (t >= window[0]) & (t <= window[1])
 
 
+def _window_index(mask: np.ndarray):
+    """The time window as an index of the last axis: a slice when the mask
+    is one run of samples (a monotone time grid always gives one), which
+    takes a view where a boolean index gathers every element (most of a
+    full subject's ingest time, ``PERF.md`` §6); the mask otherwise."""
+    idx = np.flatnonzero(mask)
+    if idx.size and idx[-1] - idx[0] + 1 == idx.size:
+        return slice(int(idx[0]), int(idx[-1]) + 1)
+    return mask
+
+
 def load_things_eeg_subject(
     data_path: str,
     subject: str,
@@ -182,7 +193,7 @@ def load_things_eeg_subject(
             data = data[:, 0]  # (n_cls, 1, reps, C, T) → (n_cls, reps, C, T)
     mask = _time_window_mask(raw["times"], time_window, data.shape[-1])
     if mask.shape[0] == data.shape[-1]:
-        data = data[..., mask]
+        data = data[..., _window_index(mask)]
 
     if pictures is not None and (classes is None or not train):
         raise ValueError("pictures requires classes and train=True "
@@ -210,7 +221,9 @@ def load_things_eeg_subject(
             eeg = data.reshape(data.shape[0] * n_rep, *data.shape[2:])
             return eeg, np.repeat(cond_labels, n_rep)
         n_cond, n_rep = data.shape[0], data.shape[1]
-        eeg = data.reshape(n_cond * n_rep, *data.shape[2:])
+        # the one copy out of the window's view (of a mapped cache, perhaps)
+        eeg = np.array(data.reshape(n_cond * n_rep, *data.shape[2:]),
+                       order="C")
         labels = np.repeat(np.arange(n_cond // n_img_per_cls, dtype=np.int32),
                            n_img_per_cls * n_rep)
         return eeg, labels
@@ -255,7 +268,9 @@ def build_retrieval_data(
         label_list.append(labels)
         sid_list.append(np.full(eeg.shape[0], extract_subject_id(sub),
                                 dtype=np.int32))
-    eeg = np.concatenate(eeg_list, axis=0)
+    # every subject's array is its own copy already: one is used as it is
+    eeg = (eeg_list[0] if len(eeg_list) == 1
+           else np.concatenate(eeg_list, axis=0))
     labels = np.concatenate(label_list, axis=0)
     sids = np.concatenate(sid_list, axis=0)
 

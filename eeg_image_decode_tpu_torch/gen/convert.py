@@ -29,7 +29,9 @@ from eeg_image_decode_tpu_torch.gen.vae import VAE, VAEConfig
 
 def _tensor(a) -> torch.Tensor:
     if torch.is_tensor(a):
-        return a.detach().float().cpu().clone()
+        # a checkpoint on ``meta`` (names and shapes only) converts on meta
+        return a.detach().to("meta" if a.is_meta else "cpu", torch.float32,
+                             copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 

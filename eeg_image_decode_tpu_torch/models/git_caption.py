@@ -455,7 +455,9 @@ def convert_git_causal_lm(sd: dict, cfg: GITConfig | None = None
     """A ``GitForCausalLM`` (or the reference's ``GitForCausalLMClipEmb``)
     state dict → (config, the decoder's ``state_dict`` for
     :class:`GITCaptioner`, fp32). The vision tower (``git.image_encoder.*``)
-    is left out: the captioner takes precomputed grids.
+    is left out: the captioner takes precomputed grids. So are the
+    ``position_ids`` index buffers that files saved by transformers before
+    its 4.31 release carry (int64, not weights).
 
     With ``cfg=None`` the config is derived from the weights
     (:func:`git_config_from_state_dict`). A config passed in is checked
@@ -481,7 +483,7 @@ def convert_git_causal_lm(sd: dict, cfg: GITConfig | None = None
                 + ") — use git_config_from_state_dict(sd) or fix the config")
     out = {}
     for k, v in sd.items():
-        if k.startswith("git.image_encoder."):
+        if k.startswith("git.image_encoder.") or k.endswith("position_ids"):
             continue
         out[k] = (v.detach().float() if torch.is_tensor(v)
                   else torch.from_numpy(np.array(v, dtype=np.float32)))

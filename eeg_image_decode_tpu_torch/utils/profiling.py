@@ -9,12 +9,15 @@
   enqueue.
 - ``assert_finite``: the NaN/Inf guard of the reference's finite-loss abort
   (``models/util.py:92-94``).
+- ``PeakRSS``: the process's peak resident memory over a ``with`` block
+  (the full-size rehearsals' host column).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
@@ -66,3 +69,34 @@ def assert_finite(x: torch.Tensor, name: str = "loss") -> torch.Tensor:
             v = v.float()
         raise FloatingPointError(f"non-finite {name}: {v.numpy()}")
     return x
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class PeakRSS:
+    """The process's peak resident set over a ``with`` block, in bytes
+    (``peak``): ``/proc/self/statm`` read every ``interval`` seconds on a
+    thread, and once more at the end."""
+
+    def __init__(self, interval: float = 0.02):
+        self.interval = interval
+        self.peak = 0
+
+    def __enter__(self) -> "PeakRSS":
+        self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_bytes())

@@ -62,9 +62,11 @@ def test_acceptance_dry_run_full_chain(tmp_path):
 
 
 def test_runbook_and_chip_smoke_import_without_jax():
-    """The card host has no JAX: the runbook and ``chip_smoke.py`` import
-    none of it, nor the JAX package, and ``chip_smoke.py`` imports the
-    runbook's module from its own checkout."""
+    """The card host has no JAX: the runbook, the full-size rehearsals
+    (the checkpoint grammars and both rehearsal scripts) and
+    ``chip_smoke.py`` import none of it, nor the JAX package, and
+    ``chip_smoke.py`` imports the runbook's and the rehearsals' modules
+    from its own checkout."""
     code = (
         "import importlib.util, sys\n"
         "def load(name, path):\n"
@@ -73,8 +75,13 @@ def test_runbook_and_chip_smoke_import_without_jax():
         "    spec.loader.exec_module(mod)\n"
         "    return mod\n"
         "load('acceptance_torch', 'scripts/acceptance_torch.py')\n"
+        "for name in ('checkpoint_grammar_torch', 'rehearse_fullsize_torch',"
+        " 'rehearse_fullscale_torch'):\n"
+        "    load(name, f'scripts/{name}.py')\n"
         "smoke = load('chip_smoke', 'chip_smoke.py')\n"
         "smoke.load_runbook()\n"
+        "for name in ('rehearse_fullsize_torch', 'rehearse_fullscale_torch'):\n"
+        "    smoke.load_script(name)\n"
         "import eeg_image_decode_tpu_torch.cli\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {NO_JAX}]\n"
         "assert not bad, bad\n"

@@ -40,6 +40,7 @@ from eeg_image_decode_tpu_torch.ops.attention import (
     padded_dims,
 )
 from torch_port_case import attention_params, keep_masks
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 TOL_JAX = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 TOL_PLAIN = {torch.float32: 1e-4, torch.bfloat16: 1e-2}

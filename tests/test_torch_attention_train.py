@@ -32,6 +32,7 @@ from eeg_image_decode_tpu_torch.ops.attention import (
     philox4x32_10,
 )
 from torch_port_case import attention_params, keep_masks
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, L = 3, 9

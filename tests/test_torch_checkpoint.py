@@ -37,6 +37,7 @@ from eeg_image_decode_tpu_torch.train.contrastive import (
     create_train_state,
 )
 from torch_port_case import SMALL
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 C, T = SMALL["n_channels"], SMALL["seq_len"]
 TIMING = ("epoch_time_s", "samples_per_s")

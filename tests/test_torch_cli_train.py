@@ -33,6 +33,7 @@ from eeg_image_decode_tpu_torch.data.synthetic import (
     write_synthetic_things_tree,
 )
 from torch_port_case import run_cli_child
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 
 SUBJECTS = ("sub-01", "sub-02")
@@ -111,6 +112,29 @@ def test_meg_layout_and_its_error(tmp_path):
     assert (sub / "preprocessed_meg_train.npy.raw.npy").exists()
     with pytest.raises(ValueError, match="images-per-class 12"):
         things_eeg.build_retrieval_data(str(tmp_path), ["sub-01"], **kw)
+
+
+def test_time_window_is_cut_as_one_slice(tree):
+    """The window of a monotone time grid is one run of samples, taken as
+    a slice (a view; a boolean index gathers every element); a mask with a
+    gap stays a mask. The split read back through the mapped sidecar
+    cache is the JAX loader's, in a writable array of its own."""
+    mask = np.zeros(300, bool)
+    mask[50:] = True
+    assert things_eeg._window_index(mask) == slice(50, 300)
+    mask[100] = False
+    assert things_eeg._window_index(mask) is mask
+    assert things_eeg._window_index(np.zeros(4, bool)).dtype == bool
+    root, _ = tree
+    for _ in range(2):  # the first read may write the sidecar; the second maps it
+        eeg, labels = things_eeg.load_things_eeg_subject(root, "sub-01",
+                                                         train=True)
+    want, want_labels = jax_things.load_things_eeg_subject(root, "sub-01",
+                                                           train=True)
+    np.testing.assert_array_equal(eeg, want)
+    np.testing.assert_array_equal(labels, want_labels)
+    assert eeg.flags.c_contiguous and eeg.flags.writeable
+    assert eeg.flags.owndata
 
 
 def test_feature_cache_paths_and_round_trip(tmp_path):

@@ -36,6 +36,7 @@ from eeg_image_decode_tpu_torch.utils.convert_clip import (
     openclip_state_dicts,
 )
 from test_tokenizers import CLIP_BATTERY, _write_clip_vocab
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 PROMPTS = [f"This picture is {c}" for c in (
     "aardvark", "abacus", "ice_cream", "t-shirt", "baby's bottle",

@@ -41,6 +41,7 @@ from eeg_image_decode_tpu_torch.train.lowlevel import LowLevelTrainer
 from eeg_image_decode_tpu_torch.train.prior import PriorPipe
 from eeg_image_decode_tpu_torch.train.sweep import SubjectParallelSweep
 from torch_port_case import SMALL, launch_ranks
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 W = 2
 LOWLEVEL_MODEL = dict(n_channels=8, seq_len=40, time_proj_dim=8,

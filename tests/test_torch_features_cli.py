@@ -58,6 +58,7 @@ from eeg_image_decode_tpu_torch.utils.convert import (
 )
 from eeg_image_decode_tpu_torch.utils.plotting import plot_training_summary
 from torch_port_case import SMALL, randomize
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 
 def _run(main, argv) -> str:

@@ -39,6 +39,7 @@ from eeg_image_decode_tpu_torch.ops.tsconv import (
     tsconv_pool_reference,
 )
 from torch_port_case import projection_params
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 DTYPES = [torch.float32, torch.bfloat16]
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

@@ -42,6 +42,7 @@ from eeg_image_decode_tpu_torch.models.subject_embed import (
 from eeg_image_decode_tpu_torch.train.contrastive import ContrastiveTrainer
 from eeg_image_decode_tpu_torch.utils.convert import params_from_flax
 from torch_port_case import SMALL, keep_masks, randomize
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 C, T, D = SMALL["n_channels"], SMALL["seq_len"], SMALL["d_model"]
 N_SUB = SMALL["num_subjects"]

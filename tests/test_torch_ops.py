@@ -38,6 +38,7 @@ from eeg_image_decode_tpu_torch.ops.tsconv import (
     tsconv_pool_reference,
 )
 from torch_port_case import attention_params, projection_params
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = Path(__file__).resolve().parent.parent

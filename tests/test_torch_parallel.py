@@ -66,6 +66,7 @@ from eeg_image_decode_tpu_torch.train.contrastive import (
 )
 from eeg_image_decode_tpu_torch.utils.convert import params_from_flax
 from torch_port_case import SMALL, launch_ranks, randomize
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 W = 4
 C, T = SMALL["n_channels"], SMALL["seq_len"]

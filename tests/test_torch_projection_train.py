@@ -36,6 +36,7 @@ from eeg_image_decode_tpu_torch.ops.projection import (
     projection_head_reference,
 )
 from torch_port_case import projection_params
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 D_IN, D_OUT = 40, 24
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

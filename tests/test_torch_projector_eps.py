@@ -23,6 +23,7 @@ from eeg_image_decode_tpu_torch.utils.convert import (
     convert_pixel_projector,
     reference_pixel_projector,
 )
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 TOKENS, DIM = 257, 1024
 

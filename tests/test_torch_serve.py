@@ -38,6 +38,7 @@ from eeg_image_decode_tpu_torch.utils.convert import (
     save_flat_npz,
 )
 from torch_port_case import SMALL, randomize
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 
 def _gallery(rng, n, d):

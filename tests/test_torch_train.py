@@ -56,6 +56,7 @@ from eeg_image_decode_tpu_torch.train.contrastive import (
 from eeg_image_decode_tpu_torch.train.evaluator import retrieval_eval
 from eeg_image_decode_tpu_torch.utils.convert import params_from_flax
 from torch_port_case import SMALL, keep_masks, randomize
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 # the modules (each package's ``clip_loss`` name is the function)
 jax_losses = importlib.import_module("eeg_image_decode_tpu.losses.clip_loss")

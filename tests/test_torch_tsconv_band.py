@@ -31,6 +31,7 @@ from eeg_image_decode_tpu_torch.ops.tsconv import (
     tsconv_pool_backward_reference,
     tsconv_pool_backward_tiled,
 )
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}

@@ -23,6 +23,7 @@ from eeg_image_decode_tpu_torch.ops.tsconv import (
     tsconv_pool_fused,
     tsconv_pool_reference,
 )
+from torch_port_case import two_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # (B, C, T, taps, filters, pool, stride): a small case and ATM-S's stage 1

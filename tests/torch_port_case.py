@@ -2,12 +2,26 @@
 JAX at module level: tests/test_torch_kernels_cuda.py runs without it."""
 
 import numpy as np
+import pytest
 
 #: small ATM-S: 8 channels of T 100, d_model 32, 4 heads, d_ff 64, a 5-tap
 #: temporal kernel and a 12-wide, stride-2 pool (P = 6), 8 filters, 16-d out
 SMALL = dict(n_channels=8, seq_len=100, d_model=32, n_heads=4, d_ff=64,
              num_subjects=3, conv_filters=8, temporal_kernel=5, pool_size=12,
              pool_stride=2, emb_size=8, proj_dim=16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """Two intra-op threads: the suite runs six workers on the host's
+    cores, and each PyTorch process would otherwise take them all. A test
+    module takes it with ``from torch_port_case import two_threads``."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def randomize(variables, seed):
@@ -134,7 +148,8 @@ def run_cli_child(argv: list[str], timeout: float = 300.0) -> list[str]:
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {**os.environ, "PYTHONPATH": repo}
+    # two threads, as the test process that launches it keeps
+    env = {**os.environ, "PYTHONPATH": repo, "OMP_NUM_THREADS": "2"}
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT"):
         env.pop(var, None)

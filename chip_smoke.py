@@ -360,7 +360,24 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    memory and the bytes on disk. Its launches (rows 1, 1′, 3, 4 and 5:
    every step of the 5 epochs, every evaluation and the export) count
    into the main path.
-19. One JSON line listing the kernels, then the result line
+19. The long trajectories and the walkthrough, timed with CUDA events,
+   each card run in fp32 with TF32 off against the same function on the
+   host's CPU. (a) ``PriorPipe`` at ``PriorConfig()``'s widths over 30
+   epochs of 4 steps at B 1024 from one seeded init and the injected draws
+   of ``scripts/parity_torch_prior_trajectory.py`` (the warmup its
+   published share, 6 of 120 steps, then the cosine): the per-epoch
+   relative ε-MSE < 1e-4, both trained pipes' CFG samples under shared
+   noise at guidance 5.0 and 0 within 1e-3 of their scale, the step p50.
+   (b) ``LowLevelTrainer`` (its ``CUDNN_FLAGS``) through its own
+   ``train()``, ``scripts/parity_torch_lowlevel_trajectory.py``'s bands
+   (the first epoch < 1e-4, every epoch < 1e-3, held-out cross PSNR > 30
+   dB, L1 to the targets within 5e-3): stages (128, 64, 32, 16, 16, 16)
+   and ``time_proj_dim`` 32 over 8 epochs of 8 steps at B 16, then the
+   published widths for one epoch of 2 steps at B 8. (c)
+   ``examples/end_to_end_torch.py`` on the card: NICE's steps and
+   evaluations launch the tsconv forward and backward, counted into the
+   main path; its printed numbers finite and in range.
+20. One JSON line listing the kernels, then the result line
    ``{"ok": true, "device": {...}}`` last. The Philox mask draw is a device
    function inside the seeded forwards and the backwards, not a launch of
    its own, so it has no row there: the bit-equalities of phase 2 hold it.
@@ -488,6 +505,21 @@ def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes")
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    """fp32 products in matmuls and cuDNN for the block, the flags as they
+    were after it."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
 
 
 # ——— phase 2: each kernel against its plain version ———
@@ -3633,18 +3665,11 @@ def zoo_forward_check(torch, name: str, rows) -> dict:
     CPU, and the card in bf16 against the card in fp32."""
     from eeg_image_decode_tpu_torch.models.registry import build_encoder
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
     with torch.no_grad():
         cpu, _ = build_encoder(name, device="cpu", seed=SEED)(rows)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
+        with tf32_off(torch):
             card, _ = build_encoder(name, device="cuda", seed=SEED)(
                 rows.cuda())
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = tf32
         half, _ = build_encoder(name, dtype=torch.bfloat16, device="cuda",
                                 seed=SEED)(rows.cuda())
     card, half = card.float().cpu(), half.float().cpu()
@@ -5480,6 +5505,189 @@ def rehearsal_paths(torch, card: str, main_launches: dict) -> dict:
     return {"legs": legs, "cli": cli_row}
 
 
+# ——— phase 19: the long trajectories on the card, the walkthrough ———
+
+#: phase 19 (a): ``PriorConfig()``'s widths, 30 epochs of 4 steps at B 1024
+TRAJ_PRIOR = {"epochs": 30, "steps": 4, "batch": 1024}
+#: phase 19 (b): reduced stages over 8 epochs, then the published widths
+#: for one epoch of 2 steps (a full-size step takes seconds on the host)
+TRAJ_LOWLEVEL = (
+    {"name": "reduced", "stages": (128, 64, 32, 16, 16, 16), "time_proj": 32,
+     "n": 128, "batch": 16, "epochs": 8},
+    {"name": "full", "stages": (1024, 512, 256, 128, 64, 32),
+     "time_proj": 128, "n": 16, "batch": 8, "epochs": 1})
+
+
+def prior_trajectory_path(torch, card: str) -> dict:
+    """Phase 19 (a): ``PriorPipe`` at ``PriorConfig()``'s widths over the
+    injected epochs of ``scripts/parity_torch_prior_trajectory.py`` (its
+    warmup the published share, then the cosine), on the card without TF32
+    against the same run on the host's CPU from one seeded init; both
+    trained pipes' CFG samples under shared noise at guidance 5.0 and 0.
+    The script's bands, which hold the port to JAX on the CPU."""
+    ppt = load_script("parity_torch_prior_trajectory")
+    epochs, steps, batch = (TRAJ_PRIOR[k] for k in ("epochs", "steps",
+                                                     "batch"))
+    widths = ppt.full_widths()
+    cfg = ppt.prior_config(widths, epochs * steps)
+    n = steps * batch
+    c, h = ppt.make_data(n, cfg.embed_dim, cfg.cond_dim, SEED)
+    draws = ppt.draw_shared(n, batch, epochs, cfg.embed_dim,
+                            cfg.num_train_timesteps, cfg.cond_dropout_prob,
+                            SEED)
+    init = ppt.port_init(cfg, SEED)
+    noise = ppt.sample_noise(ppt.SAMPLE_ROWS, cfg.embed_dim,
+                             ppt.SAMPLE_STEPS, SEED)
+    cond = c[:ppt.SAMPLE_ROWS]
+    t0 = time.perf_counter()
+    cpu = ppt.run_port_injected(init, cfg, c, h, draws, device="cpu")
+    cpu_samples = ppt.port_samples(cpu["pipe"], cond, noise)
+    cpu_s = time.perf_counter() - t0
+    with tf32_off(torch):
+        t0 = time.perf_counter()
+        gpu = ppt.run_port_injected(init, cfg, c, h, draws, device="cuda")
+        gpu_samples = ppt.port_samples(gpu["pipe"], cond, noise)
+        card_s = time.perf_counter() - t0
+    rel = ppt.deviations(gpu["losses"], cpu["losses"])
+    samples = ppt.compare_samples(gpu_samples, cpu_samples)
+    row = {"phase": "prior_trajectory", "card": card, "dtype": "float32",
+           "tf32": False, "widths": widths, "pairs": n, "batch": batch,
+           "epochs": epochs, "total_steps": epochs * steps,
+           "warmup_steps": cfg.warmup_steps,
+           "card_losses": gpu["losses"], "cpu_losses": cpu["losses"],
+           "rel_loss_dev": rel, "max_rel_loss_dev": max(rel),
+           "max_param_diff": ppt.max_param_diff(
+               gpu["pipe"].model.state_dict(),
+               cpu["pipe"].model.state_dict()),
+           "clip_steps": {"card": gpu["clip_steps"],
+                          "cpu": cpu["clip_steps"]},
+           "samples": samples,
+           "step_ms_p50": float(np.median(gpu["step_ms"][3:])),
+           "card_s": card_s, "cpu_s": cpu_s}
+    emit(row)
+    bad = ppt.loss_failures(rel) + ppt.sample_failures(samples)
+    if bad or gpu["losses"][-1] >= gpu["losses"][0]:
+        raise RuntimeError(f"prior trajectory, card against CPU: {bad}, "
+                           f"{row}")
+    return row
+
+
+def lowlevel_trajectory_path(torch, card: str) -> list:
+    """Phase 19 (b): ``LowLevelTrainer`` (fp32, cuDNN's ``CUDNN_FLAGS``,
+    TF32 off) on the card against the same trainer on the host's CPU from
+    one seeded init, each through its own ``train()``: reduced stages over
+    8 epochs, then the published widths (143 M parameters) for 2 steps.
+    The bands of ``scripts/parity_torch_lowlevel_trajectory.py``."""
+    plt = load_script("parity_torch_lowlevel_trajectory")
+    eval_eeg, eval_lat = plt.make_data(32, SEED + 99)
+    target = np.moveaxis(eval_lat, 1, -1)
+    rows = []
+    for leg in TRAJ_LOWLEVEL:
+        kw = {k: leg[k] for k in ("epochs", "batch", "stages", "time_proj")}
+        eeg, lat = plt.make_data(leg["n"], SEED)
+        init = plt.port_model(leg["stages"], leg["time_proj"]) \
+            .reset_parameters(SEED).state_dict()
+        t0 = time.perf_counter()
+        cpu_l, cpu_steps, cpu_t = plt.run_port(init, eeg, lat, lr=1e-3,
+                                               seed=7, **kw)
+        cpu_pred = plt.predict_port(cpu_t, eval_eeg)
+        cpu_s = time.perf_counter() - t0
+        with tf32_off(torch):
+            t0 = time.perf_counter()
+            gpu_l, gpu_steps, gpu_t = plt.run_port(init, eeg, lat, lr=1e-3,
+                                                   seed=7, device="cuda",
+                                                   **kw)
+            gpu_pred = plt.predict_port(gpu_t, eval_eeg)
+            card_s = time.perf_counter() - t0
+        rel = plt.deviations(gpu_l, cpu_l)
+        agree = plt.prediction_agreement(gpu_pred, cpu_pred, target)
+        param_diff, stat_diff = plt.state_failures(
+            gpu_t.model.state_dict(), cpu_t.model.state_dict())
+        row = {"phase": "lowlevel_trajectory", "card": card,
+               "leg": leg["name"], "dtype": "float32", "tf32": False,
+               "params": sum(p.numel() for p in gpu_t.model.parameters()),
+               **{k: leg[k] for k in ("n", "batch", "epochs", "stages",
+                                      "time_proj")},
+               "card_losses": gpu_l, "cpu_losses": cpu_l,
+               "rel_loss_dev": rel, "last_epoch_step_rel_dev":
+               plt.deviations(gpu_steps.tolist(), cpu_steps.tolist()),
+               "max_param_diff": param_diff,
+               "max_stat_rel_diff": stat_diff, "agreement": agree,
+               "card_step_ms": gpu_t.last_steps["step_ms"],
+               "card_s": card_s, "cpu_s": cpu_s}
+        emit(row)
+        bad = plt.failures(rel, agree)
+        if bad:
+            raise RuntimeError(f"low-level trajectory ({leg['name']}), card "
+                               f"against CPU: {bad}, {row}")
+        rows.append(row)
+        del cpu_t, gpu_t
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def load_example():
+    """``examples/end_to_end_torch.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "end_to_end_torch.py")
+    spec = importlib.util.spec_from_file_location("end_to_end_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_path(torch, card: str, main_launches: dict) -> dict:
+    """Phase 19 (c): the port's walkthrough on the card; NICE's steps and
+    evaluations launch the tsconv forward and backward kernels, counted
+    into the main path."""
+    from eeg_image_decode_tpu_torch.ops import _build
+
+    example = load_example()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = example.main(["--device", "cuda"])
+    s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    add_launches(main_launches, launches)
+    printed = out.getvalue().splitlines()
+    row = {"phase": "example", "card": card, "s": s, **res,
+           "printed_lines": len(printed), "launches": launches}
+    emit(row)
+    numbers = [*res["retrieval"].values(),
+               *res["generated_retrieval"].values(),
+               *res["metrics"].values(), res["prior_loss"],
+               *res["image_range"]]
+    if (not launches["tsconv_fwd"] or not launches["tsconv_bwd"]
+            or not all(np.isfinite(numbers))
+            or res["images"] != [4, 16, 16, 3]
+            or not all(0.0 <= v <= 1.0 for v in res["image_range"])
+            or len(res["captions"]) != 4
+            or json.loads(printed[-1])["images"] != res["images"]):
+        raise RuntimeError(f"end-to-end example on the card: {row}")
+    return row
+
+
+def trajectory_paths(torch, card: str, main_launches: dict) -> dict:
+    """Phase 19: (a) the prior's and (b) the low-level trainer's long
+    trajectories on the card against the host's CPU, (c) the walkthrough."""
+    t0 = time.perf_counter()
+    prior = prior_trajectory_path(torch, card)
+    lowlevel = lowlevel_trajectory_path(torch, card)
+    example = example_path(torch, card, main_launches)
+    phase_s = time.perf_counter() - t0
+    print(f"trajectories and walkthrough, phase 19: {phase_s:.3f} s",
+          flush=True)
+    emit({"phase": "phase19_total", "s": phase_s, "prior_s":
+          prior["card_s"] + prior["cpu_s"], "lowlevel_s": sum(
+              r["card_s"] + r["cpu_s"] for r in lowlevel),
+          "example_s": example["s"]})
+    return {"prior": prior, "lowlevel": lowlevel, "example": example}
+
+
 def main() -> int:
     import torch
 
@@ -5636,6 +5844,11 @@ def main() -> int:
     # phase 18: the full-size rehearsals, timed with CUDA events (no
     # profiler: late in a run its traces lose the port's kernels)
     rehearsal_paths(torch, card, main_path)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 19: the long trajectories and the walkthrough (CUDA events)
+    trajectory_paths(torch, card, main_path)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -129,14 +129,19 @@ class RetrievalService:
         logits = scale * (feats.float() @ self.gallery.T)
         return torch.topk(logits, k, dim=-1)
 
-    def warmup(self, eeg_shape: tuple[int, int]) -> None:
+    def warmup(self, eeg_shape: tuple[int, int],
+               ks: tuple[int, ...] = ()) -> None:
         """One dummy dispatch per bucket over ``eeg_shape=(C, T)`` before
         accepting traffic, so the kernel build and the library handles are
-        paid before the first request."""
+        paid before the first request. Every k ≤ ``k_cap`` shares the
+        top-``k_cap`` path; a k above ``k_cap`` in ``ks`` also runs the
+        full-ranking path once per bucket."""
         c, t = eeg_shape
+        full = [k for k in ks if k > self.k_cap][:1]
         for b in self.buckets:
-            self.top_k(np.zeros((b, c, t), np.float32), np.zeros(b, np.int32),
-                       k=1)
+            for k in (1, *full):
+                self.top_k(np.zeros((b, c, t), np.float32),
+                           np.zeros(b, np.int32), k=k)
 
     def top_k(self, eeg: np.ndarray, subject_ids: np.ndarray | int,
               k: int = 5) -> tuple[np.ndarray, np.ndarray]:

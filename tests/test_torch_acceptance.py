@@ -63,10 +63,12 @@ def test_acceptance_dry_run_full_chain(tmp_path):
 
 def test_runbook_and_chip_smoke_import_without_jax():
     """The card host has no JAX: the runbook, the full-size rehearsals
-    (the checkpoint grammars and both rehearsal scripts) and
-    ``chip_smoke.py`` import none of it, nor the JAX package, and
-    ``chip_smoke.py`` imports the runbook's and the rehearsals' modules
-    from its own checkout."""
+    (the checkpoint grammars and both rehearsal scripts), the walkthrough
+    ``examples/end_to_end_torch.py`` and ``chip_smoke.py`` import none of
+    it, nor the JAX package; ``chip_smoke.py`` imports the runbook's, the
+    rehearsals', the two trajectory scripts' and the walkthrough's modules
+    from its own checkout, and the trajectory scripts' port-side halves,
+    which phase 19 runs, train and sample without loading it."""
     code = (
         "import importlib.util, sys\n"
         "def load(name, path):\n"
@@ -82,6 +84,20 @@ def test_runbook_and_chip_smoke_import_without_jax():
         "smoke.load_runbook()\n"
         "for name in ('rehearse_fullsize_torch', 'rehearse_fullscale_torch'):\n"
         "    smoke.load_script(name)\n"
+        "smoke.load_example()\n"
+        "ppt = smoke.load_script('parity_torch_prior_trajectory')\n"
+        "cfg = ppt.prior_config(ppt.NARROW, 4)\n"
+        "c, h = ppt.make_data(16, 64, 48, 0)\n"
+        "d = ppt.draw_shared(16, 8, 2, 64, 1000, 0.1, 0)\n"
+        "r = ppt.run_port_injected(ppt.port_init(cfg, 0), cfg, c, h, d)\n"
+        "ppt.port_samples(r['pipe'], c[:2], ppt.sample_noise(2, 64, 3, 0),"
+        " steps=3)\n"
+        "plt = smoke.load_script('parity_torch_lowlevel_trajectory')\n"
+        "eeg, lat = plt.make_data(8, 0)\n"
+        "sd = plt.port_model((8,) * 6, 4).reset_parameters(0).state_dict()\n"
+        "_, _, t = plt.run_port(sd, eeg, lat, epochs=1, batch=4, lr=1e-3,"
+        " seed=0, stages=(8,) * 6, time_proj=4)\n"
+        "plt.predict_port(t, eeg[:2])\n"
         "import eeg_image_decode_tpu_torch.cli\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {NO_JAX}]\n"
         "assert not bad, bad\n"

@@ -101,6 +101,37 @@ def test_request_validation(small):
         svc.top_k(eeg[:3], 0, k=13)
 
 
+@pytest.mark.parametrize("ks", [(), (3,), (5,), (9, 5, 12)],
+                         ids=["none", "k_le_cap", "k_gt_cap", "mixed"])
+def test_warmup_runs_the_full_ranking_path_only_when_asked(small, ks):
+    """``warmup(eeg_shape, ks)`` as JAX's: every bucket once through the
+    top-``k_cap`` path, and once more through the full ranking (k = the
+    gallery size on the device) only when ``ks`` holds a k above k_cap;
+    the answers after it are the cold service's."""
+    _, _, model, gallery, eeg = small
+    sids = np.asarray([0, 1, 2, 1, 0, 2, 1, 0, 1, 2, 2], np.int32)
+    cold = RetrievalService(model, gallery, max_batch=32, k_cap=4,
+                            device="cpu")
+    want = {k: cold.top_k(eeg, sids, k=k) for k in (3, 9)}
+    svc = RetrievalService(model, gallery, max_batch=32, k_cap=4,
+                           device="cpu")
+    calls = []
+    query = svc._query
+
+    def spy(x, s, k):
+        calls.append((x.shape[0], k))
+        return query(x, s, k)
+
+    svc._query = spy
+    svc.warmup((8, 100), ks=ks)
+    full = [len(gallery)] if any(k > svc.k_cap for k in ks) else []
+    assert calls == [(b, k) for b in svc.buckets for k in (svc.k_cap, *full)]
+    for k, (want_s, want_i) in want.items():
+        got_s, got_i = svc.top_k(eeg, sids, k=k)
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_array_equal(got_s, want_s)
+
+
 def _post(url, body: bytes, ctype: str):
     req = urllib.request.Request(url, data=body, method="POST",
                                  headers={"Content-Type": ctype})

@@ -245,13 +245,17 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    samples; an image-level split through ``--image-concept-csv``), its
    pickles read back by the port's loader. (b) At full size: phase 4's
    split copied to the host and trained one epoch each resident, streamed
-   from fp32 and streamed from bf16 (``ATMSConfig()``, bf16, B 1024, one
-   seed, so the epochs' step losses are held against each other, |Δ| ≤
-   ``RESUME_TOL``, bit-equality reported): step p50, samples/s, peak
-   memory, launches a step, and from a traced second epoch the device's
-   busy ms a step and idle share; the loader's gather time in the epoch
-   and the training thread's wait for a batch; the gather into pinned
-   memory and the host-to-device copy of one batch timed alone. Then one
+   from fp32 and from bf16, each through the native gather pool (the
+   trainer's own loader, the shared pool) and through the plain
+   ``index_select`` gather (``ATMSConfig()``, bf16, B 1024, one seed; every
+   streamed epoch's step losses must equal the resident epoch's bit for
+   bit): step p50, samples/s, peak memory, launches a step, and from a
+   traced second epoch the device's busy ms a step and idle share; the
+   loader's gather time in the epoch and the training thread's wait for a
+   batch; one batch's gather into pinned memory by ``index_select`` and by
+   the pool at its default size (cores − 2) and at JAX's (a thread a
+   core), and its host-to-device copy, timed alone. (Phase 18 times the
+   full subject's sidecar read through ``NpyMmap``.) Then one
    THINGS-EEG2-sized session drawn on the host (16,540 training events of
    8,270 conditions and 4,000 test events of 200, targets mixed in, 63
    channels + stim at 1000 Hz): the epoch gather + baseline + resample,
@@ -357,7 +361,10 @@ NVIDIA GPU: the quickest proof that the port still starts on the card.
    ``evaluate`` equal to the trainer's last row, ``results.csv`` at epochs
    0-3; the seconds of each write, ingest, epoch, evaluation, checkpoint
    and the export, the step p50 and samples/s, the resident split, peak
-   memory and the bytes on disk. Its launches (rows 1, 1′, 3, 4 and 5:
+   memory and the bytes on disk; each sidecar mapped through
+   ``data/native_loader.py::NpyMmap`` with its readahead and read whole,
+   beside numpy's ``mmap_mode`` (warm: the page cache is left as it is).
+   Its launches (rows 1, 1′, 3, 4 and 5:
    every step of the 5 epochs, every evaluation and the export) count
    into the main path.
 19. The long trajectories and the walkthrough, timed with CUDA events,
@@ -4000,17 +4007,29 @@ def _busy_idle(torch, prof, wall_ms: float, steps: int) -> dict:
             "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms}
 
 
+def host_cores() -> dict:
+    """The host's CPUs as the process sees them."""
+    return {"cpu_count": os.cpu_count(),
+            "affinity": len(os.sched_getaffinity(0))}
+
+
 def streaming_path(torch, card: str, train_host, test,
                    main_launches: dict) -> dict:
-    """(b) Phase 4's split on the host: one epoch resident, streamed from
-    fp32 and streamed from bf16, each from the same seeded init; then a
-    traced second epoch each; the gather and the copy of one batch
-    alone."""
+    """(b) Phase 4's split on the host: one epoch resident, then streamed
+    from fp32 and from bf16, each through the shared native gather pool
+    and through the plain ``index_select`` gather, each from the same
+    seeded init; then a traced second epoch each; one batch's gather (both
+    routes, the pool at its default size, cores − 2, and at JAX's, a
+    thread a core) and copy alone."""
     from torch.profiler import ProfilerActivity, profile
 
     from eeg_image_decode_tpu_torch.core.config import (
         ATMSConfig,
         ContrastiveTrainConfig,
+    )
+    from eeg_image_decode_tpu_torch.data.native_loader import (
+        GatherPool,
+        shared_pool,
     )
     from eeg_image_decode_tpu_torch.models.registry import build_encoder
     from eeg_image_decode_tpu_torch.ops import _build
@@ -4018,12 +4037,17 @@ def streaming_path(torch, card: str, train_host, test,
         ContrastiveTrainer,
     )
 
+    cores = host_cores()
     modes = {}
     base_losses = None
     bench_src = {}
-    for mode, streaming, host_dtype in (("resident", False, None),
-                                        ("streamed_fp32", True, None),
-                                        ("streamed_bf16", True, "bfloat16")):
+    for mode, streaming, host_dtype, gather in (
+            ("resident", False, None, None),
+            ("streamed_fp32", True, None, {}),
+            ("streamed_fp32_plain", True, None, {"gather": "index_select"}),
+            ("streamed_bf16", True, "bfloat16", {}),
+            ("streamed_bf16_plain", True, "bfloat16",
+             {"gather": "index_select"})):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4033,6 +4057,8 @@ def streaming_path(torch, card: str, train_host, test,
                               dtype=torch.bfloat16, device="cuda", seed=SEED)
         trainer = ContrastiveTrainer(model, cfg, train_host, test,
                                      device="cuda", streaming=streaming)
+        if gather:
+            trainer.loader = trainer.loader.rerouted(**gather)
         _build.reset_launches()
         metrics = trainer.train_epoch(0)
         launches = dict(_build.LAUNCHES)
@@ -4051,14 +4077,17 @@ def streaming_path(torch, card: str, train_host, test,
             raise RuntimeError(f"{mode}: non-finite loss {losses}")
         in_epoch = {}
         if streaming:
-            add_launches(main_launches, launches)
-            bench_src[mode] = trainer.loader.arrays["eeg"]
+            loader = trainer.loader
+            if not gather:  # the trainer's own loader: the main path
+                add_launches(main_launches, launches)
+                bench_src[host_dtype or "float32"] = loader.arrays["eeg"]
             # the gather beside the training thread, and that thread's wait
             in_epoch = {
-                "gather_ms_in_epoch": float(np.mean(trainer.loader.gather_s))
-                * 1e3,
-                "wait_ms_per_batch": float(np.mean(trainer.loader.wait_s))
-                * 1e3}
+                "gather": "pool" if loader.is_native else "index_select",
+                "pool_threads": (loader.pool.n_threads if loader.is_native
+                                 else None),
+                "gather_ms_in_epoch": float(np.mean(loader.gather_s)) * 1e3,
+                "wait_ms_per_batch": float(np.mean(loader.wait_s)) * 1e3}
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -4083,41 +4112,53 @@ def streaming_path(torch, card: str, train_host, test,
             d = np.abs(np.asarray(losses) - base_losses)
             row["step_loss_bit_equal_to_resident"] = bool(not d.any())
             row["step_loss_max_abs_diff"] = float(d.max())
-            row["first_step_loss_equal"] = bool(d[0] == 0)
-            if d.max() > RESUME_TOL:
-                raise RuntimeError(f"{mode}: step losses differ from the "
-                                   f"resident epoch's by {d.max()}")
+            if d.any():
+                raise RuntimeError(f"{mode}: step losses are not the "
+                                   f"resident epoch's, bit for bit: max "
+                                   f"|d| {d.max()}")
         modes[mode] = row
         trainer.close()
         del trainer, model, prof
-    # one batch's gather into pinned memory and its copy, alone
+    # one batch's gather into pinned memory, by each route, and its copy,
+    # alone; a fresh permutation a repetition (the loader's access pattern)
     rng = np.random.default_rng(SEED)
+    private = GatherPool(cores["affinity"])  # JAX's size, a thread a core
+    routes = {"index_select": None,
+              f"pool_{shared_pool().n_threads}_threads": shared_pool(),
+              f"pool_{private.n_threads}_threads": private}
     per_batch = {}
-    for mode, src in bench_src.items():
+    for host_dtype, src in bench_src.items():
         pinned = torch.empty((TRAIN_BATCH, *src.shape[1:]), dtype=src.dtype,
                              pin_memory=True)
         dev = torch.empty_like(pinned, device="cuda")
-        idxs = [torch.from_numpy(rng.permutation(len(src))[:TRAIN_BATCH])
-                for _ in range(12)]
-        gather = []
-        for idx in idxs:
-            t0 = time.perf_counter()
-            torch.index_select(src, 0, idx, out=pinned)
-            gather.append((time.perf_counter() - t0) * 1e3)
         nbytes = pinned.numel() * pinned.element_size()
+        row = {"batch_mb": nbytes / 1e6}
+        for route, pool in routes.items():
+            gather = []
+            for _ in range(12):
+                idx = torch.from_numpy(rng.permutation(len(src))[:TRAIN_BATCH])
+                t0 = time.perf_counter()
+                if pool is None:
+                    torch.index_select(src, 0, idx, out=pinned)
+                else:
+                    pool.wait(pool.submit(src, idx, pinned))
+                gather.append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(pinned, src.index_select(0, idx)):
+                raise RuntimeError(f"{route}: the gathered batch is wrong")
+            row[f"gather_ms_{route}"] = float(np.median(gather[2:]))
         copy_ms = cuda_ms(torch, lambda: dev.copy_(pinned, non_blocking=True))
-        per_batch[mode] = {
-            "batch_mb": nbytes / 1e6,
-            "gather_ms": float(np.median(gather[2:])),
-            "copy_ms": copy_ms,
-            "copy_gb_per_s": nbytes / copy_ms / 1e6}
+        row.update(copy_ms=copy_ms, copy_gb_per_s=nbytes / copy_ms / 1e6)
+        per_batch[host_dtype] = row
+    private.close()
     bench_src.clear()
     out = {"phase": "streaming", "card": card, "dtype": "bfloat16",
            "batch": TRAIN_BATCH, "train_samples": train_host.n,
            "host_split_gb": train_host.eeg.numel() * 4 / 1e9,
+           "host_cores": cores, "shared_pool_threads": shared_pool().n_threads,
            "modes": modes, "per_batch": per_batch,
            "peak_mem_saved_gb": (modes["resident"]["peak_mem_gb"]
-                                 - modes["streamed_fp32"]["peak_mem_gb"])}
+                                 - modes["streamed_fp32"]["peak_mem_gb"]),
+           "sidecar_read": "phase 18's fullscale_cli row, sidecar_reads"}
     emit(out)
     return out
 
@@ -5486,6 +5527,7 @@ def fullscale_path(torch, card: str, main_launches: dict) -> dict:
            "resume_bit_equal": warm["bit_equal"],
            "resume_tolerance": warm["resume_tol"],
            "evaluate_equals_trainer": report["evaluate"]["equal"],
+           "sidecar_reads": report["sidecar_reads"],
            "training_steps": steps, "launches": launches}
     emit(row)
     if wrong or not report["ok"]:

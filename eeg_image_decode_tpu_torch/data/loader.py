@@ -6,20 +6,25 @@ that does not fit, or that should not take the card's memory (joint training
 over ten subjects is ≈ 42 GB in fp32), this loader streams batches from
 host RAM in two stages:
 
-1. **Gather** on one loader thread: ``torch.index_select(src, 0, idx,
-   out=slot)`` into a pinned staging slot, ``buffer_size`` batches ahead.
-   The op releases the GIL and runs on PyTorch's intra-op threads, so the
-   gather overlaps the device's work and the host's launches.
+1. **Gather** into a pinned staging slot, ``buffer_size`` batches ahead, on
+   the native C++ pool (``data/native_loader.py::GatherPool``, as the JAX
+   loader): a sequencing thread waits until the slot may be rewritten,
+   submits each array's rows to the pool and waits on the tickets. The
+   pool's threads copy without the GIL, so the gather overlaps the device's
+   work and the launching thread's Python. ``gather="index_select"`` keeps
+   the plain version: ``torch.index_select(src, 0, idx, out=slot)`` on the
+   same thread, which runs on PyTorch's intra-op threads.
 2. **Copy**: a ``non_blocking`` host-to-device copy of the slot on a side
    CUDA stream into that slot's own device buffer, and an event the compute
    stream waits on before it reads the batch.
 
 A pinned slot is rewritten only after the copy out of it has finished (the
-loader thread waits on that copy's event), and a device buffer only after
-the step that read it has finished (the side stream waits on an event
-recorded on the compute stream when the next batch is requested). So a
-yielded batch is valid until the next one is requested. On the CPU the same
-code yields the slots themselves, with no stream.
+sequencing thread waits on that copy's event before it submits the slot's
+next gather), and a device buffer only after the step that read it has
+finished (the side stream waits on an event recorded on the compute stream
+when the next batch is requested). So a yielded batch is valid until the
+next one is requested. On the CPU the same code yields the slots
+themselves, with no stream.
 
 The batch order is the JAX loader's: ``default_rng(seed·100003 + epoch)``,
 the formula of ``train/contrastive.py::epoch_permutation``. A
@@ -37,7 +42,15 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from eeg_image_decode_tpu_torch.data.native_loader import (
+    GatherPool,
+    shared_pool,
+)
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
+
+#: the loader's gather routes: the native pool, and the plain version
+GATHERS = ("pool", "index_select")
+
 
 class PrefetchLoader:
     """Shuffled batches of a dict of host arrays (numpy or CPU tensors, one
@@ -50,8 +63,14 @@ class PrefetchLoader:
     and copied per batch; integer arrays stay as they are. The consumer
     upcasts on the device. Call :meth:`close` when done.
 
+    Gathers run on the process's shared native pool
+    (``native_loader.shared_pool()``); ``gather_threads > 0`` builds a
+    private pool of that many threads, which :meth:`close` releases (the
+    JAX loader's semantics). ``gather="index_select"`` gathers with the
+    plain ``torch.index_select`` instead (``is_native`` is then false).
+
     ``gather_s`` and ``wait_s`` hold, for the last epoch, each batch's
-    gather time on the loader thread and the time the consumer's thread
+    gather time on the sequencing thread and the time the consumer's thread
     waited for it.
 
     ``shard=(rank, dp)``: each yielded batch is block ``rank`` of ``dp``
@@ -70,7 +89,11 @@ class PrefetchLoader:
         host_dtype: str | None = None,
         device=None,
         shard: tuple[int, int] = (0, 1),
+        gather_threads: int = 0,
+        gather: str = "pool",
     ):
+        if gather not in GATHERS:
+            raise ValueError(f"gather {gather!r}: one of {GATHERS}")
         self.device = resolve_device(device)
         rank, dp = shard
         if batch_size % dp or not 0 <= rank < dp:
@@ -116,10 +139,21 @@ class PrefetchLoader:
             # stream's position after the last step that read the buffer
             self._copied: list = [None] * self._n_slots
             self._consumed: list = [None] * self._n_slots
-        self._pool = ThreadPoolExecutor(1, thread_name_prefix="prefetch")
+        self._own_pool = gather == "pool" and gather_threads > 0
+        self.pool: GatherPool | None = None  # None: the plain gather
+        if self._own_pool:
+            self.pool = GatherPool(gather_threads)
+        elif gather == "pool":
+            self.pool = shared_pool()
+        self._sequencer = ThreadPoolExecutor(1, thread_name_prefix="prefetch")
         self._pending: dict[int, Future] = {}
         self.gather_s: list[float] = []
         self.wait_s: list[float] = []
+
+    @property
+    def is_native(self) -> bool:
+        """Whether batches are gathered on the native pool."""
+        return self.pool is not None
 
     def __len__(self) -> int:
         if self.drop_remainder:
@@ -147,15 +181,38 @@ class PrefetchLoader:
         try:
             self._quiesce()
         finally:
-            self._pool.shutdown(wait=True)
+            self._sequencer.shutdown(wait=True)
+            if self._own_pool:
+                self.pool.close()
+
+    def rerouted(self, **gather) -> "PrefetchLoader":
+        """This loader's twin over the same host arrays with another gather
+        route (``gather_threads=`` or ``gather=``, as the constructor takes
+        them), for comparing routes on one trainer; this one is closed."""
+        self.close()
+        return PrefetchLoader(self.arrays, self.batch_size, seed=self.seed,
+                              drop_remainder=self.drop_remainder,
+                              buffer_size=self.buffer_size,
+                              device=self.device, shard=self.shard, **gather)
 
     def _gather(self, idx: torch.Tensor, slot: dict, copied) -> None:
+        """On the sequencing thread: event-wait, then submit, then wait."""
         if copied is not None:
             copied.synchronize()  # the last copy out of this pinned slot
         t0 = time.perf_counter()
-        rows = len(idx)
-        for k, src in self.arrays.items():
-            torch.index_select(src, 0, idx, out=slot[k][:rows])
+        pool = self.pool
+        if pool is None:
+            rows = len(idx)
+            for k, src in self.arrays.items():
+                torch.index_select(src, 0, idx, out=slot[k][:rows])
+        else:
+            tickets = []
+            try:
+                for k, src in self.arrays.items():
+                    tickets.append(pool.submit(src, idx, slot[k]))
+            finally:  # a refused submit: the others still write the slot
+                for t in tickets:
+                    pool.wait(t)
         self.gather_s.append(time.perf_counter() - t0)
 
     def epoch(self, epoch: int) -> Iterator[dict[str, torch.Tensor]]:
@@ -171,7 +228,7 @@ class PrefetchLoader:
         def submit(i: int) -> None:
             s = i % self._n_slots
             rows = perm[i * bs + lo:i * bs + lo + self.local_batch]
-            self._pending[i] = self._pool.submit(
+            self._pending[i] = self._sequencer.submit(
                 self._gather, rows, self._slots[s],
                 self._copied[s] if self._cuda else None)
 

@@ -30,6 +30,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from eeg_image_decode_tpu_torch.data.native_loader import NpyMmap
+
 
 @dataclass
 class EEGRetrievalData:
@@ -60,6 +62,33 @@ def extract_subject_id(sub: str) -> int:
     return int(m.group()) if m else -1
 
 
+#: open sidecar maps by path, each with the (inode, size, mtime) of the file
+#: it maps: one map per file however often it is loaded (a leave-one-out
+#: sweep reloads subjects), and a file rewritten since is mapped anew. A map
+#: dropped from here stays mapped while an array taken from it lives.
+_OPEN_MMAPS: dict[str, tuple[tuple, NpyMmap]] = {}
+
+
+def _sidecar_map(path: str) -> NpyMmap:
+    st = os.stat(path)
+    key = (st.st_ino, st.st_size, st.st_mtime_ns)
+    hit = _OPEN_MMAPS.get(path)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    m = NpyMmap(path)
+    _OPEN_MMAPS[path] = (key, m)
+    return m
+
+
+def drop_sidecar_maps(root: str) -> None:
+    """Forget the open sidecar maps under ``root`` (before its files are
+    deleted, so their disk space is freed once no array still uses them)."""
+    root = os.path.join(os.path.abspath(root), "")
+    for path in list(_OPEN_MMAPS):
+        if os.path.abspath(path).startswith(root):
+            del _OPEN_MMAPS[path]
+
+
 def _load_subject_file(data_path: str, subject: str, train: bool) -> dict:
     name = ("preprocessed_eeg_training.npy" if train
             else "preprocessed_eeg_test.npy")
@@ -77,14 +106,17 @@ def _load_subject_file(data_path: str, subject: str, train: bool) -> dict:
     # Sidecar raw-array cache: the reference pickles a dict into the .npy
     # (preprocessing_utils.py:256-258), which forces a full unpickle copy of
     # ~4.2 GB per subject on every run. The first load writes the EEG tensor
-    # as a real .npy next to it; later loads map it with numpy's mmap_mode
-    # and page it in lazily.
+    # as a real .npy next to it; later loads map it through the native
+    # reader (data/native_loader.py::NpyMmap) with readahead over the whole
+    # file, and page it in lazily.
     cache_data = path + ".raw.npy"
     cache_meta = path + ".meta.npz"
     if (os.path.exists(cache_data) and os.path.exists(cache_meta)
             and os.path.getmtime(cache_data) >= os.path.getmtime(path)):
         try:
-            data = np.load(cache_data, mmap_mode="r")
+            m = _sidecar_map(cache_data)
+            m.willneed()
+            data = m.array
             with np.load(cache_meta, allow_pickle=True) as meta:
                 out = {k: meta[k] for k in meta.files}
             out["ch_names"] = list(out.get("ch_names", np.asarray([])))
@@ -94,7 +126,7 @@ def _load_subject_file(data_path: str, subject: str, train: bool) -> dict:
         except (OSError, ValueError, KeyError):
             # damaged or truncated cache (a killed writer): read the pickle
             # and rewrite the cache below
-            pass
+            _OPEN_MMAPS.pop(cache_data, None)
 
     # the subject files are the output of this project's preprocessing: a
     # pickled dict inside the .npy

@@ -3,6 +3,7 @@
 without the profiler watching?
 
     python3 scripts/profile_torch_streaming.py [--epochs 3] [--threads 8,2]
+        [--gathers pool,index_select] [--rounds 1]
 
 Draws one subject's synthetic split on the CUDA card (66,160 × 63 × 250),
 copies it to the host and trains ATM-S (``ATMSConfig()``, bf16, B 1024,
@@ -20,11 +21,16 @@ warm-up epoch:
   and its idle share.
 
 The device's busy time is the same work in all three modes, so the
-untraced idle share is estimated as 1 − busy / untraced wall. For the
-streamed fp32 mode the untraced epochs are repeated at each intra-op
-thread count of ``--threads`` (PyTorch's CPU threads, which the loader's
-gather runs on beside the launching thread). One JSON line per
-measurement. Needs a CUDA device.
+untraced idle share is estimated as 1 − busy / untraced wall. A streamed
+mode's untraced epochs run once for each gather route of ``--gathers``:
+``pool`` (the shared native pool, cores − 2 threads), ``pool:N`` (a
+private pool of N threads) and ``index_select`` (the plain gather, on
+PyTorch's intra-op threads); with ``--rounds 2`` or more the routes take
+turns, in order and then reversed, so a drift of the host falls on all
+alike. For the streamed fp32 mode they are repeated at each intra-op
+thread count of ``--threads`` (PyTorch's CPU threads, beside the launching
+thread). The traced epoch takes the trainer's own loader (the shared
+pool). One JSON line per measurement. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,6 +66,17 @@ def busy_ms(torch, prof) -> float:
     return busy / 1e3
 
 
+def gather_route(route: str) -> dict:
+    """``--gathers`` entry → ``PrefetchLoader`` keywords."""
+    if route == "pool":
+        return {}
+    if route.startswith("pool:"):
+        return {"gather_threads": int(route[5:])}
+    if route == "index_select":
+        return {"gather": "index_select"}
+    raise ValueError(f"gather route {route!r}: pool, pool:N or index_select")
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -79,7 +96,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--threads", default="8,2")
+    ap.add_argument("--gathers", default="pool,index_select")
+    ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args()
+    routes = args.gathers.split(",")
+    for route in routes:
+        gather_route(route)
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
@@ -113,22 +135,36 @@ def main() -> int:
         runs = {}
         for t in threads:
             torch.set_num_threads(t)
-            walls, p50s, gather, wait = runs.setdefault(t, []), [], [], []
-            for _ in range(args.epochs):
-                t0 = time.perf_counter()
-                trainer.train_epoch(epoch)
-                walls.append((time.perf_counter() - t0) * 1e3 / n)
-                p50s.append(float(np.median(
-                    trainer.last_steps["step_ms"][3:])))
+            order = []
+            for r in range(args.rounds if streaming else 1):
+                order += routes[::-1] if r % 2 else routes
+            for route in (order if streaming else [None]):
                 if streaming:
-                    gather.append(float(np.mean(trainer.loader.gather_s))
-                                  * 1e3)
-                    wait.append(float(np.mean(trainer.loader.wait_s)) * 1e3)
-                epoch += 1
-            emit({"phase": "untraced", "card": card, "mode": mode,
-                  "intra_op_threads": t, "wall_ms_per_step": walls,
-                  "event_p50_ms": p50s, "gather_ms": gather,
-                  "wait_ms": wait})
+                    trainer.loader = trainer.loader.rerouted(
+                        **gather_route(route))
+                walls, p50s, gather, wait = [], [], [], []
+                for _ in range(args.epochs):
+                    t0 = time.perf_counter()
+                    trainer.train_epoch(epoch)
+                    walls.append((time.perf_counter() - t0) * 1e3 / n)
+                    p50s.append(float(np.median(
+                        trainer.last_steps["step_ms"][3:])))
+                    if streaming:
+                        gather.append(float(np.mean(trainer.loader.gather_s))
+                                      * 1e3)
+                        wait.append(float(np.mean(trainer.loader.wait_s))
+                                    * 1e3)
+                    epoch += 1
+                runs.setdefault((t, route), []).extend(walls)
+                emit({"phase": "untraced", "card": card, "mode": mode,
+                      "intra_op_threads": t, "gather": route,
+                      "pool_threads": (trainer.loader.pool.n_threads
+                                       if streaming and trainer.loader.pool
+                                       else None),
+                      "wall_ms_per_step": walls, "event_p50_ms": p50s,
+                      "gather_ms": gather, "wait_ms": wait})
+        if streaming:  # the traced epoch: the trainer's own route
+            trainer.loader = trainer.loader.rerouted()
         torch.set_num_threads(default_threads)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -141,8 +177,8 @@ def main() -> int:
               "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
               "device_idle_share": 1.0 - busy / wall,
               "untraced_idle_share_estimate": {
-                  t: [1.0 - busy / w for w in walls]
-                  for t, walls in runs.items()}})
+                  f"{t}-{route}": [1.0 - busy / w for w in walls]
+                  for (t, route), walls in runs.items()}})
         trainer.close()
         del trainer, model, prof
         torch.cuda.empty_cache()

@@ -34,8 +34,12 @@ write, each ingest (cold, then from the sidecars), each epoch, evaluation,
 checkpoint write and the export; the step p50 (CUDA events, the first 3
 steps of each epoch left out) and samples/s; the resident split's device
 memory, each command's peak device memory and host peak RSS; the bytes on
-disk. Everything is written under a temporary directory (≈ 12.5 GB with
-the sidecars) that is deleted at the end.
+disk; and the sidecar read alone, warm (the files were just written or
+read): each sidecar mapped through ``data/native_loader.py::NpyMmap``
+with its ``willneed`` readahead and every byte read once, beside the same
+read through ``np.load(mmap_mode="r")``. Everything is written under a
+temporary directory (≈ 12.5 GB with the sidecars) that is deleted at the
+end.
 
 ``--tiny`` writes 4 training concepts × 10 images × 2 repetitions and 3
 test concepts × 4 repetitions at the same widths and runs the same
@@ -287,6 +291,45 @@ def _tree_bytes(root: str) -> dict:
 # ——— the rehearsal ———
 
 
+def _read_all(a: np.ndarray, rows: int = 1024) -> float:
+    """Every byte of a mapped array read once, in row chunks."""
+    total = 0.0
+    for r0 in range(0, len(a), rows):
+        total += float(a[r0:r0 + rows].sum(dtype=np.float64))
+    return total
+
+
+def sidecar_reads(root: str) -> list[dict]:
+    """Seconds to map each sidecar under ``root`` through ``NpyMmap`` (with
+    its readahead) and to read it whole, and the same read through numpy's
+    ``mmap_mode``; warm (the page cache is left as it is)."""
+    from eeg_image_decode_tpu_torch.data.native_loader import NpyMmap
+
+    rows = []
+    for dirpath, _, files in sorted(os.walk(root)):
+        for f in sorted(files):
+            if not f.endswith(".raw.npy"):
+                continue
+            path = os.path.join(dirpath, f)
+            t0 = time.perf_counter()
+            m = NpyMmap(path)
+            m.willneed()
+            t1 = time.perf_counter()
+            got = _read_all(m.array)
+            t2 = time.perf_counter()
+            a = np.load(path, mmap_mode="r")
+            want = _read_all(a)
+            t3 = time.perf_counter()
+            rows.append({"file": f, "gb": m.array.nbytes / 1e9,
+                         "native": m.is_native, "map_s": t1 - t0,
+                         "read_s": t2 - t1, "numpy_read_s": t3 - t2,
+                         "read_gb_per_s": m.array.nbytes / 1e9 / (t2 - t1),
+                         "sums_equal": got == want})
+            del a
+            m.close()
+    return rows
+
+
 def rehearse(work: str, size: dict, device: torch.device, epochs: int,
              resume_epochs: int) -> dict:
     report: dict = {"size": {k: size[k] for k in ("n_cls", "ipc",
@@ -353,6 +396,9 @@ def rehearse(work: str, size: dict, device: torch.device, epochs: int,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
+    report["sidecar_reads"] = sidecar_reads(work)
+    emit({"stage": "sidecar_reads", "rows": report["sidecar_reads"]})
+
     # 3. evaluate on the run directory with the last evaluation's seed
     scored = run_cli(["evaluate", *common, "--run-dir", run_dir, "--seed",
                       str(EVAL_SEED_STRIDE * (resume_epochs - 1))], device)
@@ -385,7 +431,9 @@ def rehearse(work: str, size: dict, device: torch.device, epochs: int,
                and delta <= RESUME_TOL and not differ and exported_finite
                and exported.get("eeg_features", [0])[0] == n_train
                and cold.reads and all(not r["sidecar"] for r in cold.reads)
-               and all(r["sidecar"] for r in warm.reads))})
+               and all(r["sidecar"] for r in warm.reads)
+               and all(r["native"] and r["sums_equal"]
+                       for r in report["sidecar_reads"]))})
     return report
 
 
@@ -404,8 +452,11 @@ def main(argv=None) -> dict:
         p.error("--resume-epochs must exceed --epochs")
     with tempfile.TemporaryDirectory(prefix="rehearse_fullscale_",
                                      dir=args.work_dir) as work:
-        report = rehearse(work, TINY if args.tiny else FULL, device,
-                          args.epochs, args.resume_epochs)
+        try:
+            report = rehearse(work, TINY if args.tiny else FULL, device,
+                              args.epochs, args.resume_epochs)
+        finally:
+            things_eeg.drop_sidecar_maps(work)
     emit(report)
     if not report["ok"]:
         raise RuntimeError(f"full-scale rehearsal failed: {report}")

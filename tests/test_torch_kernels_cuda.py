@@ -1408,6 +1408,43 @@ def test_cuda_loader_batches_equal_index_select(cuda, buffer_size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gather", [{"gather_threads": 3},
+                                    {"gather": "index_select"}],
+                         ids=["private_pool", "index_select"])
+def test_cuda_loader_gathers_equal_resident(cuda, gather):
+    """An epoch streamed into pinned slots on the card through a private
+    native pool of 3 threads, and through the plain ``index_select``
+    gather, against the resident arrays' batches (the shared pool is the
+    test above's), fp32 and bf16 hosts; the batches are read on the
+    compute stream behind a spin, as above."""
+    from eeg_image_decode_tpu_torch.data.loader import PrefetchLoader
+
+    rng = np.random.default_rng(9)
+    n = 150
+    arrays = {"eeg": rng.normal(size=(n, 63, 250)).astype(np.float32),
+              "labels": np.arange(n, dtype=np.int64)}
+    for host_dtype in (None, "bfloat16"):
+        loader = PrefetchLoader(arrays, 32, seed=3, buffer_size=2,
+                                host_dtype=host_dtype, device=cuda, **gather)
+        assert loader.is_native == ("gather_threads" in gather)
+        assert loader.arrays["eeg"].is_contiguous()
+        assert all(v.is_pinned() for slot in loader._slots
+                   for v in slot.values())
+        resident = {k: v.to(cuda) for k, v in loader.arrays.items()}
+        perm = torch.from_numpy(np.random.default_rng(
+            3 * 100003 + 1).permutation(n)).to(cuda)
+        diffs = []
+        for i, batch in enumerate(loader.epoch(1)):
+            torch.cuda._sleep(2_000_000)
+            idx = perm[i * 32:(i + 1) * 32]
+            for k, v in batch.items():
+                diffs.append((v != resident[k].index_select(0, idx)).sum())
+        assert i + 1 == n // 32 and len(loader.gather_s) == n // 32
+        loader.close()
+        assert int(torch.stack(diffs).sum()) == 0
+
+
+@pytest.mark.cuda
 def test_streamed_epoch_losses_equal_resident(cuda):
     """One epoch of ATM-S (full width, bf16, 4 steps of 32) streamed from
     the host and resident on the card, from one state copy (the same seeded

@@ -47,5 +47,8 @@ def test_fullscale_rehearsal_runs_the_cli_tiny(tmp_path):
     assert report["evaluate"]["equal"]
     assert [r["sidecar"] for r in report["cold"]["reads"]] == [False, False]
     assert [r["sidecar"] for r in report["resumed"]["reads"]] == [True, True]
+    # each sidecar read whole through the native map, as numpy reads it
+    assert [(r["native"], r["sums_equal"]) for r in report["sidecar_reads"]
+            ] == [(True, True), (True, True)]
     assert report["training_steps"] == 5 * 10  # 80 rows at B 8, 5 epochs
     assert os.listdir(tmp_path) == []  # the tree is gone

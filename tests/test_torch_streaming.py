@@ -4,12 +4,15 @@ profiler utilities, on the CPU.
 - ``data/loader.py::PrefetchLoader`` against the JAX package's loader on the
   JAX CPU device: equal batches in the same order, float32 and bfloat16
   hosts (both round to nearest even), several buffer sizes, a ragged last
-  batch; an abandoned epoch; a gather's error raised to the consumer; the
-  length check; the card by default.
+  batch, through the shared native pool, a private one
+  (``gather_threads=3``) and the plain ``index_select`` gather; an
+  abandoned epoch; a gather's error raised to the consumer; the length
+  check; the card by default.
 - ``ContrastiveTrainer(streaming=True)`` at the small ATM-S of
   ``tests/torch_port_case.py``, 3 epochs: losses, metrics and parameters
   bit-equal to the resident trainer; with ``host_dtype="bfloat16"``,
-  bit-equal to the resident trainer fed the same bf16-rounded EEG; a
+  bit-equal to the resident trainer fed the same bf16-rounded EEG; the
+  same with the trainer's loader swapped for the plain gather's; a
   streamed ``fit`` killed after epoch 1 and resumed: bit-equal; the zero
   batch error; ``export_features`` equal to the resident one.
 - ``cli train-retrieval --streaming [--host-dtype bfloat16] --device cpu``
@@ -70,13 +73,20 @@ def _arrays(rng, n=37):
 
 
 @pytest.mark.parametrize("host_dtype", [None, "bfloat16"])
-@pytest.mark.parametrize("buffer_size,drop", [(1, True), (2, False),
-                                              (3, True)])
-def test_loader_batches_equal_jax(rng, host_dtype, buffer_size, drop):
+@pytest.mark.parametrize("buffer_size,drop,gather", [
+    pytest.param(1, True, {}, id="1-True"),
+    pytest.param(2, False, {}, id="2-False"),
+    pytest.param(3, True, {}, id="3-True"),
+    pytest.param(2, False, {"gather_threads": 3}, id="2-False-threads3"),
+    pytest.param(2, False, {"gather": "index_select"},
+                 id="2-False-index_select")])
+def test_loader_batches_equal_jax(rng, host_dtype, buffer_size, drop,
+                                  gather):
     arrays = _arrays(rng)
     kw = dict(seed=7, drop_remainder=drop, buffer_size=buffer_size,
               host_dtype=host_dtype)
-    mine = PrefetchLoader(arrays, 5, device="cpu", **kw)
+    mine = PrefetchLoader(arrays, 5, device="cpu", **kw, **gather)
+    assert mine.is_native == (gather.get("gather") != "index_select")
     theirs = JaxLoader(arrays, 5, **kw)
     assert len(mine) == len(theirs) == (7 if drop else 8)
     for epoch in (2, 3):
@@ -151,11 +161,17 @@ def _same_run(a, b):
         assert torch.equal(sa[k], sb[k]), k
 
 
-@pytest.mark.parametrize("host_dtype", [None, "bfloat16"])
-def test_streamed_trainer_is_bit_equal_to_resident(host_dtype):
+@pytest.mark.parametrize("host_dtype,plain", [
+    pytest.param(None, False, id="None"),
+    pytest.param("bfloat16", False, id="bfloat16"),
+    pytest.param(None, True, id="None-index_select"),
+    pytest.param("bfloat16", True, id="bfloat16-index_select")])
+def test_streamed_trainer_is_bit_equal_to_resident(host_dtype, plain):
     train, test = _data()
     streamed = _trainer(train, test, streaming=True, host_dtype=host_dtype)
-    assert streamed.data is None
+    assert streamed.data is None and streamed.loader.is_native
+    if plain:
+        streamed.loader = streamed.loader.rerouted(gather="index_select")
     streamed.fit(3, log_fn=None)
     streamed.close()
     if host_dtype:  # the resident trainer fed the same bf16-rounded EEG

@@ -1,0 +1,12 @@
+"""1 − (the union of every kernel's interval) / the traced slice."""
+
+UNIT = "%"
+LAYER = "device"
+MOVES = "recon_latency_p95_ms"
+SOURCE = "device_trace"
+
+
+def read(rec: dict):
+    if "kernels" not in rec:
+        return None
+    return 100.0 * (1.0 - rec["busy_s"] / rec["trace_window_s"])

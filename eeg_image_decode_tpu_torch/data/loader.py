@@ -35,7 +35,6 @@ batch sharding hands a process its rows.
 
 from __future__ import annotations
 
-import time
 from collections.abc import Iterator
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -46,6 +45,7 @@ from eeg_image_decode_tpu_torch.data.native_loader import (
     GatherPool,
     shared_pool,
 )
+from eeg_image_decode_tpu_torch.utils import profiling
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
 
 #: the loader's gather routes: the native pool, and the plain version
@@ -71,7 +71,8 @@ class PrefetchLoader:
 
     ``gather_s`` and ``wait_s`` hold, for the last epoch, each batch's
     gather time on the sequencing thread and the time the consumer's thread
-    waited for it.
+    waited for it: the ``loader.gather`` and ``loader.wait`` spans
+    (``utils/profiling.py``), whose readings they are.
 
     ``shard=(rank, dp)``: each yielded batch is block ``rank`` of ``dp``
     equal blocks of the global batch of ``batch_size`` rows (which dp must
@@ -199,21 +200,21 @@ class PrefetchLoader:
         """On the sequencing thread: event-wait, then submit, then wait."""
         if copied is not None:
             copied.synchronize()  # the last copy out of this pinned slot
-        t0 = time.perf_counter()
-        pool = self.pool
-        if pool is None:
-            rows = len(idx)
-            for k, src in self.arrays.items():
-                torch.index_select(src, 0, idx, out=slot[k][:rows])
-        else:
-            tickets = []
-            try:
+        with profiling.span("loader.gather") as sp:
+            pool = self.pool
+            if pool is None:
+                rows = len(idx)
                 for k, src in self.arrays.items():
-                    tickets.append(pool.submit(src, idx, slot[k]))
-            finally:  # a refused submit: the others still write the slot
-                for t in tickets:
-                    pool.wait(t)
-        self.gather_s.append(time.perf_counter() - t0)
+                    torch.index_select(src, 0, idx, out=slot[k][:rows])
+            else:
+                tickets = []
+                try:
+                    for k, src in self.arrays.items():
+                        tickets.append(pool.submit(src, idx, slot[k]))
+                finally:  # a refused submit: the others still write the slot
+                    for t in tickets:
+                        pool.wait(t)
+        self.gather_s.append((sp.t1 - sp.t0) / 1e9)
 
     def epoch(self, epoch: int) -> Iterator[dict[str, torch.Tensor]]:
         self._quiesce()
@@ -235,9 +236,9 @@ class PrefetchLoader:
         for i in range(min(self.buffer_size, n_batches)):
             submit(i)
         for i in range(n_batches):
-            t0 = time.perf_counter()
-            self._pending.pop(i).result()
-            self.wait_s.append(time.perf_counter() - t0)
+            with profiling.span("loader.wait") as sp:
+                self._pending.pop(i).result()
+            self.wait_s.append((sp.t1 - sp.t0) / 1e9)
             s = i % self._n_slots
             rows = min(self.local_batch, self.n - i * bs)
             if self._cuda:

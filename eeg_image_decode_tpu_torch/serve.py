@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from eeg_image_decode_tpu_torch.utils import profiling
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
 
 #: row-key domains: the prior's draws and SDXL's of one (seed, row)
@@ -189,7 +190,10 @@ class ReconstructionService:
 
     On a CUDA device ``stage_ms`` holds the device milliseconds of the last
     call's stages, summed over its chunks (CUDA events): ``encoder``,
-    ``prior``, ``unet_steps`` and ``vae_decode``."""
+    ``prior``, ``unet_steps`` and ``vae_decode``. The host's side of the
+    same stages are spans (``utils/profiling.py``) between the same marks:
+    ``recon.encoder``, ``recon.prior``, ``recon.unet`` and ``recon.vae`` a
+    chunk, then ``recon.readback`` (the images' one read of the device)."""
 
     STAGES = ("encoder", "prior", "unet_steps", "vae_decode")
 
@@ -215,14 +219,23 @@ class ReconstructionService:
         dev = self.device
         events.append([])
         _mark(dev, events)
-        embeds = _prior_embeddings(self.model, self.prior, eeg, sids,
-                                   row_seeds, dev, events)
+        # _prior_embeddings' two steps, each a span
+        with profiling.span("recon.encoder"):
+            feats, _ = self.model(torch.from_numpy(eeg).to(dev),
+                                  torch.from_numpy(sids).to(dev))
         _mark(dev, events)
-        latents = self.generator.generate(
-            embeds, decode=False,
-            row_keys=torch.from_numpy(_row_keys(row_seeds, SDXL_DOMAIN)))
+        with profiling.span("recon.prior"):
+            embeds = self.prior.generate(
+                feats.float(), row_keys=torch.from_numpy(
+                    _row_keys(row_seeds, PRIOR_DOMAIN)).to(dev))
         _mark(dev, events)
-        imgs = self.generator.decode(latents)
+        with profiling.span("recon.unet"):
+            latents = self.generator.generate(
+                embeds, decode=False,
+                row_keys=torch.from_numpy(_row_keys(row_seeds, SDXL_DOMAIN)))
+        _mark(dev, events)
+        with profiling.span("recon.vae"):
+            imgs = self.generator.decode(latents)
         _mark(dev, events)
         return imgs
 
@@ -240,7 +253,8 @@ class ReconstructionService:
                                        self.max_batch):
             # device results stay queued; one readback after the loop
             out.append(self._chunk(*chunk, events)[:m])
-        images = torch.cat(out).cpu().numpy()
+        with profiling.span("recon.readback"):
+            images = torch.cat(out).cpu().numpy()
         if self.device.type == "cuda":
             self.stage_ms = _stage_ms(self.STAGES, events)
         return images

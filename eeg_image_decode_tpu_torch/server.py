@@ -28,6 +28,13 @@ Design notes:
   rows carry their (seed, row) pairs, so a row's image or caption does not
   depend on what it was coalesced with. ``coalesce=False`` serves each
   request alone under the device lock, as the JAX daemon's option does.
+- The coalescer records its spans (``utils/profiling.py``): a request's
+  ``server.request`` (submit → return) with its ``server.queue`` (submit →
+  a leader takes it into a batch; ``call``: the call's id) and
+  ``server.return_wait`` (its answer set → its thread leaves ``submit``,
+  which takes the device lock first), and the leader's ``server.call``
+  (merge → demux; ``rows``, and ``requests``: the requests' ids). The
+  device thread's spans take the call as parent.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from __future__ import annotations
 import io
 import json
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -44,6 +52,7 @@ from eeg_image_decode_tpu_torch.serve import (
     _check_request,
     _default_row_seeds,
 )
+from eeg_image_decode_tpu_torch.utils import profiling
 
 
 class _Coalescer:
@@ -74,19 +83,25 @@ class _Coalescer:
 
     def submit(self, rows: dict, **kw):
         n = next(iter(rows.values())).shape[0]
-        item = {
-            "rows": rows, "n": n, "kw": kw,
-            "event": threading.Event(), "out": None, "err": None,
-        }
-        with self._mu:
-            self._pending.append(item)
-        with self._device_lock:
-            # drain FIFO groups until OUR item is served: an earlier leader
-            # may have batched it already (event set before we got the
-            # lock), and the last thread standing must never exit leaving
-            # its own (or anyone's reachable) group stranded
-            while not item["event"].is_set():
-                self._drain_as_leader()
+        with profiling.span("server.request", rows=n) as req:
+            item = {
+                "rows": rows, "n": n, "kw": kw, "span": req,
+                "event": threading.Event(), "out": None, "err": None,
+            }
+            with self._mu:
+                self._pending.append(item)
+            with self._device_lock:
+                # drain FIFO groups until OUR item is served: an earlier
+                # leader may have batched it already (event set before we
+                # got the lock), and the last thread standing must never
+                # exit leaving its own (or anyone's reachable) group
+                # stranded
+                while not item["event"].is_set():
+                    self._drain_as_leader()
+            t_served, profiled = item["served"]
+            profiling.record("server.return_wait", t_served,
+                             time.perf_counter_ns(), parent=req,
+                             profiled=profiled)
         if item["err"] is not None:
             raise item["err"]
         return item["out"]
@@ -120,23 +135,38 @@ class _Coalescer:
                 else:
                     rest.append(it)
             self._pending = rest
+        t_take = time.perf_counter_ns()
         try:
-            merged = {
-                k: np.concatenate([it["rows"][k] for it in batch], axis=0)
-                for k in batch[0]["rows"]
-            }
-            out = self._fn(merged, **kw)
-            start = 0
-            for it in batch:
-                m = it["n"]
-                it["out"] = _slice_rows(out, start, start + m)
-                start += m
+            with profiling.span("server.call", rows=rows, requests=[
+                    it["span"].id for it in batch]) as call:
+                for it in batch:
+                    req = it["span"]
+                    profiling.record("server.queue", req.t0, t_take,
+                                     parent=req, profiled=req.profiled,
+                                     call=call.id)
+                merged = {
+                    k: np.concatenate([it["rows"][k] for it in batch], axis=0)
+                    for k in batch[0]["rows"]
+                }
+                out = self._fn(merged, **kw)
+                start = 0
+                for it in batch:
+                    m = it["n"]
+                    it["out"] = _slice_rows(out, start, start + m)
+                    start += m
         except Exception as e:  # pragma: no cover - per-request error fanout
             for it in batch:
                 it["err"] = e
         finally:
+            served = (time.perf_counter_ns(), profiling.recording())
             for it in batch:
+                it["served"] = served
                 it["event"].set()
+
+
+def _run_under(parent, fn, rows: dict, kw: dict):
+    with profiling.under(parent):
+        return fn(rows, **kw)
 
 
 def _slice_rows(out: tuple, lo: int, hi: int) -> tuple:
@@ -171,8 +201,10 @@ class EEGDecodeServer:
                                           thread_name_prefix="device")
 
         def on_device(fn):
-            return lambda rows, **kw: self._device.submit(fn, rows,
-                                                          **kw).result()
+            # the caller's span (the coalescer's call) is the parent of the
+            # device thread's
+            return lambda rows, **kw: self._device.submit(
+                _run_under, profiling.current(), fn, rows, kw).result()
 
         # the services over the coalescer's (rows, **kw) convention, shared
         # by the coalesced and the lock-serialised paths. Seeded services

@@ -83,6 +83,7 @@ from eeg_image_decode_tpu_torch.parallel.collectives import (
 )
 from eeg_image_decode_tpu_torch.parallel.multihost import process_local_slice
 from eeg_image_decode_tpu_torch.train.evaluator import retrieval_eval
+from eeg_image_decode_tpu_torch.utils import profiling
 from eeg_image_decode_tpu_torch.utils.device import resolve_device
 
 
@@ -234,7 +235,12 @@ def train_steps(state: TrainState, cfg: ContrastiveTrainConfig,
 
     Returns ``loss`` and ``train_acc`` (epoch means, device tensors),
     ``step_loss`` (n_steps,), and on a CUDA device ``step_ms``, each step's
-    time between CUDA events (read after the epoch's one sync)."""
+    time between CUDA events (read after the epoch's one sync). Each step
+    is a ``train.step`` span (``utils/profiling.py``) holding
+    ``train.forward`` (:func:`batch_loss`), ``train.backward`` (the
+    gradients, averaged over the dp group under a mesh) and
+    ``train.optimizer`` (AdamW's step), host time each; the gradients are
+    cleared between the forward and the backward, outside any of them."""
     model, opt = state.model, state.optimizer
     model.train()
     dev = class_img_feat.device
@@ -247,21 +253,25 @@ def train_steps(state: TrainState, cfg: ContrastiveTrainConfig,
         events[0].record()
     s = -1
     for s, batch in enumerate(batches):
-        loss, feats = batch_loss(model, cfg, batch, generator=generator,
-                                 mesh=mesh)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if mesh is not None:
-            pmean_tree(model.parameters(), mesh)
-        opt.step()
-        state.step += 1
-        with torch.no_grad():
-            # train-time class-accuracy probe (ref :241-250)
-            pred = torch.matmul(feats, class_img_feat.T).argmax(1)
-            accs[s] = (pred == batch["labels"]).float().mean()
-            losses[s] = loss.detach()
-        if timed:
-            events[s + 1].record()
+        with profiling.span("train.step"):
+            with profiling.span("train.forward"):
+                loss, feats = batch_loss(model, cfg, batch,
+                                         generator=generator, mesh=mesh)
+            opt.zero_grad(set_to_none=True)
+            with profiling.span("train.backward"):
+                loss.backward()
+                if mesh is not None:
+                    pmean_tree(model.parameters(), mesh)
+            with profiling.span("train.optimizer"):
+                opt.step()
+            state.step += 1
+            with torch.no_grad():
+                # train-time class-accuracy probe (ref :241-250)
+                pred = torch.matmul(feats, class_img_feat.T).argmax(1)
+                accs[s] = (pred == batch["labels"]).float().mean()
+                losses[s] = loss.detach()
+            if timed:
+                events[s + 1].record()
     if s + 1 != n_steps:
         raise RuntimeError(f"{s + 1} batches for {n_steps} steps")
     out = {"loss": losses.mean(), "train_acc": accs.mean(),
@@ -448,7 +458,11 @@ class ContrastiveTrainer:
                     ) -> dict:
         """One epoch: the schedule of :meth:`epoch_perm`, or ``perm``
         (n_steps, B) given (resident modes), each rank taking its B/dp
-        columns under a mesh."""
+        columns under a mesh. A ``train.epoch`` span, its sync included."""
+        with profiling.span("train.epoch", epoch=epoch):
+            return self._train_epoch(epoch, perm)
+
+    def _train_epoch(self, epoch: int, perm: np.ndarray | None) -> dict:
         bs = self.cfg.batch_size
         generator = self._generator(self.cfg.seed + 7919 * epoch)
         t0 = time.perf_counter()
@@ -480,12 +494,15 @@ class ContrastiveTrainer:
         return metrics
 
     def evaluate(self, epoch: int = 0) -> dict:
-        feats, scale = self.eval_fn(self.test_eeg, self.test_subject_ids)
-        out = retrieval_eval(
-            feats, self.test_class_img_feat, self.test_labels, scale,
-            ks=self.cfg.eval_ks,
-            generator=self._generator(self.cfg.seed + 104729 * epoch))
-        return {k: float(v) for k, v in out.items()}
+        """The test split's retrieval metrics: a ``train.evaluate`` span,
+        its read of the device included."""
+        with profiling.span("train.evaluate", epoch=epoch):
+            feats, scale = self.eval_fn(self.test_eeg, self.test_subject_ids)
+            out = retrieval_eval(
+                feats, self.test_class_img_feat, self.test_labels, scale,
+                ks=self.cfg.eval_ks,
+                generator=self._generator(self.cfg.seed + 104729 * epoch))
+            return {k: float(v) for k, v in out.items()}
 
     def fit(self, epochs: int | None = None, log_fn=print) -> list[dict]:
         """Epochs ``start_epoch … epochs−1``: train, evaluate, append the

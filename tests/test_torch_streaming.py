@@ -21,13 +21,13 @@ profiler utilities, on the CPU.
   run); ``--host-dtype`` without ``--streaming`` is ignored.
 - ``utils/logging.py::MetricsLogger``'s CSV and stdout rows equal the JAX
   logger's byte for byte, and a missing wandb raises;
-  ``utils/profiling.py``'s ``StepTimer``, ``assert_finite`` and ``trace``.
+  ``utils/profiling.py``'s ``assert_finite`` and ``trace`` (its Chrome
+  trace holds a program span).
 """
 
 import dataclasses
 import io
 import json
-import os
 import sys
 
 import numpy as np
@@ -301,13 +301,6 @@ def test_metrics_logger_rows_equal_jax(tmp_path, monkeypatch):
 
 
 def test_step_timer_assert_finite_and_trace(tmp_path):
-    for mod, value in ((profiling, torch.ones(())),
-                       (jax_profiling, np.ones(()))):
-        timer = mod.StepTimer()
-        for _ in range(3):
-            timer.start()
-            assert timer.stop(value) >= 0
-        assert len(timer.times) == 3 and timer.best <= timer.mean
     x = torch.tensor([1.0, 2.0])
     assert profiling.assert_finite(x) is x
     bad = [1.0, float("nan")]
@@ -322,5 +315,8 @@ def test_step_timer_assert_finite_and_trace(tmp_path):
         profiling.assert_finite(torch.tensor([float("inf")]).bfloat16(),
                                 "eeg")
     with profiling.trace(str(tmp_path / "tr")):
-        torch.ones(4).sum()
-    assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+        with profiling.span("program.step"):
+            torch.ones(4).sum()
+    with open(tmp_path / "tr" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert "program.step" in {e.get("name") for e in events}
